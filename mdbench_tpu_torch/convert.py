@@ -1,0 +1,94 @@
+"""Carry cluster state from mdbench_tpu into the port.
+
+The system has no weights: its state is the cluster layout, the ghost
+map and the pair lists. Each function takes the arrays of one of
+mdbench_tpu's NamedTuples — the NamedTuple itself (its arrays convert
+with numpy.asarray), any object with the same attribute names, or a
+mapping of names to numpy arrays — and returns the port's NamedTuple
+on `device`, with floating arrays in `dtype`. This module imports
+neither jax nor mdbench_tpu.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from mdbench_tpu_torch.engine_cluster import CStepState
+from mdbench_tpu_torch.ops.cluster import ClusterHalo, ClusterPairList, Clusters
+
+
+def _field(src, name):
+    return src[name] if isinstance(src, Mapping) else getattr(src, name)
+
+
+def _get(src, name):
+    return np.asarray(_field(src, name))
+
+
+def _float(src, name, device, dtype):
+    return torch.tensor(_get(src, name), dtype=dtype, device=device)
+
+
+def _int(src, name, device, dtype=torch.int64):
+    return torch.tensor(_get(src, name).astype(np.int64), dtype=dtype, device=device)
+
+
+def _bool(src, name, device):
+    return torch.tensor(_get(src, name).astype(bool), device=device)
+
+
+def clusters_from_numpy(src, device, dtype) -> Clusters:
+    """mdbench_tpu Clusters -> port Clusters (the type plane is dropped:
+    the port runs untyped)."""
+    return Clusters(
+        xc=_float(src, "xc", device, dtype),
+        yc=_float(src, "yc", device, dtype),
+        zc=_float(src, "zc", device, dtype),
+        bbox=_float(src, "bbox", device, dtype),
+        atom_id=_int(src, "atom_id", device),
+        inv_map=_int(src, "inv_map", device),
+    )
+
+
+def halo_from_numpy(src, device, dtype) -> ClusterHalo:
+    """mdbench_tpu ClusterHalo -> port ClusterHalo."""
+    return ClusterHalo(
+        border_map=_int(src, "border_map", device),
+        shift_x=_float(src, "shift_x", device, dtype),
+        shift_y=_float(src, "shift_y", device, dtype),
+        shift_z=_float(src, "shift_z", device, dtype),
+        nghost=_int(src, "nghost", device),
+        overflow=_bool(src, "overflow", device),
+    )
+
+
+def pairs_from_numpy(src, device) -> ClusterPairList:
+    """mdbench_tpu ClusterPairList (exact-list form) -> port
+    ClusterPairList. The group list loses its TPU block axis:
+    (NG, 1, L) -> (NG, L); the tile windows (`ranges`) and the bucket maps
+    have no counterpart."""
+    jl = _get(src, "jlist")
+    return ClusterPairList(
+        jlist=torch.tensor(jl.reshape(jl.shape[0], -1).astype(np.int64), device=device),
+        nj=_int(src, "nj", device),
+        overflow=_bool(src, "overflow", device),
+        ijlist=_int(src, "ijlist", device, torch.int32),
+        nji=_int(src, "nji", device, torch.int32),
+        iovf=_bool(src, "iovf", device),
+    )
+
+
+def step_state_from_numpy(src, device, dtype) -> CStepState:
+    """mdbench_tpu CStepState -> port CStepState."""
+    planes = [_float(src, n, device, dtype)
+              for n in ("vxc", "vyc", "vzc", "fxc", "fyc", "fzc")]
+    return CStepState(
+        clusters_from_numpy(_field(src, "clusters"), device, dtype),
+        *planes,
+        halo_from_numpy(_field(src, "halo"), device, dtype),
+        pairs_from_numpy(_field(src, "pairs"), device),
+        _bool(src, "overflow", device),
+    )

@@ -1,0 +1,120 @@
+"""The exact-list force kernel (csrc/lj_cluster_ilist.cu) against its plain
+torch version, on a CUDA card. This file imports no jax, so it runs on a
+machine that has torch and a card but no jax:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(tests/conftest.py configures jax; --noconftest skips it.) Without a card
+the kernel tests skip: a CUDA kernel has no CPU mode.
+
+Inputs: random planes and lists that hold sentinel ids mid-list, padding
+atoms, all-padding units and the all-sentinel last j16; and the lists the
+port's own engine builds on the card. Tolerances are relative to max |f|:
+1e-5 in float32, 1e-12 in float64 (the kernel sums in list order, the
+plain version in torch's reduction order)."""
+
+import numpy as np
+import pytest
+import torch
+
+from mdbench_tpu_torch.config import Params
+from mdbench_tpu_torch.convert import clusters_from_numpy, pairs_from_numpy
+from mdbench_tpu_torch.engine_cluster import ClusterSimulation
+from mdbench_tpu_torch.models.lattice import create_fcc_lattice
+from mdbench_tpu_torch.ops import lj_cluster as tlj
+from mdbench_tpu_torch.state import SENTINEL_COORD
+
+torch.set_num_threads(1)
+
+CUT2, SIG6, EPS = 2.5**2, 1.0, 1.0
+TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def synthetic_case(seed=0, cjn=256, nu=64, icap=16, share=2):
+    """Numpy arrays named as mdbench_tpu's Clusters / ClusterPairList:
+    jittered cubic-lattice rows, ~10% padding atoms, units 4 and 5 (share
+    2) made only of padding, the last j16 all-sentinel, and lists holding
+    a sentinel id mid-list. Returns (clusters, pairs, n_clusters_pad,
+    share)."""
+    rng = np.random.default_rng(seed)
+    nrows = 2 * cjn
+    g = np.stack(np.meshgrid(*[np.arange(16)] * 3, indexing="ij"), -1)
+    pts = g.reshape(-1, 3)[rng.permutation(16**3)[: nrows * 8]] * 1.1
+    pts = pts + rng.normal(0.0, 0.05, pts.shape)
+    planes = [pts[:, c].reshape(nrows, 8).copy() for c in range(3)]
+    rank = np.arange(nrows * 8, dtype=np.float64).reshape(nrows, 8)
+    pad = SENTINEL_COORD * (1.0 + rank * 1e-6)
+    padmask = rng.random((nrows, 8)) < 0.1
+    padmask[-2:] = True  # the last j16 is all-sentinel
+    padmask[8:12] = True  # rows 8-11: all-padding units at share 1, 2, 4
+    for pl in planes:
+        pl[padmask] = pad[padmask]
+    sentinel16 = cjn - 1
+    ijl = np.full((nu, icap), sentinel16, np.int32)
+    nji = rng.integers(0, icap + 1, nu).astype(np.int32)
+    for u in range(nu):
+        ids = rng.choice(cjn - 1, nji[u], replace=False)
+        if nji[u] > 2:
+            ids[rng.integers(nji[u])] = sentinel16  # a sentinel mid-list
+        ijl[u, : nji[u]] = ids
+    cl = {"xc": planes[0], "yc": planes[1], "zc": planes[2],
+          "bbox": np.zeros((nrows, 8)), "atom_id": np.zeros((nu * share, 8)),
+          "inv_map": np.zeros(1)}
+    pairs = {"jlist": np.zeros((1, 1, 1)), "nj": np.zeros(1),
+             "overflow": np.zeros(2, bool), "ijlist": ijl, "nji": nji,
+             "iovf": np.zeros((), bool)}
+    return cl, pairs, nu * share, share
+
+
+def _rel(a, b):
+    a = torch.stack([t.double().cpu() for t in a])
+    b = torch.stack([t.double().cpu() for t in b])
+    assert torch.isfinite(a).all() and torch.isfinite(b).all()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share,nu", [(1, 128), (2, 64), (4, 32)])
+@pytest.mark.parametrize("tdtype", [torch.float32, torch.float64])
+def test_cuda_kernel_matches_plain(cuda, share, nu, tdtype):
+    cl, pairs, npad, share = synthetic_case(seed=share, nu=nu, share=share)
+    c = clusters_from_numpy(cl, cuda, tdtype)
+    pr = pairs_from_numpy(pairs, cuda)
+    before = tlj.LAUNCHES
+    f_k = tlj.lj_cluster_force_ilist(
+        c.xc, c.yc, c.zc, pr.ijlist, pr.nji, npad, CUT2, SIG6, EPS, share=share)
+    torch.cuda.synchronize()
+    assert tlj.LAUNCHES == before + 1
+    f_r = tlj.lj_cluster_force_ilist_ref(
+        c.xc, c.yc, c.zc, pr.ijlist, npad, CUT2, SIG6, EPS, share=share)
+    assert _rel(f_k, f_r) <= TOL[tdtype]
+    # the all-padding units get exactly zero force
+    for f in f_k:
+        assert (f[8:12] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["sp", "dp"])
+def test_cuda_kernel_on_engine_lists(cuda, precision):
+    p = Params(nx=6, ny=6, nz=6, precision=precision, scheme="cluster")
+    x, v, _ = create_fcc_lattice(p)
+    x = x + np.random.default_rng(5).normal(0.0, 0.05, x.shape)
+    sim = ClusterSimulation(p, x=x, v=v, device=cuda)
+    st = sim.initial_state()
+    cl, pr = st.clusters, st.pairs
+    args = (cl.xc, cl.yc, cl.zc, pr.ijlist)
+    f_r = tlj.lj_cluster_force_ilist_ref(
+        *args, sim.n_clusters_pad, CUT2, SIG6, EPS, share=sim.ishare)
+    assert _rel((st.fxc, st.fyc, st.fzc), f_r) <= TOL[p.dtype]
+    # the same forces from the card's engine and from the CPU plain path
+    f_cpu = ClusterSimulation(p, x=x, v=v, device="cpu").first_force_atoms()
+    f_gpu = sim.first_force_atoms()
+    assert np.abs(f_gpu - f_cpu).max() <= 10 * TOL[p.dtype] * np.abs(f_cpu).max()
+
