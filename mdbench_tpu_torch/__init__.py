@@ -1,8 +1,8 @@
 """mdbench_tpu_torch — the PyTorch/CUDA port of mdbench_tpu.
 
 The port runs the cluster-pair scheme (GROMACS-style M x N cluster lists,
-reference src/clusterpair/) with Lennard-Jones forces on one NVIDIA Hopper
-card. Module paths mirror ``mdbench_tpu`` so each function's counterpart is
+reference src/clusterpair/) with Lennard-Jones or EAM forces on one NVIDIA
+Hopper card. Module paths mirror ``mdbench_tpu`` so each function's counterpart is
 easy to find; ``mdbench_tpu`` stays the reference the tests hold the port
 against.
 
@@ -10,9 +10,10 @@ against.
   carried across unchanged;
 - the list build and the time-step loop are eager torch ops on an explicit
   ``device``;
-- the exact-list force is a hand-written CUDA kernel
-  (``csrc/lj_cluster_ilist.cu``), built with ``nvcc`` at first use
-  (``_build.py``). On a CPU tensor the plain torch twin runs instead.
+- the exact-list forces are hand-written CUDA kernels
+  (``csrc/lj_cluster_ilist.cu``; the two EAM passes in
+  ``csrc/eam_cluster.cu``), built with ``nvcc`` at first use
+  (``_build.py``). On a CPU tensor the plain torch twins run instead.
 
 The package imports torch and numpy only, never jax or mdbench_tpu.
 """

@@ -1,11 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``. The library lands in
+Each ``csrc/*.cu`` source compiles with its own ``nvcc`` process, all
+started together, and the objects link into one shared library with a
+plain C interface, loaded with ``ctypes``. The library lands in
 ``mdbench_tpu_torch/_build/`` under a name keyed by a hash of the sources
 and flags, so an edited source rebuilds and an unchanged one loads the
-cached file. The build runs at first use (the first launch on a CUDA
-tensor), never at import: the CPU path needs neither nvcc nor a card.
+cached file; the compilers' output (``-Xptxas -v``: registers, shared
+memory, spills per kernel) is kept beside it in a ``.log`` file. The
+build runs at first use (the first launch on a CUDA tensor), never at
+import: the CPU path needs neither nvcc nor a card.
 """
 
 from __future__ import annotations
@@ -20,9 +23,9 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -33,6 +36,13 @@ _SIGNATURES = {
         [_P] * 8 + [_I] * 3 + [ctypes.c_float] * 3 + [_P], ctypes.c_int),
     "lj_cluster_ilist_f64": (
         [_P] * 8 + [_I] * 3 + [ctypes.c_double] * 3 + [_P], ctypes.c_int),
+    # (xc, yc, zc, ijlist, nji, rho, n_units, icap, share, coefs, stream)
+    "eam_rho_ilist_f32": ([_P] * 6 + [_I] * 3 + [_P] * 2, ctypes.c_int),
+    "eam_rho_ilist_f64": ([_P] * 6 + [_I] * 3 + [_P] * 2, ctypes.c_int),
+    # (xc, yc, zc, fp, ijlist, nji, fx, fy, fz, n_units, icap, share,
+    #  coefs, stream)
+    "eam_force_ilist_f32": ([_P] * 9 + [_I] * 3 + [_P] * 2, ctypes.c_int),
+    "eam_force_ilist_f64": ([_P] * 9 + [_I] * 3 + [_P] * 2, ctypes.c_int),
 }
 
 _lib = None  # the loaded library, once per process
@@ -66,21 +76,43 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless the library for them already exists.
-    Raises with nvcc's output if the compile fails."""
+    """Compile the sources, one nvcc each in parallel, and link them,
+    unless the library for them already exists. Raises with nvcc's
+    output if a step fails."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}{res.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    nvcc = nvcc_path()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    jobs = []
+    for src, obj in zip(sources(), objs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, proc in jobs:
+        text = proc.communicate()[0]
+        logs.append(f"$ {' '.join(cmd)}\n{text}")
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed}):\n" + "\n".join(logs))
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                f"{res.stdout}{res.stderr}"
+            )
+        out.with_suffix(".log").write_text("\n".join(logs))
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return out
 
 

@@ -11,6 +11,10 @@ chained runs, fenced with torch.cuda.synchronize().
     python -m mdbench_tpu_torch.bench
 
 Prints exactly one JSON line.
+
+`run_bench_eam` runs the cluster EAM workload of tools/r3_eamc.py on the
+card (the same 32^3 cells, with initEam's overrides: 131,072 atoms,
+cutoff of the potential file, 60 steps) and applies no gate.
 """
 
 from __future__ import annotations
@@ -42,6 +46,20 @@ def run_bench(repeats: int = 3, chain: int = 3):
     sim = ClusterSimulation(params, device="cuda")
     out = sim.run(repeats=repeats, chain=chain)
     check_golden(out.temps, params.reneigh_every)
+    return sim, out, sim.natoms * params.ntimes / out.total_time
+
+
+def run_bench_eam(eam_file: str, precision: str = "sp", repeats: int = 3,
+                  chain: int = 3):
+    """The cluster EAM run on the CUDA card with the potential `eam_file`.
+    Returns (sim, result, atom-updates per second)."""
+    from mdbench_tpu_torch.config import FF_EAM, Params
+    from mdbench_tpu_torch.engine_cluster import ClusterSimulation
+
+    params = Params(precision=precision, scheme="cluster", dense_thermo=False,
+                    force_field=FF_EAM, eam_file=eam_file, ntimes=60)
+    sim = ClusterSimulation(params, device="cuda")
+    out = sim.run(repeats=repeats, chain=chain)
     return sim, out, sim.natoms * params.ntimes / out.total_time
 
 

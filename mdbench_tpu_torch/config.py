@@ -107,8 +107,8 @@ class Params:
     # record T/P every step (True) or only at reneighbor boundaries
     # (False — the reference prints only every nstat steps)
     dense_thermo: bool = True
-    # force-kernel backend; the port has one, the exact-list kernel
-    # (CUDA on a CUDA device, its plain torch twin on the CPU): "auto"
+    # force-kernel backend; the port has one, the exact-list kernels
+    # (CUDA on a CUDA device, their plain torch twins on the CPU): "auto"
     kernel: str = "auto"
     # FORCE/NEIGH section timing mode of the JAX CLI ("est" | "diff")
     timers: str = "est"
@@ -117,8 +117,9 @@ class Params:
     # approximate reciprocal in the TPU force kernel. Accepted and has
     # NO effect in the port: the CUDA kernel always divides (IEEE)
     approx_rcp: bool = True
-    # EAM per-pair evaluation ("auto" | "spline" | "poly"); EAM is not
-    # ported yet
+    # EAM per-pair evaluation ("auto" | "spline" | "poly"); the port's
+    # cluster EAM evaluates polynomials ("auto" or "poly") and refuses
+    # "spline", as mdbench_tpu's cluster EAM does
     eam_eval: str = "auto"
     # bfloat16 distance math in the exact-list derive; not ported
     derive_bf16: bool = False

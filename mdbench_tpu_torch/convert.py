@@ -1,7 +1,8 @@
-"""Carry cluster state from mdbench_tpu into the port.
+"""Carry cluster state and EAM tables from mdbench_tpu into the port.
 
 The system has no weights: its state is the cluster layout, the ghost
-map and the pair lists. Each function takes the arrays of one of
+map and the pair lists, and its parameters are the EAM spline tables and
+pair polynomials. Each function takes the arrays of one of
 mdbench_tpu's NamedTuples — the NamedTuple itself (its arrays convert
 with numpy.asarray), any object with the same attribute names, or a
 mapping of names to numpy arrays — and returns the port's NamedTuple
@@ -17,6 +18,8 @@ import numpy as np
 import torch
 
 from mdbench_tpu_torch.engine_cluster import CStepState
+from mdbench_tpu_torch.models.eam_tables import EamPoly
+from mdbench_tpu_torch.ops.eam import EamDevice
 from mdbench_tpu_torch.ops.cluster import ClusterHalo, ClusterPairList, Clusters
 
 
@@ -92,3 +95,32 @@ def step_state_from_numpy(src, device, dtype) -> CStepState:
         pairs_from_numpy(_field(src, "pairs"), device),
         _bool(src, "overflow", device),
     )
+
+
+def eam_from_numpy(tables, poly, device, dtype) -> tuple[EamDevice, EamPoly]:
+    """mdbench_tpu EAM parameters -> (port EamDevice, port EamPoly).
+
+    `tables` is an EamTables (spline arrays `*_spline`) or an EamDevice
+    (`rhor`, `frho`, `z2r`), either with `rdr`, `rdrho`, `nr`, `nrho`;
+    `poly` is an EamPoly. The splines land on `device` in `dtype`; the
+    polynomial stays on the host in float64, as its coefficients are
+    folded into the kernels as constants."""
+    names = ("rhor", "frho", "z2r")
+    if all(_has(tables, f"{n}_spline") for n in names):
+        names = tuple(f"{n}_spline" for n in names)
+    rhor, frho, z2r = (_float(tables, n, device, dtype) for n in names)
+    dev = EamDevice(
+        rhor=rhor, frho=frho, z2r=z2r,
+        rdr=float(_field(tables, "rdr")), rdrho=float(_field(tables, "rdrho")),
+        nr=int(_field(tables, "nr")), nrho=int(_field(tables, "nrho")),
+    )
+    host = EamPoly(**{
+        f: (np.asarray(_field(poly, f), np.float64)
+            if f in ("dens", "g1", "g2") else float(_field(poly, f)))
+        for f in EamPoly._fields
+    })
+    return dev, host
+
+
+def _has(src, name) -> bool:
+    return name in src if isinstance(src, Mapping) else hasattr(src, name)

@@ -9,8 +9,8 @@ State lives in cluster layout between reneighbor events:
     full (at resort_every boundaries): flatten to atoms, wrap, re-sort
       and re-chop into clusters, then the same list chain
   every step:
-    integrate cluster planes -> refresh ghost rows -> exact-list force
-    (CUDA kernel on the card) -> integrate
+    integrate cluster planes -> refresh ghost rows -> exact-list force,
+    LJ or two-pass EAM (CUDA kernels on the card) -> integrate
 
 The time-step loop is a Python loop of eager torch ops on `device`
 (mdbench_tpu compiled it into one lax.scan). The integration and the
@@ -29,7 +29,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from mdbench_tpu_torch.config import FF_LJ, Params
+from mdbench_tpu_torch.config import FF_EAM, FF_LJ, Params
+from mdbench_tpu_torch.models.eam_tables import (
+    apply_eam_overrides,
+    fit_eam_poly,
+    load_eam,
+)
 from mdbench_tpu_torch.models.lattice import create_fcc_lattice
 from mdbench_tpu_torch.ops.cluster import (
     ClusterGrid,
@@ -46,6 +51,8 @@ from mdbench_tpu_torch.ops.cluster import (
     setup_cluster_pbc,
     update_cluster_pbc,
 )
+from mdbench_tpu_torch.ops.eam import EamDevice
+from mdbench_tpu_torch.ops.eam_cluster import eam_cluster_force
 from mdbench_tpu_torch.ops.lj_cluster import lj_cluster_force_ilist
 from mdbench_tpu_torch.state import SENTINEL_COORD
 from mdbench_tpu_torch.thermo import (
@@ -88,7 +95,9 @@ def check_slice(params: Params) -> None:
     (each is a queue entry in ROADMAP.md)."""
     unported = {
         "scheme other than 'cluster'": params.scheme != "cluster",
-        "force_field other than lj": params.force_field != FF_LJ,
+        "force_field other than lj or eam": (
+            params.force_field not in (FF_LJ, FF_EAM)
+        ),
         "half_neigh=1": bool(params.half_neigh),
         "ntypes > 1 (typed tables)": params.ntypes > 1,
         "kernel other than 'auto'": params.kernel != "auto",
@@ -107,11 +116,11 @@ def check_slice(params: Params) -> None:
 
 
 class ClusterSimulation:
-    """The cluster-scheme LJ simulation on one torch device.
+    """The cluster-scheme LJ or EAM simulation on one torch device.
 
     `device` is explicit (default "cuda"); asking for a CUDA device
     without one raises — nothing drops to the CPU. On the CPU the force
-    runs the plain torch version of the CUDA kernel."""
+    runs the plain torch versions of the CUDA kernels."""
 
     def __init__(
         self,
@@ -121,6 +130,21 @@ class ClusterSimulation:
         adjust: Optional[bool] = None,
         device="cuda",
     ):
+        if params.force_field == FF_EAM:
+            # mdbench_tpu's refusals for cluster EAM, ahead of check_slice
+            # (which would call half_neigh merely unported)
+            if not params.eam_file:
+                raise ValueError("force_field=eam requires eam_file")
+            if params.half_neigh:
+                raise ValueError(
+                    "cluster-scheme EAM supports full neighbor lists only"
+                )
+            if params.eam_eval == "spline":
+                raise ValueError(
+                    "cluster-scheme EAM is polynomial-evaluation only "
+                    "(eam_eval=auto|poly); the spline parity axis runs "
+                    "on the verlet scheme"
+                )
         check_slice(params)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -129,6 +153,17 @@ class ClusterSimulation:
                 "pass device='cpu' to run the plain path"
             )
         self.params = params
+        # EAM: the funcfl tables, initEam's overrides (BEFORE the lattice
+        # is made, since they set rho), the pair polynomials and the frho
+        # spline on the device, as in mdbench_tpu
+        self.eam_tables = self.eam_poly = self.eam_dev = None
+        if params.force_field == FF_EAM:
+            self.eam_tables = load_eam(params.eam_file)
+            apply_eam_overrides(params, self.eam_tables)
+            self.eam_poly = fit_eam_poly(self.eam_tables)
+            self.eam_dev = EamDevice.from_tables(
+                self.eam_tables, self.device, params.dtype
+            )
         if x is None:
             x, v, _ = create_fcc_lattice(params)
             if adjust is None:
@@ -275,8 +310,17 @@ class ClusterSimulation:
         v_flat[self.nlocal] = 0.0
         return x_flat, v_flat
 
-    def _force_from(self, clusters: Clusters, pairs: ClusterPairList):
+    def _force_from(self, clusters: Clusters, pairs: ClusterPairList,
+                    halo: ClusterHalo):
+        """(fx, fy, fz) on the local cluster rows: the two-pass EAM force
+        (its ghost-fp refresh reads the halo) or the LJ force."""
         p = self.params
+        if self.eam_poly is not None:
+            return eam_cluster_force(
+                clusters.xc, clusters.yc, clusters.zc, pairs.ijlist,
+                pairs.nji, halo.border_map, self.n_clusters_pad,
+                p.cutforce**2, self.eam_dev, self.eam_poly, share=self.ishare,
+            )[:3]
         return lj_cluster_force_ilist(
             clusters.xc, clusters.yc, clusters.zc, pairs.ijlist, pairs.nji,
             self.n_clusters_pad, p.cutforce**2, p.sigma6, p.epsilon,
@@ -318,7 +362,9 @@ class ClusterSimulation:
         for _ in range(n):
             self._kick_drift(state)
             update_cluster_pbc(state.clusters, state.halo, npad, False)
-            state = self._kick(state, self._force_from(state.clusters, state.pairs))
+            state = self._kick(
+                state, self._force_from(state.clusters, state.pairs, state.halo)
+            )
             thermo.append(
                 self._thermo(state.vxc, state.vyc, state.vzc)
                 if self.params.dense_thermo else None
@@ -334,7 +380,7 @@ class ClusterSimulation:
             clusters, *vel, state.fxc, state.fyc, state.fzc, halo, pairs,
             state.overflow | ovf,
         )
-        state = self._kick(state, self._force_from(clusters, pairs))
+        state = self._kick(state, self._force_from(clusters, pairs, halo))
         thermo.append(self._thermo(state.vxc, state.vyc, state.vzc))
         return state
 
@@ -365,7 +411,7 @@ class ClusterSimulation:
         state = state._replace(
             clusters=cl, halo=halo, pairs=pairs, overflow=state.overflow | ovf
         )
-        state = self._kick(state, self._force_from(cl, pairs))
+        state = self._kick(state, self._force_from(cl, pairs, halo))
         thermo.append(self._thermo(state.vxc, state.vyc, state.vzc))
         return state
 
@@ -400,7 +446,7 @@ class ClusterSimulation:
         clusters, vel, halo, pairs, ovf = self._reneighbor_from_flat(
             self.x_flat0, self.v_flat0
         )
-        f3 = self._force_from(clusters, pairs)
+        f3 = self._force_from(clusters, pairs, halo)
         return CStepState(clusters, *vel, *f3, halo, pairs, ovf)
 
     def _calibrate_list_cap(self, state0: CStepState) -> bool:

@@ -1,0 +1,228 @@
+"""EAM force on the cluster scheme's exact unit lists: two passes with a
+ghost-fp refresh between them (the port of ``mdbench_tpu.ops.eam_cluster``
+and of the TPU kernels in ``mdbench_tpu/ops/pallas/eam_cluster.py``).
+
+Pass 1: rho_i = sum_j dens(r_ij); fp_i = F'(rho_i) from the exact
+        per-atom frho spline.
+Ghost:  the fp rows of ghost j16 are copied from their owners through
+        the halo's border map (no shift: fp is translation invariant).
+Pass 2: fpair = -((fp_i + fp_j) g1(r) + g2(r)); f_i += d_ij fpair.
+
+dens, g1 and g2 are the degree-16 polynomials of `models.eam_tables.
+fit_eam_poly` in t = clip((r - mid) iscale, -1, 1), so no pass reads a
+table per pair.
+
+`eam_cluster_force` is the wrapper the engine calls. On a CUDA tensor it
+launches the hand-written kernels of ``csrc/eam_cluster.cu`` for the two
+passes (`eam_rho_ilist`, `eam_force_ilist`) and runs the frho spline and
+the ghost refresh as torch ops between them on the same stream; on a CPU
+tensor it runs the plain version `eam_cluster_force_ref`. Nothing falls
+back from one to the other.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mdbench_tpu_torch import _build
+from mdbench_tpu_torch.ops.eam import EamDevice, _grid_index, _horner
+from mdbench_tpu_torch.ops.lj_cluster import _check_cuda_args
+
+# kernel launches made by the wrappers, by kernel (a run's proof that it
+# went through the CUDA kernels); callers may reset them to 0
+LAUNCHES = {"eam_rho_ilist": 0, "eam_force_ilist": 0}
+
+N_COEF = 17  # coefficients per polynomial (degree 16) the kernels take
+
+
+def _pair_geometry(xc, yc, zc, ijlist, n_clusters_pad, cutforcesq, poly,
+                   share):
+    """(dx, dy, dz, mask, t) of every (i-atom, listed j-atom) pair:
+    dx, dy, dz and mask (0 < rsq < cutforcesq) are (n_units, share*8,
+    icap*16), as mdbench_tpu's XLA twin forms them; t holds the mapped
+    distance of the pairs in `mask` only, in mask order (the polynomials
+    are evaluated there alone: the twin's where(mask, p(t), 0) has the same
+    values)."""
+    nu, icap = ijlist.shape
+    if nu * share != n_clusters_pad:
+        raise ValueError("ijlist rows * share must equal n_clusters_pad")
+    cjn = xc.shape[0] // 2
+    jl = ijlist.long()
+
+    def diff(p):
+        pj = p.reshape(cjn, 16)[jl].reshape(nu, 1, icap * 16)
+        return p[:n_clusters_pad].reshape(nu, share * 8, 1) - pj
+
+    dx, dy, dz = diff(xc), diff(yc), diff(zc)
+    rsq = dx * dx + dy * dy + dz * dz
+    mask = (rsq < cutforcesq) & (rsq > 0.0)
+    r = torch.sqrt(rsq[mask])
+    t = torch.clamp((r - float(poly.mid)) * float(poly.iscale), -1.0, 1.0)
+    return dx, dy, dz, mask, t
+
+
+def eam_rho_ilist_ref(xc, yc, zc, ijlist, n_clusters_pad: int,
+                      cutforcesq: float, poly, share: int = 2):
+    """Plain torch pass 1: rho (n_clusters_pad, 8), the sum of dens(r)
+    over every listed j atom with 0 < rsq < cutforcesq."""
+    dx, _, _, mask, t = _pair_geometry(
+        xc, yc, zc, ijlist, n_clusters_pad, cutforcesq, poly, share)
+    dens = torch.zeros_like(dx)
+    dens[mask] = _horner(poly.dens, t)
+    return dens.sum(2).reshape(n_clusters_pad, 8)
+
+
+def eam_force_ilist_ref(xc, yc, zc, fp_plane, ijlist, n_clusters_pad: int,
+                        cutforcesq: float, poly, share: int = 2):
+    """Plain torch pass 2: (fx, fy, fz), each (n_clusters_pad, 8). fp_i is
+    fp_plane[:n_clusters_pad]; fp_j is read from fp_plane's rows of the
+    listed j16, ghost rows included."""
+    nu, icap = ijlist.shape
+    dx, dy, dz, mask, t = _pair_geometry(
+        xc, yc, zc, ijlist, n_clusters_pad, cutforcesq, poly, share)
+    cjn = fp_plane.shape[0] // 2
+    fpj = fp_plane.reshape(cjn, 16)[ijlist.long()].reshape(nu, 1, icap * 16)
+    fpi = fp_plane[:n_clusters_pad].reshape(nu, share * 8, 1)
+    fpair = torch.zeros_like(dx)
+    fpair[mask] = -((fpi + fpj)[mask] * _horner(poly.g1, t)
+                    + _horner(poly.g2, t))
+    return tuple(
+        (d * fpair).sum(2).reshape(n_clusters_pad, 8) for d in (dx, dy, dz)
+    )
+
+
+def _fp_ghost_refresh(fp_plane, border_map, n_clusters_pad: int):
+    """Fill the ghost rows of the (C_total, 8) fp plane from their owner
+    rows (rows 2*border_map + {0, 1}), IN PLACE; owners are local or
+    sentinel rows, never ghost rows. Returns fp_plane."""
+    g0 = n_clusters_pad
+    row_map = (
+        2 * border_map[:, None]
+        + torch.arange(2, device=border_map.device)[None, :]
+    ).reshape(-1)
+    fp_plane[g0 : g0 + row_map.shape[0]] = fp_plane[row_map]
+    return fp_plane
+
+
+def fp_plane_from_rho(rho, eam: EamDevice, border_map, c_total: int):
+    """fp = F'(rho) per local atom from the frho spline, into a zeroed
+    (c_total, 8) plane whose ghost rows are then refreshed."""
+    mf, pf = _grid_index(rho, eam.rdrho, eam.nrho)
+    fs = eam.frho[mf]  # (npad, 8, 7)
+    fp_local = (fs[..., 0] * pf + fs[..., 1]) * pf + fs[..., 2]
+    npad = rho.shape[0]
+    fp_plane = torch.zeros((c_total, 8), dtype=rho.dtype, device=rho.device)
+    fp_plane[:npad] = fp_local
+    return _fp_ghost_refresh(fp_plane, border_map, npad)
+
+
+def eam_cluster_force_ref(xc, yc, zc, ijlist, border_map,
+                          n_clusters_pad: int, cutforcesq: float,
+                          eam: EamDevice, poly, share: int = 2):
+    """Plain torch cluster EAM force, the literal twin of mdbench_tpu's
+    `eam_cluster_force_xla`: pass 1, the frho spline, the ghost refresh,
+    pass 2. Returns (fx, fy, fz, fp_plane)."""
+    rho = eam_rho_ilist_ref(xc, yc, zc, ijlist, n_clusters_pad, cutforcesq,
+                            poly, share)
+    fp_plane = fp_plane_from_rho(rho, eam, border_map, xc.shape[0])
+    fx, fy, fz = eam_force_ilist_ref(xc, yc, zc, fp_plane, ijlist,
+                                     n_clusters_pad, cutforcesq, poly, share)
+    return fx, fy, fz, fp_plane
+
+
+def _coefs(poly, cutforcesq: float) -> np.ndarray:
+    """The kernels' scalar block, float64 on the host:
+    [mid, iscale, cutforcesq, dens[17], g1[17], g2[17]]. The C launcher
+    copies it into a by-value kernel argument, rounded to the kernel's
+    type."""
+    polys = [np.asarray(c, np.float64).reshape(-1)
+             for c in (poly.dens, poly.g1, poly.g2)]
+    if any(c.shape != (N_COEF,) for c in polys):
+        raise ValueError(
+            f"the EAM kernels take degree-{N_COEF - 1} polynomials "
+            f"({N_COEF} coefficients each)")
+    return np.ascontiguousarray(np.concatenate(
+        [[float(poly.mid), float(poly.iscale), float(cutforcesq)], *polys]))
+
+
+def _check_fp_plane(fp_plane, xc):
+    if (fp_plane.device != xc.device or fp_plane.dtype != xc.dtype
+            or fp_plane.shape != xc.shape or not fp_plane.is_contiguous()):
+        raise ValueError(
+            "fp_plane must be a contiguous plane of the coordinates' "
+            "device, dtype and shape")
+
+
+def _launch(name, xc, args, n_outputs, ijlist, share, coefs):
+    """Launch kernel `name` (f32 or f64 entry point by xc's dtype) on the
+    current stream with `args` (tensors) before its outputs; returns the
+    outputs, each (n_units*share, 8). Raises on a launch error."""
+    lib = _build.load()
+    fn = getattr(lib, f"{name}_{'f32' if xc.dtype == torch.float32 else 'f64'}")
+    n_out = ijlist.shape[0] * share
+    out = [torch.empty((n_out, 8), dtype=xc.dtype, device=xc.device)
+           for _ in range(n_outputs)]
+    with torch.cuda.device(xc.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            *(t.data_ptr() for t in args), *(o.data_ptr() for o in out),
+            ijlist.shape[0], ijlist.shape[1], share, coefs.ctypes.data, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def eam_rho_ilist(xc, yc, zc, ijlist, nji, n_clusters_pad: int,
+                  cutforcesq: float, poly, share: int = 2):
+    """Pass 1, rho (n_clusters_pad, 8). CPU tensors take the plain
+    version; CUDA tensors launch the kernel (built from csrc/ at first
+    use) after the operands are checked. Entries of a unit's list past
+    nji[u] are not read on the card and must hold the sentinel j16 id."""
+    if xc.device.type == "cpu":
+        return eam_rho_ilist_ref(xc, yc, zc, ijlist, n_clusters_pad,
+                                 cutforcesq, poly, share)
+    if xc.device.type != "cuda":
+        raise ValueError(f"no EAM kernel for device {xc.device}")
+    _check_cuda_args(xc, yc, zc, ijlist, nji, n_clusters_pad, share)
+    (rho,) = _launch("eam_rho_ilist", xc, (xc, yc, zc, ijlist, nji), 1,
+                     ijlist, share, _coefs(poly, cutforcesq))
+    return rho
+
+
+def eam_force_ilist(xc, yc, zc, fp_plane, ijlist, nji, n_clusters_pad: int,
+                    cutforcesq: float, poly, share: int = 2):
+    """Pass 2, (fx, fy, fz) each (n_clusters_pad, 8); the same device
+    rule and list contract as `eam_rho_ilist`."""
+    if xc.device.type == "cpu":
+        return eam_force_ilist_ref(xc, yc, zc, fp_plane, ijlist,
+                                   n_clusters_pad, cutforcesq, poly, share)
+    if xc.device.type != "cuda":
+        raise ValueError(f"no EAM kernel for device {xc.device}")
+    _check_cuda_args(xc, yc, zc, ijlist, nji, n_clusters_pad, share)
+    _check_fp_plane(fp_plane, xc)
+    return tuple(_launch("eam_force_ilist", xc,
+                         (xc, yc, zc, fp_plane, ijlist, nji), 3, ijlist,
+                         share, _coefs(poly, cutforcesq)))
+
+
+def eam_cluster_force(xc, yc, zc, ijlist, nji, border_map,
+                      n_clusters_pad: int, cutforcesq: float,
+                      eam: EamDevice, poly, share: int = 2):
+    """Cluster EAM force, (fx, fy, fz, fp_plane): the contract of
+    `eam_cluster_force_ref`. On a CPU tensor it is the plain version. On a
+    CUDA tensor: kernel pass 1, the frho spline and ghost refresh as torch
+    ops on the current stream (so they precede pass 2 there), kernel
+    pass 2. Other devices raise ValueError."""
+    if xc.device.type == "cpu":
+        return eam_cluster_force_ref(xc, yc, zc, ijlist, border_map,
+                                     n_clusters_pad, cutforcesq, eam, poly,
+                                     share)
+    rho = eam_rho_ilist(xc, yc, zc, ijlist, nji, n_clusters_pad, cutforcesq,
+                        poly, share)
+    fp_plane = fp_plane_from_rho(rho, eam, border_map, xc.shape[0])
+    fx, fy, fz = eam_force_ilist(xc, yc, zc, fp_plane, ijlist, nji,
+                                 n_clusters_pad, cutforcesq, poly, share)
+    return fx, fy, fz, fp_plane

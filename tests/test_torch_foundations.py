@@ -87,7 +87,7 @@ def test_thermo_setup_matches(ff):
 
 @pytest.mark.parametrize("kw", [
     {"scheme": "verlet"},
-    {"force_field": tconfig.FF_EAM},
+    {"force_field": tconfig.FF_DEM},
     {"half_neigh": 1},
     {"ntypes": 2},
     {"kernel": "ilist_pl"},
