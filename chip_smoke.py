@@ -32,11 +32,35 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      40-step temperature trace with both rebuild kinds, card against the
      CPU plain path;
  10. EAM kernels at the main path's shapes: the EAM run's final planes,
-     lists and fp plane (error, median times).
+     lists and fp plane (error, median times);
+ 11. group-window kernel: against its plain torch version on random group
+     lists (windows inside the list, empty and past njg; sentinel ids and
+     real ids past nj; an all-padding group, whose rows must be exactly
+     0), float32 (<= 1e-5 of max |f|) and float64 (<= 1e-12);
+ 12. group-window main path: run_bench(kernel="pallas"), the 131,072-atom
+     200-step SP run on group lists with tile windows, gated on the C
+     reference's temperature trace; the group-window kernel's launches
+     must cover every force evaluation and the exact-list kernel must not
+     launch; the final state's window counters (stats.py);
+ 13. group-window small input: a jittered 8^3 box in float64, card
+     against the CPU plain path (step-0 forces <= 1e-10, 40-step
+     temperatures <= 1e-9, both rebuild kinds) for kernel="pallas", for
+     kernel="pallas" with the prune every 3 steps, and for the Newton
+     half lists (half_neigh=1, whose index_add_ sums with atomics on the
+     card: ~1e-16 relative per sum in float64, so the same limits hold);
+ 14. group-window kernel at the main path's shapes: phase 12's final
+     planes, lists and windows (error, median times, window pairs);
+ 15. the cluster stub (run_cluster_stub: 65,536 atoms, 76 j16 per group
+     list, 200 steps) for seq, fix and rand: the kernel launches every
+     step; its first force against the plain version (float32: the
+     stub's geometry overflows some forces to inf or NaN, which must sit
+     where the plain version has them; the finite ones <= 1e-5 of the
+     largest); the kernel's median time on the stub's planes.
 
-Every kernel count is set to 0 just before each main path (phases 4 and
-8) and read just after it. Then it prints a JSON line of the kernels,
-nvidia-smi's line, and {"ok": true, "device": {...}} as the last line.
+Every kernel count is set to 0 just before each main path (phases 4, 8
+and 12) and read just after it. Then it prints a JSON line of the
+kernels, nvidia-smi's line, and {"ok": true, "device": {...}} as the last
+line; the script's wall time goes to standard error.
 """
 
 from __future__ import annotations
@@ -53,6 +77,12 @@ KERNEL = {
     "route": "cuda",
     "source": "mdbench_tpu_torch/csrc/lj_cluster_ilist.cu",
     "replaces": "mdbench_tpu/ops/pallas/lj_cluster.py:433",
+}
+STREAM_KERNEL = {
+    "name": "lj_cluster_stream",
+    "route": "cuda",
+    "source": "mdbench_tpu_torch/csrc/lj_cluster_stream.cu",
+    "replaces": "mdbench_tpu/ops/pallas/lj_cluster.py:50",
 }
 EAM_KERNELS = {
     "eam_rho_ilist": {
@@ -179,9 +209,57 @@ def random_case(torch, seed, share, dtype, device, cjn=512, icap=24,
             torch.tensor(nji, device=device), nu * share)
 
 
+def random_group_lists(seed, ng=8, L=32, ghost_rows=64, spacing=1.1):
+    """A numpy case for the group-window force: (planes, jlist, ranges,
+    n_clusters_pad), planes three (C_total, 8) float64 arrays, jlist
+    (ng, L) and ranges (ng, 33) int32. Jittered lattice planes
+    (lattice constant `spacing`) with ~10% padding atoms, group 1 all
+    padding and the last j16 all-sentinel; each group list holds nj
+    distinct j16 with a sentinel id among them, and real (random) ids past
+    nj; njg = ceil(nj / 8); the windows are random, and in every group
+    member 0's starts after 0 and ends before njg, member 1's is empty
+    and member 2's ends past njg (njg bounds it)."""
+    from mdbench_tpu_torch.state import SENTINEL_COORD
+
+    rng = np.random.default_rng(seed)
+    npad = ng * 16
+    nrows = npad + ghost_rows + 2
+    cjn = nrows // 2
+    side = int(np.ceil((nrows * 8) ** (1.0 / 3.0)))
+    g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1)
+    pts = g.reshape(-1, 3)[rng.permutation(side**3)[: nrows * 8]] * spacing
+    pts = pts + rng.normal(0.0, 0.05, pts.shape)
+    rank = np.arange(nrows * 8, dtype=np.float64).reshape(nrows, 8)
+    padmask = rng.random((nrows, 8)) < 0.1
+    padmask[16:32] = True  # group 1: all padding
+    padmask[-2:] = True  # the last j16 is all-sentinel
+    planes = []
+    for c in range(3):
+        pl = pts[:, c].reshape(nrows, 8).copy()
+        pl[padmask] = (SENTINEL_COORD * (1.0 + rank * 1e-6))[padmask]
+        planes.append(pl)
+    sentinel16 = cjn - 1
+    nslab = L // 8
+    jl = rng.integers(0, cjn - 1, (ng, L)).astype(np.int32)
+    ranges = np.zeros((ng, 33), np.int32)
+    for gi in range(ng):
+        nj = int(rng.integers(L // 2, L + 1))
+        jl[gi, :nj] = rng.choice(cjn - 1, nj, replace=False)
+        jl[gi, rng.integers(nj)] = sentinel16
+        njg = (nj + 7) // 8
+        a, b = rng.integers(0, njg + 1, (2, 16))
+        start, end = np.minimum(a, b), np.maximum(a, b)
+        start[0], end[0] = 1, njg - 1
+        start[1] = end[1] = njg // 2
+        end[2] = nslab
+        ranges[gi] = np.concatenate([start, end, [njg]])
+    return planes, jl, ranges, npad
+
+
 def reset_counts(lj, ec) -> None:
     """Every kernel's launch count to 0."""
     lj.LAUNCHES = 0
+    lj.STREAM_LAUNCHES = 0
     for name in ec.LAUNCHES:
         ec.LAUNCHES[name] = 0
 
@@ -333,8 +411,180 @@ def run_eam_phases(torch, dev, smi: str, ec) -> list:
     return [rows[name] for name in EAM_KERNELS]
 
 
+def stub_force_err(torch, got, want):
+    """(max abs error, that / max finite |want|, finite share) of the
+    stub's float32 forces: the non-finite entries (NaN, +inf, -inf) of
+    `got` must be those of `want`; the finite ones are compared."""
+    a = torch.stack([t.double() for t in got])
+    b = torch.stack([t.double() for t in want])
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        if not torch.equal(test(a), test(b)):
+            fail("the stub's non-finite forces differ from the plain version's")
+    fin = torch.isfinite(b)
+    if not bool(fin.any()):
+        return 0.0, 0.0, 0.0
+    err = float((a[fin] - b[fin]).abs().max())
+    return err, err / float(b[fin].abs().max()), float(fin.double().mean())
+
+
+def run_group_phases(torch, dev, smi: str, ec) -> dict:
+    """Phases 11-15 (the group-window path). Returns the kernel's JSON
+    row."""
+    from mdbench_tpu_torch.bench import run_bench
+    from mdbench_tpu_torch.config import Params
+    from mdbench_tpu_torch.engine_cluster import GROUP, ClusterSimulation
+    from mdbench_tpu_torch.models.lattice import create_fcc_lattice
+    from mdbench_tpu_torch.ops import lj_cluster as lj
+    from mdbench_tpu_torch.stats import compute_cluster_stats
+    from mdbench_tpu_torch.stub import (
+        create_cluster_pair_list,
+        create_stub_clusters,
+        run_cluster_stub,
+    )
+
+    # 11. the kernel on random group lists
+    for dtype in (torch.float32, torch.float64):
+        for seed in (1, 2, 3):
+            planes, jl, rg, npad = random_group_lists(seed, ng=64, L=40)
+            xc, yc, zc = (torch.tensor(q, dtype=dtype, device=dev) for q in planes)
+            jl, rg = torch.tensor(jl, device=dev), torch.tensor(rg, device=dev)
+            args = (npad, 2.5**2, 1.0, 1.0)
+            got = lj.lj_cluster_force_stream(xc, yc, zc, jl, rg, *args)
+            torch.cuda.synchronize()
+            want = lj.lj_cluster_force_group_ref(xc, yc, zc, jl, *args, ranges=rg)
+            err, rel = rel_err(torch, got, want)
+            if any(bool((f[16:32] != 0).any()) for f in got):
+                fail(f"the all-padding group got a force ({dtype}, seed {seed})")
+            print(f"group kernel random {str(dtype)[6:]} seed {seed}: max abs err "
+                  f"{err:.3e}, rel {rel:.3e} (tol {tol_of(torch, dtype):.0e})",
+                  flush=True)
+            if not rel <= tol_of(torch, dtype):
+                fail(f"group kernel disagrees with its plain version ({dtype})")
+
+    # 12. the group-window main path; count the kernels' launches in it
+    reset_counts(lj, ec)
+    t0 = time.perf_counter()
+    sim, out, rate = run_bench(repeats=REPEATS, chain=CHAIN, kernel="pallas")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, k1 = lj.STREAM_LAUNCHES, lj.LAUNCHES
+    p = sim.params
+    need = (1 + REPEATS * CHAIN) * (p.ntimes + 1)
+    st = out.state
+    cs = compute_cluster_stats(st.clusters, st.pairs, sim.n_clusters_pad, GROUP,
+                               p.cutforce**2, p.cutneigh**2)
+    print(f"group main path: {sim.natoms} atoms, {p.ntimes} steps, {p.precision}, "
+          f"kernel {p.kernel}, n_clusters_pad {sim.n_clusters_pad}, list_cap "
+          f"{sim.list_cap}, ghost_cap {sim.ghost_cap}, grows {sim.grows or 'none'}")
+    print(f"group main path: golden gate passed; TOTAL {out.total_time:.6f} s per "
+          f"run, {rate:.6e} atom-updates/s, run() wall {wall:.2f} s, on {smi}")
+    print(f"group main path: group kernel launches {launches} (>= {need} force "
+          f"evaluations); exact-list kernel launches {k1}; EAM {dict(ec.LAUNCHES)}")
+    print(f"group main path: final-state counters {cs}", flush=True)
+    if launches < need:
+        fail(f"the group main path launched the group kernel {launches} times, "
+             f"fewer than its {need} force evaluations")
+    if k1 or any(ec.LAUNCHES.values()):
+        fail("the group main path launched another force kernel")
+    temps = out.temps
+    if temps.shape != (p.ntimes,) or not np.isfinite(temps).all():
+        fail("group temperature trace is not finite or has the wrong shape")
+    for t in (st.vxc, st.fxc, st.clusters.xc[: sim.n_clusters_pad]):
+        if not bool(torch.isfinite(t).all()):
+            fail("the group run's final state is not finite")
+    print("group main path temps:", " ".join(
+        f"{s}:{temps[s - 1]:.6e}" for s in range(p.reneigh_every, p.ntimes + 1,
+                                                    p.reneigh_every)))
+
+    # 13. small input: card against the CPU plain path, float64
+    base = dict(nx=8, ny=8, nz=8, ntimes=40, reneigh_every=10, resort_every=20,
+                precision="dp", scheme="cluster")
+    x, v, _ = create_fcc_lattice(Params(**base))
+    x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
+    for extra in ({"kernel": "pallas"}, {"kernel": "pallas", "prune_every": 3},
+                  {"half_neigh": 1}):
+        kw = {**base, **extra}
+        f_cpu = ClusterSimulation(Params(**kw), x=x, v=v, device="cpu").first_force_atoms()
+        f_gpu = ClusterSimulation(Params(**kw), x=x, v=v, device=dev).first_force_atoms()
+        frel = np.abs(f_gpu - f_cpu).max() / np.abs(f_cpu).max()
+        r_cpu = ClusterSimulation(Params(**kw), device="cpu").run()
+        r_gpu = ClusterSimulation(Params(**kw), device=dev).run()
+        trel = float(np.max(np.abs(r_gpu.temps - r_cpu.temps) / np.abs(r_cpu.temps)))
+        print(f"group small input 8^3 dp {extra}: step-0 force rel err {frel:.3e} "
+              f"(tol 1e-10), 40-step temperature rel err {trel:.3e} (tol 1e-9)",
+              flush=True)
+        if not (frel <= 1e-10 and trel <= 1e-9):
+            fail(f"the card's run {extra} disagrees with the CPU plain path")
+
+    # 14. the kernel at the main path's shapes: the run's final state
+    cl, pr = st.clusters, st.pairs
+    npad = sim.n_clusters_pad
+    cut = (p.cutforce**2, p.sigma6, p.epsilon)
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        planes = [q.to(dtype) for q in (cl.xc, cl.yc, cl.zc)]
+
+        def kern():
+            return lj.lj_cluster_force_stream(*planes, pr.jlist, pr.ranges, npad, *cut)
+
+        def plain():
+            return lj.lj_cluster_force_group_ref(*planes, pr.jlist, npad, *cut,
+                                                 ranges=pr.ranges)
+
+        err, rel = rel_err(torch, kern(), plain())
+        ms = median_ms(torch, kern, 50)
+        plain_ms = median_ms(torch, plain, 5)
+        res[dtype] = (err, ms, plain_ms)
+        print(f"group kernel at 131k ({str(dtype)[6:]}, {pr.jlist.shape[0]} groups x "
+              f"L {pr.jlist.shape[1]}, {cs['padded_pairs']} window pairs = "
+              f"{cs['padded_pairs'] / (ms * 1e-3):.4e} pairs/s): max abs err "
+              f"{err:.3e}, rel {rel:.3e} (tol {tol_of(torch, dtype):.0e}); median "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms on {smi}", flush=True)
+        if not rel <= tol_of(torch, dtype):
+            fail(f"group kernel disagrees with its plain version at 131k ({dtype})")
+
+    # 15. the cluster stub on the card
+    for pattern in ("seq", "fix", "rand"):
+        before = lj.STREAM_LAUNCHES
+        r = run_cluster_stub(natoms=65536, nneighs=76, ntimes=200, pattern=pattern,
+                             device=dev)
+        n = lj.STREAM_LAUNCHES - before
+        if n < 2 * r["ntimes"]:
+            fail(f"the stub ({pattern}) launched the group kernel {n} times for "
+                 f"{2 * r['ntimes']} steps")
+        xch, ych, zch, n_pad = create_stub_clusters((65536 + 7) // 8, GROUP)
+        jlh, rgh, _ = create_cluster_pair_list(n_pad, GROUP, 76, pattern)
+        jl = torch.tensor(jlh[:, 0], device=dev)
+        rg = torch.tensor(rgh[:, 0], device=dev)
+        args = (n_pad, 1.0e12, 1.0, 1.0)
+        planes = [torch.tensor(q, dtype=torch.float32, device=dev)
+                  for q in (xch, ych, zch)]
+        err, rel, fin = stub_force_err(
+            torch, r["first_force"],
+            lj.lj_cluster_force_group_ref(*planes, jl, *args, ranges=rg))
+        ms = median_ms(torch, lambda: lj.lj_cluster_force_stream(
+            *planes, jl, rg, *args), 50)
+        # float64, where every stub force is finite
+        p64 = [q.double() for q in planes]
+        _, rel64 = rel_err(torch, lj.lj_cluster_force_stream(*p64, jl, rg, *args),
+                           lj.lj_cluster_force_group_ref(*p64, jl, *args, ranges=rg))
+        print(f"stub {pattern}: {r['mega_updates']:.4f} Mega atom updates/s "
+              f"(TOTAL {r['total']:.6f} s, {n} kernel launches); first force: "
+              f"{fin:.3f} of it finite, max abs err {err:.3e}, rel {rel:.3e} "
+              f"(tol 1e-05) there; float64 rel {rel64:.3e} (tol 1e-12); kernel on "
+              f"the stub's first planes {ms:.4f} ms on {smi}", flush=True)
+        if not (rel <= 1e-5 and rel64 <= 1e-12):
+            fail(f"the stub's first force ({pattern}) disagrees with the plain version")
+
+    err, ms, plain_ms = res[torch.float32]
+    return {**STREAM_KERNEL, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms}
+
+
 def main() -> int:
     import torch
+
+    t_start = time.perf_counter()
 
     # 1. device
     if not torch.cuda.is_available():
@@ -453,8 +703,10 @@ def main() -> int:
         ms = median_ms(torch, kern, 50)
         plain_ms = median_ms(torch, plain, 5)
         res[dtype] = (err, ms, plain_ms)
+        padded = npad * 8 * pr.ijlist.shape[1] * 16
         print(f"kernel at 131k ({str(dtype)[6:]}, {pr.ijlist.shape[0]} units x icap "
-              f"{pr.ijlist.shape[1]}, share {sim.ishare}): max abs err {err:.3e}, "
+              f"{pr.ijlist.shape[1]}, share {sim.ishare}, {padded} padded pairs = "
+              f"{padded / (ms * 1e-3):.4e} pairs/s): max abs err {err:.3e}, "
               f"rel {rel:.3e} (tol {tol_of(torch, dtype):.0e}); median kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms on {smi}", flush=True)
         if not rel <= tol_of(torch, dtype):
@@ -463,11 +715,15 @@ def main() -> int:
     # 7-10. the cluster EAM path
     eam_rows = run_eam_phases(torch, dev, smi, ec)
 
+    # 11-15. the group-window path
+    stream_row = run_group_phases(torch, dev, smi, ec)
+
     err, ms, plain_ms = res[torch.float32]
     print(json.dumps({"kernels": [{
         **KERNEL, "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms,
-    }, *eam_rows]}))
+    }, *eam_rows, stream_row]}))
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -10,10 +10,14 @@ against.
   carried across unchanged;
 - the list build and the time-step loop are eager torch ops on an explicit
   ``device``;
-- the exact-list forces are hand-written CUDA kernels
-  (``csrc/lj_cluster_ilist.cu``; the two EAM passes in
-  ``csrc/eam_cluster.cu``), built with ``nvcc`` at first use
-  (``_build.py``). On a CPU tensor the plain torch twins run instead.
+- the force kernels are hand-written CUDA kernels, built with ``nvcc``
+  at first use (``_build.py``): the exact-list LJ force
+  (``csrc/lj_cluster_ilist.cu``), the two EAM passes
+  (``csrc/eam_cluster.cu``) and the group-window LJ force
+  (``csrc/lj_cluster_stream.cu``), picked by ``Params.kernel`` as in
+  mdbench_tpu. On a CPU tensor the plain torch twins run instead;
+- ``stats.py`` and ``stub.py`` port the exact counters and the cluster
+  kernel microbenchmark.
 
 The package imports torch and numpy only, never jax or mdbench_tpu.
 """

@@ -36,6 +36,12 @@ _SIGNATURES = {
         [_P] * 8 + [_I] * 3 + [ctypes.c_float] * 3 + [_P], ctypes.c_int),
     "lj_cluster_ilist_f64": (
         [_P] * 8 + [_I] * 3 + [ctypes.c_double] * 3 + [_P], ctypes.c_int),
+    # (xc, yc, zc, jlist, ranges, fx, fy, fz, ng, L, cutforcesq, sigma6,
+    #  epsilon, stream)
+    "lj_cluster_stream_f32": (
+        [_P] * 8 + [_I] * 2 + [ctypes.c_float] * 3 + [_P], ctypes.c_int),
+    "lj_cluster_stream_f64": (
+        [_P] * 8 + [_I] * 2 + [ctypes.c_double] * 3 + [_P], ctypes.c_int),
     # (xc, yc, zc, ijlist, nji, rho, n_units, icap, share, coefs, stream)
     "eam_rho_ilist_f32": ([_P] * 6 + [_I] * 3 + [_P] * 2, ctypes.c_int),
     "eam_rho_ilist_f64": ([_P] * 6 + [_I] * 3 + [_P] * 2, ctypes.c_int),

@@ -35,14 +35,17 @@ def load_check_golden():
     return mod.check_golden
 
 
-def run_bench(repeats: int = 3, chain: int = 3):
-    """The benchmark run on the CUDA card, gated on the golden trace.
-    Returns (sim, result, atom-updates per second)."""
+def run_bench(repeats: int = 3, chain: int = 3, kernel: str = "auto"):
+    """The benchmark run on the CUDA card, gated on the golden trace, with
+    the force kernel `kernel` ("auto": the exact-list kernel; "pallas":
+    the group-window kernel). Returns (sim, result, atom-updates per
+    second)."""
     from mdbench_tpu_torch.config import Params
     from mdbench_tpu_torch.engine_cluster import ClusterSimulation
 
     check_golden = load_check_golden()
-    params = Params(precision="sp", scheme="cluster", dense_thermo=False)
+    params = Params(precision="sp", scheme="cluster", kernel=kernel,
+                    dense_thermo=False)
     sim = ClusterSimulation(params, device="cuda")
     out = sim.run(repeats=repeats, chain=chain)
     check_golden(out.temps, params.reneigh_every)

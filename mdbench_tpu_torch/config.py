@@ -107,8 +107,10 @@ class Params:
     # record T/P every step (True) or only at reneighbor boundaries
     # (False — the reference prints only every nstat steps)
     dense_thermo: bool = True
-    # force-kernel backend; the port has one, the exact-list kernels
-    # (CUDA on a CUDA device, their plain torch twins on the CPU): "auto"
+    # force-kernel axis, as in mdbench_tpu: "auto" | "ilist_pl" (the
+    # exact-list kernels), "pallas" (the group-window kernel), "ilist" |
+    # "xla" (their plain torch twins, on any device); on the CPU every
+    # name runs the plain versions
     kernel: str = "auto"
     # FORCE/NEIGH section timing mode of the JAX CLI ("est" | "diff")
     timers: str = "est"

@@ -69,18 +69,29 @@ def halo_from_numpy(src, device, dtype) -> ClusterHalo:
 
 
 def pairs_from_numpy(src, device) -> ClusterPairList:
-    """mdbench_tpu ClusterPairList (exact-list form) -> port
-    ClusterPairList. The group list loses its TPU block axis:
-    (NG, 1, L) -> (NG, L); the tile windows (`ranges`) and the bucket maps
-    have no counterpart."""
+    """mdbench_tpu ClusterPairList -> port ClusterPairList, in either
+    form. The group list and the tile windows lose their TPU block axis:
+    jlist (NG, 1, L) -> (NG, L) int64, ranges (NG, 1, 2G+1) -> (NG, 2G+1)
+    int32. The exact-list fields (ijlist, nji, iovf) and the windows carry
+    over where the source holds them and are None where it does not; the
+    bucket maps have no counterpart (ROADMAP 1a)."""
     jl = _get(src, "jlist")
+    ng = jl.shape[0]
+
+    def opt(name, conv):
+        present = _has(src, name) and _field(src, name) is not None
+        return conv() if present else None
+
     return ClusterPairList(
-        jlist=torch.tensor(jl.reshape(jl.shape[0], -1).astype(np.int64), device=device),
+        jlist=torch.tensor(jl.reshape(ng, -1).astype(np.int64), device=device),
         nj=_int(src, "nj", device),
         overflow=_bool(src, "overflow", device),
-        ijlist=_int(src, "ijlist", device, torch.int32),
-        nji=_int(src, "nji", device, torch.int32),
-        iovf=_bool(src, "iovf", device),
+        ijlist=opt("ijlist", lambda: _int(src, "ijlist", device, torch.int32)),
+        nji=opt("nji", lambda: _int(src, "nji", device, torch.int32)),
+        iovf=opt("iovf", lambda: _bool(src, "iovf", device)),
+        ranges=opt("ranges", lambda: torch.tensor(
+            _get(src, "ranges").reshape(ng, -1).astype(np.int32),
+            device=device)),
     )
 
 

@@ -5,12 +5,22 @@ State lives in cluster layout between reneighbor events:
 
   reneighbor (every reneigh_every steps):
     cheap: keep cluster membership; wrap j16 pairs into the box,
-      rebuild bboxes, ghosts, bins, group lists and exact unit lists
+      rebuild bboxes, ghosts, bins, group lists and either the exact
+      unit lists or the group lists' per-member tile windows
     full (at resort_every boundaries): flatten to atoms, wrap, re-sort
       and re-chop into clusters, then the same list chain
+  prune (every prune_every steps inside an interval, when
+    0 < prune_every < reneigh_every): re-derive the exact unit lists or
+    refresh the tile windows from current coordinates
   every step:
-    integrate cluster planes -> refresh ghost rows -> exact-list force,
-    LJ or two-pass EAM (CUDA kernels on the card) -> integrate
+    integrate cluster planes -> refresh ghost rows -> force -> integrate
+
+The force follows the kernel axis of mdbench_tpu (`kernel_mode`): the
+exact-list LJ or two-pass EAM force ("auto", "ilist_pl"; CUDA kernels on
+the card), the group-window LJ force ("pallas"; a CUDA kernel on the
+card), the Newton half-list force (half_neigh=1; torch ops), or, asked
+for by name, the plain twins ("ilist", "xla"). On a CPU tensor every
+name runs the plain versions.
 
 The time-step loop is a Python loop of eager torch ops on `device`
 (mdbench_tpu compiled it into one lax.scan). The integration and the
@@ -48,12 +58,22 @@ from mdbench_tpu_torch.ops.cluster import (
     derive_ilists,
     make_cluster_grid,
     make_j16_bboxes,
+    refresh_pair_ranges,
     setup_cluster_pbc,
     update_cluster_pbc,
 )
 from mdbench_tpu_torch.ops.eam import EamDevice
-from mdbench_tpu_torch.ops.eam_cluster import eam_cluster_force
-from mdbench_tpu_torch.ops.lj_cluster import lj_cluster_force_ilist
+from mdbench_tpu_torch.ops.eam_cluster import (
+    eam_cluster_force,
+    eam_cluster_force_ref,
+)
+from mdbench_tpu_torch.ops.lj_cluster import (
+    lj_cluster_force_group_ref,
+    lj_cluster_force_half_ref,
+    lj_cluster_force_ilist,
+    lj_cluster_force_ilist_ref,
+    lj_cluster_force_stream,
+)
 from mdbench_tpu_torch.state import SENTINEL_COORD
 from mdbench_tpu_torch.thermo import (
     ThermoScales,
@@ -63,6 +83,8 @@ from mdbench_tpu_torch.thermo import (
 )
 
 GROUP = 16  # i-clusters per shared group list
+# the force-kernel names of mdbench_tpu's kernel axis
+KERNELS = ("auto", "ilist", "ilist_pl", "pallas", "xla")
 
 # overflow flags, in mdbench_tpu's order
 FLAG_NAMES = ("clusters", "ghosts", "bin_cap", "z_ext", "pairs_nj",
@@ -90,6 +112,18 @@ class CRunResult(NamedTuple):
     total_time: float
 
 
+def kernel_mode(params: Params) -> str:
+    """The force kernel `params.kernel` names, as mdbench_tpu's
+    _kernel_mode resolves it, with "auto" -> "ilist_pl": the exact-list
+    kernels. "ilist" and "xla" are mdbench_tpu's plain twins; the port
+    runs them (its plain torch versions) only when they are asked for by
+    name. Raises ValueError for a name outside KERNELS."""
+    if params.kernel not in KERNELS:
+        raise ValueError(
+            f"kernel must be one of {', '.join(KERNELS)}, got {params.kernel!r}")
+    return "ilist_pl" if params.kernel == "auto" else params.kernel
+
+
 def check_slice(params: Params) -> None:
     """Raise NotImplementedError for settings this port does not run yet
     (each is a queue entry in ROADMAP.md)."""
@@ -98,14 +132,9 @@ def check_slice(params: Params) -> None:
         "force_field other than lj or eam": (
             params.force_field not in (FF_LJ, FF_EAM)
         ),
-        "half_neigh=1": bool(params.half_neigh),
         "ntypes > 1 (typed tables)": params.ntypes > 1,
-        "kernel other than 'auto'": params.kernel != "auto",
         "derive_bf16": bool(params.derive_bf16),
         "input_file (atom readers)": bool(params.input_file),
-        "prune_every < reneigh_every (the prune)": (
-            0 < params.prune_every < params.reneigh_every
-        ),
     }
     missing = [name for name, hit in unported.items() if hit]
     if missing:
@@ -120,7 +149,9 @@ class ClusterSimulation:
 
     `device` is explicit (default "cuda"); asking for a CUDA device
     without one raises — nothing drops to the CPU. On the CPU the force
-    runs the plain torch versions of the CUDA kernels."""
+    runs the plain torch versions of the CUDA kernels. The kernel axis
+    (`params.kernel`, `params.half_neigh`) picks the force as
+    mdbench_tpu's engine does; see the module docstring."""
 
     def __init__(
         self,
@@ -145,6 +176,16 @@ class ClusterSimulation:
                     "(eam_eval=auto|poly); the spline parity axis runs "
                     "on the verlet scheme"
                 )
+        self._kmode = kernel_mode(params)
+        # exact unit lists, or group lists with tile windows
+        self._ilist = (
+            self._kmode in ("ilist", "ilist_pl") and not params.half_neigh
+        )
+        if params.force_field == FF_EAM and not self._ilist:
+            raise ValueError(
+                "cluster-scheme EAM runs on the exact-list kernels only "
+                "(kernel=auto|ilist|ilist_pl)"
+            )
         check_slice(params)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -210,10 +251,11 @@ class ClusterSimulation:
         )
         L = int(math.ceil(vol * params.rho / 16.0 * 1.45 / 8.0)) * 8
         self.list_cap = max(32, L)
-        # i-clusters sharing one exact list, and the exact-list capacity
-        # (atoms in a dilated cutneigh sphere / 16, with headroom;
-        # calibrated after the first build, grown on overflow)
-        self.ishare = params.ishare if params.ishare else 2
+        # i-clusters sharing one exact list (1 on the group-window path),
+        # and the exact-list capacity (atoms in a dilated cutneigh sphere
+        # / 16, with headroom; calibrated after the first build, grown on
+        # overflow)
+        self.ishare = (params.ishare if params.ishare else 2) if self._ilist else 1
         zsp = 8.0 / (sx * sy * params.rho)  # one i-cluster's z-extent
         r_eff = (
             params.cutneigh + 0.5 * max(sx, sy) + 1.2
@@ -262,14 +304,19 @@ class ClusterSimulation:
         )
         pairs = build_cluster_pairs(
             self.grid, bb_cells, clusters.bbox, npad, GROUP, self.list_cap,
+            need_ranges=not self._ilist,
         )
-        pairs = derive_ilists(
-            clusters, pairs, npad, GROUP, p.cutneigh, self.icap,
-            share=self.ishare,
-        )
+        if self._ilist:
+            pairs = derive_ilists(
+                clusters, pairs, npad, GROUP, p.cutneigh, self.icap,
+                share=self.ishare,
+            )
+            iovf = pairs.iovf
+        else:
+            iovf = torch.zeros((), dtype=torch.bool, device=self.device)
         ovf = torch.stack([
             ovf_c, halo.overflow, ovf_bcap, ovf_zext,
-            pairs.overflow[0], pairs.overflow[1], pairs.iovf,
+            pairs.overflow[0], pairs.overflow[1], iovf,
         ])
         return clusters, halo, pairs, ovf
 
@@ -312,20 +359,35 @@ class ClusterSimulation:
 
     def _force_from(self, clusters: Clusters, pairs: ClusterPairList,
                     halo: ClusterHalo):
-        """(fx, fy, fz) on the local cluster rows: the two-pass EAM force
-        (its ghost-fp refresh reads the halo) or the LJ force."""
+        """(fx, fy, fz) on the local cluster rows, by the kernel axis
+        (mdbench_tpu engine_cluster.py:424-482): the two-pass EAM force
+        (its ghost-fp refresh reads the halo), the half-list force, the
+        exact-list force, the group-window force, or a plain twin."""
         p = self.params
+        npad, cutsq = self.n_clusters_pad, p.cutforce**2
+        planes = (clusters.xc, clusters.yc, clusters.zc)
         if self.eam_poly is not None:
-            return eam_cluster_force(
-                clusters.xc, clusters.yc, clusters.zc, pairs.ijlist,
-                pairs.nji, halo.border_map, self.n_clusters_pad,
-                p.cutforce**2, self.eam_dev, self.eam_poly, share=self.ishare,
-            )[:3]
-        return lj_cluster_force_ilist(
-            clusters.xc, clusters.yc, clusters.zc, pairs.ijlist, pairs.nji,
-            self.n_clusters_pad, p.cutforce**2, p.sigma6, p.epsilon,
-            share=self.ishare,
-        )
+            args = (npad, cutsq, self.eam_dev, self.eam_poly)
+            if self._kmode == "ilist_pl":
+                return eam_cluster_force(
+                    *planes, pairs.ijlist, pairs.nji, halo.border_map, *args,
+                    share=self.ishare)[:3]
+            return eam_cluster_force_ref(
+                *planes, pairs.ijlist, halo.border_map, *args,
+                share=self.ishare)[:3]
+        lj = (cutsq, p.sigma6, p.epsilon)
+        if p.half_neigh:
+            return lj_cluster_force_half_ref(*planes, pairs.jlist, npad, *lj)
+        if self._kmode == "ilist_pl":
+            return lj_cluster_force_ilist(
+                *planes, pairs.ijlist, pairs.nji, npad, *lj, share=self.ishare)
+        if self._kmode == "ilist":
+            return lj_cluster_force_ilist_ref(
+                *planes, pairs.ijlist, npad, *lj, share=self.ishare)
+        if self._kmode == "pallas":
+            return lj_cluster_force_stream(
+                *planes, pairs.jlist, pairs.ranges, npad, *lj)
+        return lj_cluster_force_group_ref(*planes, pairs.jlist, npad, *lj)
 
     def _thermo(self, vxc, vyc, vzc):
         vsq = (
@@ -415,20 +477,57 @@ class ClusterSimulation:
         thermo.append(self._thermo(state.vxc, state.vyc, state.vzc))
         return state
 
+    def _prune(self, state: CStepState) -> CStepState:
+        """The pruneNeighbor analogue (reference neighbor.c:483-531;
+        mdbench_tpu engine_cluster.py:769-795): from current coordinates,
+        re-derive the exact unit lists (their candidates stay the group
+        list's) or refresh the group lists' tile windows."""
+        p = self.params
+        if self._ilist:
+            pairs = derive_ilists(
+                state.clusters, state.pairs, self.n_clusters_pad, GROUP,
+                p.cutneigh, self.icap, share=self.ishare,
+            )
+        else:
+            pairs = refresh_pair_ranges(
+                state.clusters, state.pairs, self.n_clusters_pad, GROUP,
+                p.cutneigh,
+            )
+        return state._replace(pairs=pairs)
+
+    def _interval_plain_steps(self, state: CStepState, thermo: list):
+        """An interval's reneigh_every - 1 plain steps, with a prune after
+        every prune_every of them that does not end the run of plain steps
+        when 0 < prune_every < reneigh_every (mdbench_tpu _make_run_fn)."""
+        every = self.params.reneigh_every
+        prune = self.params.prune_every
+        if not 0 < prune < every:
+            return self._plain_steps(state, every - 1, thermo)
+        done = 0
+        while done < every - 1:
+            n = min(prune, every - 1 - done)
+            state = self._plain_steps(state, n, thermo)
+            done += n
+            if n == prune and done < every - 1:
+                state = self._prune(state)
+        return state
+
     def _run_steps(self, state: CStepState, ntimes: int):
-        """`ntimes` steps at the reneighbor/resort cadence of mdbench_tpu's
-        _make_run_fn: intervals of (reneigh_every - 1) plain steps and one
-        rebuild step, the rebuild a full re-cluster when its step is a
-        multiple of resort_every, else the cheap one; then a tail of plain
-        steps. Consumes `state`. Returns (state, temps, press) with temps
-        and press as device tensors of length ntimes (0 where not taken)."""
+        """`ntimes` steps at the reneighbor/resort/prune cadence of
+        mdbench_tpu's _make_run_fn: intervals of (reneigh_every - 1) plain
+        steps, pruned as `_interval_plain_steps` says, and one rebuild
+        step, the rebuild a full re-cluster when its step is a multiple of
+        resort_every, else the cheap one; then a tail of plain steps
+        without a prune. Consumes `state`. Returns (state, temps, press)
+        with temps and press as device tensors of length ntimes (0 where
+        not taken)."""
         p = self.params
         every = p.reneigh_every
         resort = p.resort_every
         n_intervals = ntimes // every
         thermo: list = []
         for i in range(n_intervals):
-            state = self._plain_steps(state, every - 1, thermo)
+            state = self._interval_plain_steps(state, thermo)
             if resort > 0 and ((i + 1) * every) % resort == 0:
                 state = self._reneigh_step(state, thermo)
             else:
@@ -450,16 +549,23 @@ class ClusterSimulation:
         return CStepState(clusters, *vel, *f3, halo, pairs, ovf)
 
     def _calibrate_list_cap(self, state0: CStepState) -> bool:
-        """Shrink the group-list capacity to the observed maximum (+25%)
-        and the exact-list capacity to the observed maximum (+15% + 2):
-        every padded slot costs work each step. Returns True if either
-        shrank (the caller rebuilds; later growth is the overflow retry)."""
-        need = int(state0.pairs.nj.max())
+        """Shrink the group-list capacity to the observed need (+25%) and
+        the exact-list capacity to the observed maximum (+15% + 2): every
+        padded slot costs work each step. The need is the longest group
+        list on the exact-list path, the farthest window end (njg tiles of
+        8) on the group-window path. Returns True if either shrank (the
+        caller rebuilds; later growth is the overflow retry)."""
+        if self._ilist:
+            need = int(state0.pairs.nj.max())
+        else:
+            need = int(state0.pairs.ranges[:, 2 * GROUP].max()) * 8
         tight = max((int(need * 1.25) + 7) // 8 * 8, 32)
         shrunk = False
         if tight < self.list_cap:
             self.list_cap = tight
             shrunk = True
+        if state0.pairs.nji is None:
+            return shrunk
         need_i = int(state0.pairs.nji.max())
         tight_i = max((int(need_i * 1.15) + 2 + 7) // 8 * 8, 16)
         if tight_i < self.icap:

@@ -1,5 +1,6 @@
 """GROMACS-style M x N cluster machinery in torch ops (the port of
-``mdbench_tpu.ops.cluster``, exact-list path only).
+``mdbench_tpu.ops.cluster``: the group lists with or without their
+per-member tile windows, the windows' refresh, and the exact unit lists).
 
 Reference scheme (src/clusterpair/): atoms grouped into 8-atom i-clusters
 and 16-atom j-clusters ("j16": two consecutive 8-atom rows), bounding-box
@@ -30,6 +31,7 @@ from mdbench_tpu_torch.state import SENTINEL_COORD
 
 M = 8  # atoms per i-cluster
 N_J = 16  # atoms per j-cluster (M = N/2 geometry, reference force.h:74-91)
+TILE_J = 8  # j16 clusters per window tile (128 atoms)
 
 
 class ClusterGrid(NamedTuple):
@@ -127,15 +129,21 @@ class ClusterHalo(NamedTuple):
 
 
 class ClusterPairList(NamedTuple):
-    """Group-shared j16 lists and the exact per-i-unit lists derived from
-    them (an i-unit = `share` consecutive i-clusters)."""
+    """Group-shared j16 lists, with either the per-member tile windows of
+    the group-window force (`ranges`) or the exact per-i-unit lists derived
+    from them (an i-unit = `share` consecutive i-clusters)."""
 
-    jlist: torch.Tensor  # (NG, L) int64 j16 ids, z-ordered
+    # (NG, L) j16 ids, z-ordered: int64; int32 in the windowed form (the
+    # group-window kernel's operand)
+    jlist: torch.Tensor
     nj: torch.Tensor  # (NG,) int64 kept entries per group
     overflow: torch.Tensor  # (2,) bool: [nj > L, window coverage]
     ijlist: Optional[torch.Tensor] = None  # (n_units, icap) int32
     nji: Optional[torch.Tensor] = None  # (n_units,) int32
     iovf: Optional[torch.Tensor] = None  # () bool — nji > icap anywhere
+    # (NG, 2*group+1) int32: each member's start tile, then its end tile,
+    # then the group's tile bound njg (a tile = TILE_J j16 = 128 atoms)
+    ranges: Optional[torch.Tensor] = None
 
 
 def _zbits(z: torch.Tensor) -> torch.Tensor:
@@ -414,14 +422,25 @@ def build_cluster_pairs(
     n_clusters_pad: int,
     group: int,
     list_capacity: int,
+    need_ranges: bool = False,
 ) -> ClusterPairList:
     """Shared j16 list per group of `group` consecutive i-clusters
     (reference buildNeighbor, neighbor.c:176-436): every j16 in the
-    group's bin window whose bbox is within cutneigh of the group bbox.
-    Kept entries are ordered by (quantised bbox zmin, id) — the order of
-    mdbench_tpu's packed-key path, which the exact lists inherit — and
-    the rest of each row holds the sentinel j16. This is the
-    `need_ranges=False` form: no per-member tile windows."""
+    group's bin window whose bbox is within cutneigh of the group bbox;
+    the rest of each row holds the sentinel j16.
+
+    need_ranges=False (the exact-list path): kept entries are ordered by
+    (quantised bbox zmin, id), the order of mdbench_tpu's packed-key path,
+    which the exact lists inherit.
+
+    need_ranges=True (the group-window path): kept entries are ordered by
+    (exact bbox zmin, id) and each member gets the tile window of the
+    entries it can reach, [start, end) in tiles of TILE_J entries:
+        start = #{prefix-max zmax < zmin_i - cutneigh}
+        end   = min(#{zmin <= zmax_i + cutneigh}, nj, L)
+    (mdbench_tpu sorts by zmin alone, unstably, and the id breaks ties
+    here: entries whose zmin ties, such as ghost images shifted along x
+    or y, may stand in another order there. The windows are the same.)"""
     dev = ibbox.device
     ng = n_clusters_pad // group
     dims = grid.bin_dims
@@ -467,11 +486,19 @@ def build_cluster_pairs(
     dz = gap(gmin[2], gmax[2], g[:, :, 4], g[:, :, 5])
     keep = (dx * dx + dy * dy + dz * dz) <= cutsq  # empty slots fail
     nj = keep.sum(1)
-
-    # packed sort key (quantised zmin, id); dropped entries sort last
+    overflow = torch.stack([(nj > list_capacity).any(), (~covered).any()])
     n16 = ibbox.shape[0] // 2
     sentinel_id = n16 - 1
     cand = g[:, :, 6].to(torch.int64)
+    if need_ranges:
+        jl, ranges = _windowed_lists(
+            g, keep, nj, cand, bb_local, grid.cutneigh, list_capacity,
+            sentinel_id,
+        )
+        return ClusterPairList(jlist=jl, nj=nj, overflow=overflow,
+                               ranges=ranges)
+
+    # packed sort key (quantised zmin, id); dropped entries sort last
     zq_off = -(grid.cutneigh + grid.slop_z + 1.0)
     zq_scale = 16383.0 / (grid.prd[2] + 2.0 * (grid.cutneigh + grid.slop_z + 1.0))
     zq = ((g[:, :, 4] - zq_off) * zq_scale).clamp(-1.0, 16384.0)
@@ -484,9 +511,77 @@ def build_cluster_pairs(
         jl = torch.nn.functional.pad(
             jl, (0, list_capacity - jl.shape[1]), value=sentinel_id
         )
-    return ClusterPairList(
-        jlist=jl, nj=nj,
-        overflow=torch.stack([(nj > list_capacity).any(), (~covered).any()]),
+    return ClusterPairList(jlist=jl, nj=nj, overflow=overflow)
+
+
+def _windowed_lists(g, keep, nj, cand, bb_local, cutneigh: float,
+                    list_capacity: int, sentinel_id: int):
+    """The need_ranges=True compaction of build_cluster_pairs: kept
+    candidates sorted by (zmin, id), zmax carried along, and the members'
+    tile windows from them. Returns (jlist int32, ranges)."""
+    zmin = torch.where(keep, g[:, :, 4], SENTINEL_COORD)
+    zmax = torch.where(keep, g[:, :, 5], SENTINEL_COORD)
+    # two stable sorts: by id, then by zmin (ties keep id order)
+    by_id = torch.argsort(cand, dim=1, stable=True)
+    zs, o = torch.sort(torch.gather(zmin, 1, by_id), dim=1, stable=True)
+    order = torch.gather(by_id, 1, o)[:, :list_capacity]
+    zs = zs[:, :list_capacity]
+    zx = torch.gather(zmax, 1, order)
+    lpos = torch.arange(order.shape[1], device=g.device)
+    jl = torch.where(lpos < nj[:, None], torch.gather(cand, 1, order),
+                     sentinel_id)
+    if jl.shape[1] < list_capacity:
+        pad = list_capacity - jl.shape[1]
+        jl = torch.nn.functional.pad(jl, (0, pad), value=sentinel_id)
+        zs = torch.nn.functional.pad(zs, (0, pad), value=SENTINEL_COORD)
+        zx = torch.nn.functional.pad(zx, (0, pad), value=SENTINEL_COORD)
+    # zmax is not monotone in zmin order, its running max is: counting
+    # the positions whose prefix max stays below the bound is exact
+    rmax = torch.cummax(zx, dim=1).values
+    return (jl.to(torch.int32).contiguous(),
+            _tile_windows(rmax, zs, nj, bb_local, cutneigh))
+
+
+def _tile_windows(rmax, rmin, nj, bb_local, cutneigh: float):
+    """(NG, 2*group+1) int32 tile windows from a per-position running max
+    of zmax (`rmax`, non-decreasing) and a lower bound of every later
+    zmin (`rmin`, non-decreasing), both (NG, L), and the members' bboxes
+    (NG, group, 8)."""
+    L = rmax.shape[1]
+    lo = bb_local[:, :, 4] - cutneigh  # (NG, group)
+    hi = bb_local[:, :, 5] + cutneigh
+    start = (rmax[:, None, :] < lo[:, :, None]).sum(2)
+    end = (rmin[:, None, :] <= hi[:, :, None]).sum(2)
+    end = torch.minimum(end, nj.clamp(max=L)[:, None])
+    start = torch.minimum(start, end)
+    start_t = start // TILE_J
+    end_t = (end + TILE_J - 1) // TILE_J
+    njg = end_t.amax(1, keepdim=True)
+    return torch.cat([start_t, end_t, njg], dim=1).to(torch.int32)
+
+
+def refresh_pair_ranges(
+    clusters: Clusters,
+    pairs: ClusterPairList,
+    n_clusters_pad: int,
+    group: int,
+    cutneigh: float,
+) -> ClusterPairList:
+    """The prune pass (reference pruneNeighbor, neighbor.c:483-531):
+    recompute the members' tile windows from CURRENT coordinates without
+    re-binning or rebuilding the lists. The list keeps its order, which
+    drifts from sorted; the bounds stay exact for any order through the
+    prefix max of zmax (start) and the suffix min of zmin (end)."""
+    ng = pairs.jlist.shape[0]
+    bbox = compute_bboxes(clusters.xc, clusters.yc, clusters.zc)
+    bb16 = make_j16_bboxes(bbox)
+    zmin_j = bb16[pairs.jlist, 4]  # (NG, L)
+    zmax_j = bb16[pairs.jlist, 5]
+    rmax = torch.cummax(zmax_j, dim=1).values
+    rmin = torch.cummin(zmin_j.flip(1), dim=1).values.flip(1)
+    bb_local = bbox[:n_clusters_pad].reshape(ng, group, 8)
+    return pairs._replace(
+        ranges=_tile_windows(rmax, rmin, pairs.nj, bb_local, cutneigh)
     )
 
 

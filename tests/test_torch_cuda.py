@@ -1,6 +1,7 @@
-"""The exact-list force kernels (csrc/lj_cluster_ilist.cu and the two EAM
-passes of csrc/eam_cluster.cu) against their plain torch versions, on a
-CUDA card. This file imports no jax, so it runs on a machine that has
+"""The force kernels (the exact-list LJ kernel csrc/lj_cluster_ilist.cu,
+the two EAM passes of csrc/eam_cluster.cu and the group-window LJ kernel
+csrc/lj_cluster_stream.cu) against their plain torch versions, on a CUDA
+card. This file imports no jax, so it runs on a machine that has
 torch and a card but no jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -18,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import write_standin_funcfl
+from chip_smoke import random_group_lists, write_standin_funcfl
 from mdbench_tpu_torch.config import FF_EAM, Params
 from mdbench_tpu_torch.convert import clusters_from_numpy, pairs_from_numpy
 from mdbench_tpu_torch.engine_cluster import ClusterSimulation
@@ -207,3 +208,61 @@ def test_cuda_eam_kernels_on_engine_lists(cuda, eam_file, precision):
     f_cpu = ClusterSimulation(Params(**kw), x=x, v=v, device="cpu").first_force_atoms()
     f_gpu = sim.first_force_atoms()
     assert np.abs(f_gpu - f_cpu).max() <= 10 * TOL[p.dtype] * np.abs(f_cpu).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [1, 2])
+@pytest.mark.parametrize("tdtype", [torch.float32, torch.float64])
+def test_cuda_stream_kernel_matches_plain(cuda, seed, tdtype):
+    """Random windows (inner, empty, past njg), an all-padding group,
+    sentinel ids and real ids past nj (chip_smoke phase 11's cases)."""
+    planes, jl, rg, npad = random_group_lists(seed, ng=24, L=40)
+    xc, yc, zc = (torch.tensor(p, dtype=tdtype, device=cuda) for p in planes)
+    jl = torch.tensor(jl, device=cuda)
+    rg = torch.tensor(rg, device=cuda)
+    before = tlj.STREAM_LAUNCHES
+    f_k = tlj.lj_cluster_force_stream(xc, yc, zc, jl, rg, npad, CUT2, SIG6, EPS)
+    torch.cuda.synchronize()
+    assert tlj.STREAM_LAUNCHES == before + 1
+    f_r = tlj.lj_cluster_force_group_ref(xc, yc, zc, jl, npad, CUT2, SIG6, EPS,
+                                         ranges=rg)
+    assert float(f_r[0].abs().max()) > 1.0
+    assert _rel(f_k, f_r) <= TOL[tdtype]
+    for f in f_k:  # the all-padding group's rows
+        assert (f[16:32] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["sp", "dp"])
+def test_cuda_stream_kernel_on_engine_lists(cuda, precision):
+    p = Params(nx=6, ny=6, nz=6, precision=precision, scheme="cluster",
+               kernel="pallas")
+    x, v, _ = create_fcc_lattice(p)
+    x = x + np.random.default_rng(5).normal(0.0, 0.05, x.shape)
+    sim = ClusterSimulation(p, x=x, v=v, device=cuda)
+    before = tlj.STREAM_LAUNCHES
+    st = sim.initial_state()
+    assert tlj.STREAM_LAUNCHES == before + 1
+    cl, pr = st.clusters, st.pairs
+    f_r = tlj.lj_cluster_force_group_ref(
+        cl.xc, cl.yc, cl.zc, pr.jlist, sim.n_clusters_pad, CUT2, SIG6, EPS,
+        ranges=pr.ranges)
+    assert _rel((st.fxc, st.fyc, st.fzc), f_r) <= TOL[p.dtype]
+    f_cpu = ClusterSimulation(p, x=x, v=v, device="cpu").first_force_atoms()
+    f_gpu = sim.first_force_atoms()
+    assert np.abs(f_gpu - f_cpu).max() <= 10 * TOL[p.dtype] * np.abs(f_cpu).max()
+
+
+@pytest.mark.cuda
+def test_cuda_stream_wrapper_device_rule(cuda):
+    planes, jl, rg, npad = random_group_lists(3)
+    args = [torch.tensor(p, dtype=torch.float32) for p in planes]
+    args += [torch.tensor(jl), torch.tensor(rg)]
+    before = tlj.STREAM_LAUNCHES
+    tlj.lj_cluster_force_stream(*args, npad, CUT2, SIG6, EPS)  # the CPU
+    assert tlj.STREAM_LAUNCHES == before
+    with pytest.raises(ValueError, match="no force kernel"):
+        tlj.lj_cluster_force_stream(*(a.to("meta") for a in args), npad, CUT2,
+                                    SIG6, EPS)
+    tlj.lj_cluster_force_stream(*(a.to(cuda) for a in args), npad, CUT2, SIG6, EPS)
+    assert tlj.STREAM_LAUNCHES == before + 1

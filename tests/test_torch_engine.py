@@ -75,11 +75,19 @@ def test_cpu_path_imports_no_jax():
         "import sys\n"
         "from mdbench_tpu_torch.config import Params\n"
         "from mdbench_tpu_torch.engine_cluster import ClusterSimulation\n"
-        "from mdbench_tpu_torch import convert, bench\n"
+        "from mdbench_tpu_torch import convert, bench, stats, stub\n"
         "p = Params(nx=4, ny=4, nz=4, ntimes=4, reneigh_every=2, scheme='cluster')\n"
         "out = ClusterSimulation(p, device='cpu').run()\n"
         "bench.load_check_golden()\n"
         "assert out.temps.shape == (4,)\n"
+        "p = Params(nx=4, ny=4, nz=4, ntimes=4, reneigh_every=4, prune_every=1,\n"
+        "           scheme='cluster', kernel='pallas')\n"
+        "sim = ClusterSimulation(p, device='cpu')\n"
+        "out = sim.run()\n"
+        "cs = stats.compute_cluster_stats(out.state.clusters, out.state.pairs,\n"
+        "                                 sim.n_clusters_pad, 16, 6.25, 7.84)\n"
+        "assert out.temps.shape == (4,) and cs['pairs_within_cutforce'] > 0\n"
+        "stub.run_cluster_stub(natoms=2048, nneighs=12, ntimes=1, device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'mdbench_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
