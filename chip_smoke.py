@@ -55,12 +55,46 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      step; its first force against the plain version (float32: the
      stub's geometry overflows some forces to inf or NaN, which must sit
      where the plain version has them; the finite ones <= 1e-5 of the
-     largest); the kernel's median time on the stub's planes.
+     largest); the kernel's median time on the stub's planes;
+ 16. typed kernels: the typed exact-list kernel (K1t) and the typed
+     group-window kernel (K4t) against their typed plain versions on the
+     random lists and windows of phases 3 and 11, with random types for
+     T = 2 and 3 and non-uniform tables, float32 (<= 1e-5 of max |f|) and
+     float64 (<= 1e-12); all-padding units and groups get exactly 0; with
+     uniform tables each equals its untyped kernel within the same limits;
+ 17. the typed main path from a file: a 131,072-atom two-type LAMMPS dump
+     (the 32^3 lattice, its velocities after adjust_thermo, its glibc-rand
+     types for ntypes=2, every number with 17 significant digits) read
+     through Params(input_file=...) and run for 200 SP steps with the
+     default EXPLICIT_TYPES tables on kernel="auto" (K1t) and
+     kernel="pallas" (K4t); each run passes the golden gate (uniform
+     tables: the untyped physics), the typed kernel's launches cover
+     every force evaluation and the untyped kernels do not launch;
+ 18. non-uniform tables (eps 1.0 / 0.7 / 1.3, sigma 1.0 / 0.95 / 1.05,
+     cutoff 2.5) on the same file: on both paths the SP run meets a DP
+     run within the golden gate's tolerances at every 20th step; then a
+     jittered 8^3 DP box with two types, card against the CPU plain path
+     for "auto", "pallas" and half_neigh=1;
+ 19. K1t and K4t at the main path's shapes: phase 18's final SP states
+     with their tables and phase 17's with the default ones (error
+     against plain, against the untyped kernel with uniform tables;
+     median times beside the untyped kernel's on the same lists).
 
-Every kernel count is set to 0 just before each main path (phases 4, 8
-and 12) and read just after it. Then it prints a JSON line of the
-kernels, nvidia-smi's line, and {"ok": true, "device": {...}} as the last
-line; the script's wall time goes to standard error.
+Every kernel count is set to 0 just before each main path (phases 4, 8,
+12 and both runs of 17) and read just after it. Then it prints a JSON
+line of the kernels, nvidia-smi's line, and {"ok": true, "device": {...}}
+as the last line; the script's wall time goes to standard error.
+
+A kernel's bound (bound_ms) is the least time the card could take for
+the work the main path's inputs need: the larger of its operations over
+the card's peak (67 TFLOP/s float32, 34 TFLOP/s float64, non-tensor, H100
+SXM data sheet) and its bytes over 3.35 TB/s, each input read once and
+each output written once. An LJ pair costs 8 operations for the distance
+test and 15 more inside the cutoff (the divide counted as one); an EAM
+pair 8, and inside the cutoff 6 + 2d (density) or 10 + 4d (force) for
+Horner polynomials of degree d. The pairs are those the kernel evaluates
+on these lists (stats.compute_cluster_stats). No single PyTorch call
+computes any of these functions, so library_ms is null.
 """
 
 from __future__ import annotations
@@ -84,6 +118,18 @@ STREAM_KERNEL = {
     "source": "mdbench_tpu_torch/csrc/lj_cluster_stream.cu",
     "replaces": "mdbench_tpu/ops/pallas/lj_cluster.py:50",
 }
+TYPED_KERNEL = {
+    "name": "lj_cluster_ilist_typed",
+    "route": "cuda",
+    "source": "mdbench_tpu_torch/csrc/lj_cluster_ilist.cu",
+    "replaces": "mdbench_tpu/ops/pallas/lj_cluster.py:433",
+}
+STREAM_TYPED_KERNEL = {
+    "name": "lj_cluster_stream_typed",
+    "route": "cuda",
+    "source": "mdbench_tpu_torch/csrc/lj_cluster_stream.cu",
+    "replaces": "mdbench_tpu/ops/pallas/lj_cluster.py:50",
+}
 EAM_KERNELS = {
     "eam_rho_ilist": {
         "name": "eam_rho_ilist",
@@ -101,6 +147,15 @@ EAM_KERNELS = {
 REPEATS, CHAIN = 3, 3  # as python -m mdbench_tpu_torch.bench
 # SP against DP temperatures of the EAM run (tools/r3_eamc.py GOLDEN_TOL)
 EAM_SP_TOL = {20: 2e-3, 40: 1e-2, 60: 3e-2}
+# the LJ wrappers' launch counts
+LJ_COUNTS = ("LAUNCHES", "TYPED_LAUNCHES", "STREAM_LAUNCHES", "STREAM_TYPED_LAUNCHES")
+# the non-uniform two-type tables of phase 18 (tests/test_cluster.py:65-68)
+NONUNIFORM_TABLES = (np.array([[1.0, 0.7], [0.7, 1.3]]),
+                     np.array([[1.0, 0.95], [0.95, 1.05]]) ** 6,
+                     np.full((2, 2), 2.5**2))
+# H100 SXM (NVIDIA's data sheet): non-tensor peaks, and HBM3's rate
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def write_standin_funcfl(path) -> None:
@@ -133,6 +188,76 @@ def write_standin_funcfl(path) -> None:
               for i in range(0, vals.size, 5)]
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
+
+
+def random_tables(seed, ntypes, cutforce=2.5):
+    """Symmetric non-uniform (eps, sig6, cutsq) float64 (T, T) tables: eps
+    in [0.7, 1.3], sigma in [0.9, 1.1], cutoff in [2.0, cutforce] (no pair
+    cutoff beyond the one the lists were built for)."""
+    rng = np.random.default_rng(seed)
+
+    def sym(lo, hi):
+        a = rng.uniform(lo, hi, (ntypes, ntypes))
+        return np.triu(a) + np.triu(a, 1).T
+
+    return sym(0.7, 1.3), sym(0.9, 1.1) ** 6, sym(2.0, cutforce) ** 2
+
+
+def write_typed_dump(path, nx=32, ntypes=2) -> int:
+    """Write the LJ workload's atoms as a LAMMPS dump ('ITEM: ATOMS id type
+    x y z vx vy vz', 'BOX BOUNDS pp pp pp'): the nx^3 FCC lattice, its
+    velocities after adjust_thermo, and its glibc-rand types for `ntypes`
+    (1-based in the file), every number with 17 significant digits so
+    that it reads back bit-equal. Returns the atom count."""
+    from mdbench_tpu_torch.config import Params
+    from mdbench_tpu_torch.models.lattice import create_fcc_lattice
+    from mdbench_tpu_torch.thermo import adjust_thermo, setup_thermo
+
+    p = Params(nx=nx, ny=nx, nz=nx, ntypes=ntypes)
+    x, v, types = create_fcc_lattice(p)
+    n = x.shape[0]
+    v = adjust_thermo(p, setup_thermo(p, n), v, n)
+    head = ["ITEM: TIMESTEP", "0", "ITEM: NUMBER OF ATOMS", str(n),
+            "ITEM: BOX BOUNDS pp pp pp",
+            *(f"0.0 {b:.17g}" for b in (p.xprd, p.yprd, p.zprd)),
+            "ITEM: ATOMS id type x y z vx vy vz"]
+    rows = np.concatenate([x, v], axis=1)
+    with open(path, "w") as f:
+        f.write("\n".join(head) + "\n")
+        f.writelines(f"{i + 1} {types[i] + 1} " + " ".join(f"{a:.17g}" for a in row)
+                     + "\n" for i, row in enumerate(rows))
+    return n
+
+
+def bound_of(ops: float, nbytes: int, dtype) -> tuple:
+    """(bound_ms, bound_by): the larger of `ops` over the card's peak for
+    `dtype` and `nbytes` over its memory rate, and which one it is."""
+    t_ops = ops / PEAK_FLOPS[str(dtype).replace("torch.", "")]
+    t_mem = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+
+
+def nbytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def lj_ops(evaluated: int, inside: int) -> int:
+    """Operations of the LJ kernels: 8 per evaluated pair, 15 more inside
+    the cutoff."""
+    return 8 * evaluated + 15 * inside
+
+
+def ilist_pairs(cs: dict, share: int) -> int:
+    """Pairs the exact-list kernels evaluate: each listed j16's 16 atoms
+    against its unit's share*8 i-atoms (compute_cluster_stats' counts)."""
+    return cs["clusters_processed"] * 16 * share * 8
+
+
+def kernel_row(meta, launches, err, ms, plain_ms, bound) -> dict:
+    """A kernel's entry of the JSON line."""
+    return {**meta, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None}
 
 
 def fail(msg: str):
@@ -258,8 +383,8 @@ def random_group_lists(seed, ng=8, L=32, ghost_rows=64, spacing=1.1):
 
 def reset_counts(lj, ec) -> None:
     """Every kernel's launch count to 0."""
-    lj.LAUNCHES = 0
-    lj.STREAM_LAUNCHES = 0
+    for name in LJ_COUNTS:
+        setattr(lj, name, 0)
     for name in ec.LAUNCHES:
         ec.LAUNCHES[name] = 0
 
@@ -269,7 +394,7 @@ def run_eam_phases(torch, dev, smi: str, ec) -> list:
     from mdbench_tpu_torch import _build
     from mdbench_tpu_torch.bench import run_bench_eam
     from mdbench_tpu_torch.config import FF_EAM, Params
-    from mdbench_tpu_torch.engine_cluster import ClusterSimulation
+    from mdbench_tpu_torch.engine_cluster import GROUP, ClusterSimulation
     from mdbench_tpu_torch.models.eam_tables import (
         apply_eam_overrides,
         fit_eam_poly,
@@ -278,6 +403,7 @@ def run_eam_phases(torch, dev, smi: str, ec) -> list:
     from mdbench_tpu_torch.models.lattice import create_fcc_lattice
     from mdbench_tpu_torch.ops import lj_cluster as lj
     from mdbench_tpu_torch.ops.eam import EamDevice
+    from mdbench_tpu_torch.stats import compute_cluster_stats
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     eam_file = str(_build.BUILD_DIR / "standin_cu.eam")
@@ -335,12 +461,15 @@ def run_eam_phases(torch, dev, smi: str, ec) -> list:
           f"list_cap {sim.list_cap}, grows {sim.grows or 'none'}")
     print(f"EAM main path: TOTAL {out.total_time:.6f} s per run, {rate:.6e} "
           f"atom-updates/s, run() wall {wall:.2f} s, on {smi}")
+    lj_launches = {name: getattr(lj, name) for name in LJ_COUNTS}
     print(f"EAM main path: kernel launches {launches} (each >= {need} force "
-          f"evaluations); K1 launches {lj.LAUNCHES}", flush=True)
+          f"evaluations); LJ kernels {lj_launches}", flush=True)
     for name, n in launches.items():
         if n < need:
             fail(f"the EAM main path launched {name} {n} times, fewer than "
                  f"its {need} force evaluations")
+    if any(lj_launches.values()):
+        fail("the EAM main path launched an LJ kernel")
     temps = out.temps
     if temps.shape != (p.ntimes,) or not np.isfinite(temps).all():
         fail("EAM temperature trace is not finite or has the wrong shape")
@@ -378,6 +507,13 @@ def run_eam_phases(torch, dev, smi: str, ec) -> list:
     cl, pr = st.clusters, st.pairs
     npad, share = sim.n_clusters_pad, sim.ishare
     args = (npad, cut2, sim.eam_poly)
+    cs = compute_cluster_stats(cl, pr, npad, GROUP, cut2, p.cutneigh**2)
+    evaluated, inside = ilist_pairs(cs, share), cs["pairs_within_cutforce"]
+    deg = {k: len(getattr(sim.eam_poly, k)) - 1 for k in ("dens", "g1", "g2")}
+    ops = {"eam_rho_ilist": 8 * evaluated + (6 + 2 * deg["dens"]) * inside,
+           "eam_force_ilist": 8 * evaluated + (10 + 2 * (deg["g1"] + deg["g2"])) * inside}
+    print(f"EAM kernels at 131k: {evaluated} pairs evaluated, {inside} inside the "
+          f"cutoff; Horner degrees {deg}", flush=True)
     rows = {}
     for dtype in (torch.float32, torch.float64):
         planes = [q.to(dtype) for q in (cl.xc, cl.yc, cl.zc)]
@@ -398,16 +534,21 @@ def run_eam_phases(torch, dev, smi: str, ec) -> list:
                                                share=share)),
         }
         for name, (kern, plain) in calls.items():
-            err, rel = check(f"{name} at 131k", kern(), plain(), dtype)
+            out = kern()
+            err, rel = check(f"{name} at 131k", out, plain(), dtype)
             ms = median_ms(torch, kern, 50)
             plain_ms = median_ms(torch, plain, 5)
+            moved = nbytes_of(*planes, pr.ijlist, pr.nji, *out) + (
+                nbytes_of(fp) if name == "eam_force_ilist" else 0)
+            bound = bound_of(ops[name], moved, dtype)
             print(f"{name} at 131k ({str(dtype)[6:]}, {pr.ijlist.shape[0]} units x "
                   f"icap {pr.ijlist.shape[1]}, share {share}): max abs err {err:.3e}, "
                   f"rel {rel:.3e} (tol {tol_of(torch, dtype):.0e}); median kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms on {smi}", flush=True)
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+                  f"({bound[1]}) on {smi}", flush=True)
             if dtype == torch.float32:
-                rows[name] = {**EAM_KERNELS[name], "launches": launches[name],
-                              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                rows[name] = kernel_row(EAM_KERNELS[name], launches[name], err, ms,
+                                        plain_ms, bound)
     return [rows[name] for name in EAM_KERNELS]
 
 
@@ -467,7 +608,8 @@ def run_group_phases(torch, dev, smi: str, ec) -> dict:
     sim, out, rate = run_bench(repeats=REPEATS, chain=CHAIN, kernel="pallas")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, k1 = lj.STREAM_LAUNCHES, lj.LAUNCHES
+    launches = lj.STREAM_LAUNCHES
+    others = {name: getattr(lj, name) for name in LJ_COUNTS if name != "STREAM_LAUNCHES"}
     p = sim.params
     need = (1 + REPEATS * CHAIN) * (p.ntimes + 1)
     st = out.state
@@ -479,12 +621,12 @@ def run_group_phases(torch, dev, smi: str, ec) -> dict:
     print(f"group main path: golden gate passed; TOTAL {out.total_time:.6f} s per "
           f"run, {rate:.6e} atom-updates/s, run() wall {wall:.2f} s, on {smi}")
     print(f"group main path: group kernel launches {launches} (>= {need} force "
-          f"evaluations); exact-list kernel launches {k1}; EAM {dict(ec.LAUNCHES)}")
+          f"evaluations); other LJ kernels {others}; EAM {dict(ec.LAUNCHES)}")
     print(f"group main path: final-state counters {cs}", flush=True)
     if launches < need:
         fail(f"the group main path launched the group kernel {launches} times, "
              f"fewer than its {need} force evaluations")
-    if k1 or any(ec.LAUNCHES.values()):
+    if any(others.values()) or any(ec.LAUNCHES.values()):
         fail("the group main path launched another force kernel")
     temps = out.temps
     if temps.shape != (p.ntimes,) or not np.isfinite(temps).all():
@@ -531,15 +673,19 @@ def run_group_phases(torch, dev, smi: str, ec) -> dict:
             return lj.lj_cluster_force_group_ref(*planes, pr.jlist, npad, *cut,
                                                  ranges=pr.ranges)
 
-        err, rel = rel_err(torch, kern(), plain())
+        out = kern()
+        err, rel = rel_err(torch, out, plain())
         ms = median_ms(torch, kern, 50)
         plain_ms = median_ms(torch, plain, 5)
-        res[dtype] = (err, ms, plain_ms)
+        bound = bound_of(lj_ops(cs["padded_pairs"], cs["pairs_within_cutforce"]),
+                         nbytes_of(*planes, pr.jlist, pr.ranges, *out), dtype)
+        res[dtype] = (err, ms, plain_ms, bound)
         print(f"group kernel at 131k ({str(dtype)[6:]}, {pr.jlist.shape[0]} groups x "
               f"L {pr.jlist.shape[1]}, {cs['padded_pairs']} window pairs = "
               f"{cs['padded_pairs'] / (ms * 1e-3):.4e} pairs/s): max abs err "
               f"{err:.3e}, rel {rel:.3e} (tol {tol_of(torch, dtype):.0e}); median "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms on {smi}", flush=True)
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]}) on {smi}", flush=True)
         if not rel <= tol_of(torch, dtype):
             fail(f"group kernel disagrees with its plain version at 131k ({dtype})")
 
@@ -576,9 +722,245 @@ def run_group_phases(torch, dev, smi: str, ec) -> dict:
         if not (rel <= 1e-5 and rel64 <= 1e-12):
             fail(f"the stub's first force ({pattern}) disagrees with the plain version")
 
-    err, ms, plain_ms = res[torch.float32]
-    return {**STREAM_KERNEL, "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+    return kernel_row(STREAM_KERNEL, launches, *res[torch.float32])
+
+
+def run_typed_phases(torch, dev, smi: str, ec) -> list:
+    """Phases 16-19 (the typed LJ path from an atom file). Returns the
+    typed kernels' JSON rows."""
+    import tempfile
+
+    from mdbench_tpu_torch import _build
+    from mdbench_tpu_torch.bench import load_check_golden, run_bench_file
+    from mdbench_tpu_torch.config import Params
+    from mdbench_tpu_torch.engine_cluster import GROUP, ClusterSimulation
+    from mdbench_tpu_torch.models.lattice import create_fcc_lattice
+    from mdbench_tpu_torch.ops import lj_cluster as lj
+    from mdbench_tpu_torch.stats import compute_cluster_stats
+
+    def tables_on(tabs, dtype):
+        return tuple(torch.tensor(t, dtype=dtype, device=dev) for t in tabs)
+
+    def check(what, got, want, dtype):
+        err, rel = rel_err(torch, got, want)
+        if not rel <= tol_of(torch, dtype):
+            fail(f"{what} disagrees ({dtype}): rel {rel:.3e}")
+        return err, rel
+
+    uniform2 = (np.ones((2, 2)), np.ones((2, 2)), np.full((2, 2), 2.5**2))
+
+    # 16. typed kernels on random lists and windows
+    for dtype in (torch.float32, torch.float64):
+        for ntypes in (2, 3):
+            for share in (1, 2, 4):
+                xc, yc, zc, ijl, nji, npad = random_case(
+                    torch, 20 + share, share, dtype, dev)
+                rng = np.random.default_rng(30 + share)
+                tc = torch.tensor(rng.integers(0, ntypes, tuple(xc.shape)),
+                                  dtype=torch.int32, device=dev)
+                tabs = tables_on(random_tables(ntypes + share, ntypes), dtype)
+                args = (npad, 2.5**2, 1.0, 1.0)
+                got = lj.lj_cluster_force_ilist(xc, yc, zc, ijl, nji, *args,
+                                                share=share, tc=tc, tables=tabs)
+                torch.cuda.synchronize()
+                err, rel = check(f"K1t share {share} T {ntypes}", got,
+                                 lj.lj_cluster_force_ilist_ref(
+                                     xc, yc, zc, ijl, *args, share=share, tc=tc,
+                                     tables=tabs), dtype)
+                if any(bool((f[8:12] != 0).any()) for f in got):
+                    fail(f"K1t: padding units got a force ({dtype}, share {share})")
+                print(f"K1t random {str(dtype)[6:]} share {share} T {ntypes}: max abs "
+                      f"err {err:.3e}, rel {rel:.3e} (tol {tol_of(torch, dtype):.0e})",
+                      flush=True)
+            # uniform tables: the untyped kernel's force
+            got = lj.lj_cluster_force_ilist(xc, yc, zc, ijl, nji, *args, share=share,
+                                            tc=tc % 2, tables=tables_on(uniform2, dtype))
+            want = lj.lj_cluster_force_ilist(xc, yc, zc, ijl, nji, *args, share=share)
+            _, rel_u = check("K1t with uniform tables against K1", got, want, dtype)
+            for seed in (1, 2):
+                planes, jl, rg, npad = random_group_lists(seed, ng=64, L=40)
+                xc, yc, zc = (torch.tensor(q, dtype=dtype, device=dev) for q in planes)
+                jl, rg = torch.tensor(jl, device=dev), torch.tensor(rg, device=dev)
+                rng = np.random.default_rng(40 + seed)
+                tc = torch.tensor(rng.integers(0, ntypes, tuple(xc.shape)),
+                                  dtype=torch.int32, device=dev)
+                tabs = tables_on(random_tables(ntypes + 10 * seed, ntypes), dtype)
+                args = (npad, 2.5**2, 1.0, 1.0)
+                got = lj.lj_cluster_force_stream(xc, yc, zc, jl, rg, *args, tc=tc,
+                                                 tables=tabs)
+                torch.cuda.synchronize()
+                err, rel = check(f"K4t seed {seed} T {ntypes}", got,
+                                 lj.lj_cluster_force_group_ref(
+                                     xc, yc, zc, jl, *args, ranges=rg, tc=tc,
+                                     tables=tabs), dtype)
+                if any(bool((f[16:32] != 0).any()) for f in got):
+                    fail(f"K4t: the all-padding group got a force ({dtype}, seed {seed})")
+                print(f"K4t random {str(dtype)[6:]} seed {seed} T {ntypes}: max abs "
+                      f"err {err:.3e}, rel {rel:.3e} (tol {tol_of(torch, dtype):.0e})",
+                      flush=True)
+            got = lj.lj_cluster_force_stream(xc, yc, zc, jl, rg, *args, tc=tc % 2,
+                                             tables=tables_on(uniform2, dtype))
+            want = lj.lj_cluster_force_stream(xc, yc, zc, jl, rg, *args)
+            _, rel_u4 = check("K4t with uniform tables against K4", got, want, dtype)
+            print(f"uniform tables {str(dtype)[6:]} T {ntypes}: K1t vs K1 rel "
+                  f"{rel_u:.3e}, K4t vs K4 rel {rel_u4:.3e}", flush=True)
+
+    check_golden = load_check_golden()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        path = f"{tmp}/lj_two_types_131k.dmp"
+        t0 = time.perf_counter()
+        natoms = write_typed_dump(path)
+        print(f"typed dump: {natoms} atoms, two types, written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+        # 17. the typed main path from the file, on both force paths
+        counts, states, rates = {}, {}, {}
+        for kernel, name in (("auto", "TYPED_LAUNCHES"),
+                             ("pallas", "STREAM_TYPED_LAUNCHES")):
+            reset_counts(lj, ec)
+            t0 = time.perf_counter()
+            sim, out, rate = run_bench_file(path, "sp", kernel, repeats=1, chain=1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {n: getattr(lj, n) for n in LJ_COUNTS}
+            p = sim.params
+            need = 2 * (p.ntimes + 1)  # the checked run and the timed one
+            print(f"typed main path {kernel}: {sim.natoms} atoms, {sim.ntypes} types "
+                  f"from {p.input_file.rsplit('/', 1)[-1]}, {p.ntimes} steps, "
+                  f"{p.precision}, n_clusters_pad {sim.n_clusters_pad}, icap "
+                  f"{sim.icap}, list_cap {sim.list_cap}, grows {sim.grows or 'none'}")
+            print(f"typed main path {kernel}: TOTAL {out.total_time:.6f} s per run, "
+                  f"{rate:.6e} atom-updates/s, run() wall {wall:.2f} s (file read "
+                  f"included), on {smi}")
+            print(f"typed main path {kernel}: launches {got} (the typed kernel >= "
+                  f"{need} force evaluations); EAM {dict(ec.LAUNCHES)}", flush=True)
+            if sim.ntypes != 2 or sim.tables is None:
+                fail("the typed dump did not run typed")
+            if got[name] < need:
+                fail(f"the typed main path ({kernel}) launched its kernel "
+                     f"{got[name]} times, fewer than its {need} force evaluations")
+            if any(n for k, n in got.items() if k != name) or any(ec.LAUNCHES.values()):
+                fail(f"the typed main path ({kernel}) launched another force kernel")
+            temps = out.temps
+            if temps.shape != (p.ntimes,) or not np.isfinite(temps).all():
+                fail("typed temperature trace is not finite or has the wrong shape")
+            check_golden(temps, p.reneigh_every)
+            print(f"typed main path {kernel}: golden gate passed; temps:", " ".join(
+                f"{s}:{temps[s - 1]:.6e}" for s in range(20, p.ntimes + 1, 20)),
+                flush=True)
+            counts[kernel], states[kernel], rates[kernel] = got[name], (sim, out.state), rate
+
+        # 18. non-uniform tables: SP against DP on both paths
+        states18 = {}
+        for kernel in ("auto", "pallas"):
+            sim_sp, out_sp, rate_sp = run_bench_file(
+                path, "sp", kernel, NONUNIFORM_TABLES, repeats=1, chain=1)
+            _, out_dp, _ = run_bench_file(path, "dp", kernel, NONUNIFORM_TABLES,
+                                          repeats=1, chain=1)
+            worst = 0.0
+            for step in range(20, sim_sp.params.ntimes + 1, 20):
+                t_sp, t_dp = float(out_sp.temps[step - 1]), float(out_dp.temps[step - 1])
+                rel = abs(t_sp - t_dp) / abs(t_dp)
+                tol = 1e-3 if step <= 60 else 2e-2
+                worst = max(worst, rel / tol)
+                print(f"non-uniform {kernel} step {step}: T sp {t_sp:.6e}, dp "
+                      f"{t_dp:.6e}, rel {rel:.3e} (tol {tol:.0e})")
+                if not rel <= tol:
+                    fail(f"non-uniform SP run ({kernel}) departs from DP at step {step}")
+            print(f"non-uniform {kernel}: TOTAL {out_sp.total_time:.6f} s per run, "
+                  f"{rate_sp:.6e} atom-updates/s (SP) on {smi}; worst rel/tol "
+                  f"{worst:.3f}", flush=True)
+            states18[kernel] = (sim_sp, out_sp.state)
+
+    base = dict(nx=8, ny=8, nz=8, ntimes=40, reneigh_every=10, resort_every=20,
+                precision="dp", scheme="cluster")
+    x, v, types = create_fcc_lattice(Params(**base, ntypes=2))
+    x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
+    for extra in ({"kernel": "auto"}, {"kernel": "pallas"}, {"half_neigh": 1}):
+        kw = {**base, **extra}
+
+        def sim_on(device):
+            return ClusterSimulation(Params(**kw), x=x, v=v, types=types,
+                                     tables=NONUNIFORM_TABLES, device=device)
+
+        f_cpu, f_gpu = (sim_on(d).first_force_atoms() for d in ("cpu", dev))
+        frel = np.abs(f_gpu - f_cpu).max() / np.abs(f_cpu).max()
+        r_cpu, r_gpu = (sim_on(d).run() for d in ("cpu", dev))
+        trel = float(np.max(np.abs(r_gpu.temps - r_cpu.temps) / np.abs(r_cpu.temps)))
+        print(f"typed small input 8^3 dp {extra}: step-0 force rel err {frel:.3e} "
+              f"(tol 1e-10), 40-step temperature rel err {trel:.3e} (tol 1e-9)",
+              flush=True)
+        if not (frel <= 1e-10 and trel <= 1e-9):
+            fail(f"the card's typed run {extra} disagrees with the CPU plain path")
+
+    # 19. K1t and K4t at the main path's shapes
+    rows = []
+    for kernel, meta in (("auto", TYPED_KERNEL), ("pallas", STREAM_TYPED_KERNEL)):
+        sim, st = states18[kernel]
+        cl, pr = st.clusters, st.pairs
+        npad, p = sim.n_clusters_pad, sim.params
+        cut = (p.cutforce**2, p.sigma6, p.epsilon)
+        cs = compute_cluster_stats(cl, pr, npad, GROUP, p.cutforce**2, p.cutneigh**2)
+        if kernel == "auto":
+            evaluated = ilist_pairs(cs, sim.ishare)
+            lists = (pr.ijlist, pr.nji)
+
+            def run(planes, **typed):
+                return lj.lj_cluster_force_ilist(*planes, *lists, npad, *cut,
+                                                 share=sim.ishare, **typed)
+
+            def plain(planes, **typed):
+                return lj.lj_cluster_force_ilist_ref(*planes, pr.ijlist, npad, *cut,
+                                                     share=sim.ishare, **typed)
+        else:
+            evaluated = cs["padded_pairs"]
+            lists = (pr.jlist, pr.ranges)
+
+            def run(planes, **typed):
+                return lj.lj_cluster_force_stream(*planes, *lists, npad, *cut, **typed)
+
+            def plain(planes, **typed):
+                return lj.lj_cluster_force_group_ref(*planes, pr.jlist, npad, *cut,
+                                                     ranges=pr.ranges, **typed)
+        inside = cs["pairs_within_cutforce"]
+        res = {}
+        for dtype in (torch.float32, torch.float64):
+            planes = [q.to(dtype) for q in (cl.xc, cl.yc, cl.zc)]
+            typed = dict(tc=cl.tc, tables=tables_on(NONUNIFORM_TABLES, dtype))
+            out = run(planes, **typed)
+            err, rel = check(f"{meta['name']} at 131k", out, plain(planes, **typed),
+                             dtype)
+            ms = median_ms(torch, lambda: run(planes, **typed), 50)
+            ms_untyped = median_ms(torch, lambda: run(planes), 50)
+            plain_ms = median_ms(torch, lambda: plain(planes, **typed), 5)
+            bound = bound_of(lj_ops(evaluated, inside),
+                             nbytes_of(*planes, *lists, cl.tc, *typed["tables"], *out),
+                             dtype)
+            res[dtype] = (err, ms, plain_ms, bound)
+            print(f"{meta['name']} at 131k ({str(dtype)[6:]}, phase 18's final state, "
+                  f"{evaluated} pairs evaluated, {inside} inside the cutoff): max abs "
+                  f"err {err:.3e}, rel {rel:.3e} (tol {tol_of(torch, dtype):.0e}); "
+                  f"median kernel {ms:.4f} ms, untyped kernel on the same lists "
+                  f"{ms_untyped:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound[0]:.4f} ms ({bound[1]}) on {smi}", flush=True)
+        # phase 17's final state with the default (uniform) tables
+        sim, st = states[kernel]
+        cl, pr = st.clusters, st.pairs
+        lists = (pr.ijlist, pr.nji) if kernel == "auto" else (pr.jlist, pr.ranges)
+        npad = sim.n_clusters_pad
+        planes = [cl.xc, cl.yc, cl.zc]
+        typed = dict(tc=cl.tc, tables=sim.tables)
+        out = run(planes, **typed)
+        err, rel = check(f"{meta['name']} at 131k (uniform)", out,
+                         plain(planes, **typed), torch.float32)
+        _, rel_u = check(f"{meta['name']} with uniform tables against the untyped "
+                         "kernel at 131k", out, run(planes), torch.float32)
+        print(f"{meta['name']} at 131k (float32, phase 17's final state, uniform "
+              f"tables): max abs err {err:.3e}, rel {rel:.3e}; against the untyped "
+              f"kernel rel {rel_u:.3e} (tol 1e-05)", flush=True)
+        rows.append(kernel_row(meta, counts[kernel], *res[torch.float32]))
+    return rows
 
 
 def main() -> int:
@@ -601,10 +983,11 @@ def main() -> int:
     from mdbench_tpu_torch import _build
     from mdbench_tpu_torch.bench import run_bench
     from mdbench_tpu_torch.config import Params
-    from mdbench_tpu_torch.engine_cluster import ClusterSimulation
+    from mdbench_tpu_torch.engine_cluster import GROUP, ClusterSimulation
     from mdbench_tpu_torch.models.lattice import create_fcc_lattice
     from mdbench_tpu_torch.ops import eam_cluster as ec
     from mdbench_tpu_torch.ops import lj_cluster as lj
+    from mdbench_tpu_torch.stats import compute_cluster_stats
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -643,6 +1026,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = lj.LAUNCHES
+    others = {name: getattr(lj, name) for name in LJ_COUNTS if name != "LAUNCHES"}
     p = sim.params
     runs = 1 + REPEATS * CHAIN  # the un-timed checked run + the timed ones
     need = runs * (p.ntimes + 1)  # initial state's force + one per step
@@ -651,11 +1035,13 @@ def main() -> int:
           f"ghost_cap {sim.ghost_cap}, list_cap {sim.list_cap}, grows {sim.grows or 'none'}")
     print(f"main path: golden gate passed; TOTAL {out.total_time:.6f} s per run, "
           f"{rate:.6e} atom-updates/s, run() wall {wall:.2f} s")
-    print(f"main path: kernel launches {launches} (>= {need} force evaluations)",
-          flush=True)
+    print(f"main path: kernel launches {launches} (>= {need} force evaluations); "
+          f"other LJ kernels {others}; EAM {dict(ec.LAUNCHES)}", flush=True)
     if launches < need:
         fail(f"the main path launched the kernel {launches} times, fewer than "
              f"its {need} force evaluations")
+    if any(others.values()) or any(ec.LAUNCHES.values()):
+        fail("the main path launched another force kernel")
     temps = out.temps
     if temps.shape != (p.ntimes,) or not np.isfinite(temps).all():
         fail("temperature trace is not finite or has the wrong shape")
@@ -687,6 +1073,8 @@ def main() -> int:
     cl, pr = st.clusters, st.pairs
     npad = sim.n_clusters_pad
     cut = (p.cutforce**2, p.sigma6, p.epsilon)
+    cs = compute_cluster_stats(cl, pr, npad, GROUP, p.cutforce**2, p.cutneigh**2)
+    evaluated, inside = ilist_pairs(cs, sim.ishare), cs["pairs_within_cutforce"]
     res = {}
     for dtype in (torch.float32, torch.float64):
         planes = [q.to(dtype) for q in (cl.xc, cl.yc, cl.zc)]
@@ -699,16 +1087,21 @@ def main() -> int:
             return lj.lj_cluster_force_ilist_ref(
                 *planes, pr.ijlist, npad, *cut, share=sim.ishare)
 
-        err, rel = rel_err(torch, kern(), plain())
+        out = kern()
+        err, rel = rel_err(torch, out, plain())
         ms = median_ms(torch, kern, 50)
         plain_ms = median_ms(torch, plain, 5)
-        res[dtype] = (err, ms, plain_ms)
+        bound = bound_of(lj_ops(evaluated, inside),
+                         nbytes_of(*planes, pr.ijlist, pr.nji, *out), dtype)
+        res[dtype] = (err, ms, plain_ms, bound)
         padded = npad * 8 * pr.ijlist.shape[1] * 16
         print(f"kernel at 131k ({str(dtype)[6:]}, {pr.ijlist.shape[0]} units x icap "
               f"{pr.ijlist.shape[1]}, share {sim.ishare}, {padded} padded pairs = "
-              f"{padded / (ms * 1e-3):.4e} pairs/s): max abs err {err:.3e}, "
-              f"rel {rel:.3e} (tol {tol_of(torch, dtype):.0e}); median kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms on {smi}", flush=True)
+              f"{padded / (ms * 1e-3):.4e} pairs/s, {evaluated} evaluated, {inside} "
+              f"inside the cutoff): max abs err {err:.3e}, rel {rel:.3e} (tol "
+              f"{tol_of(torch, dtype):.0e}); median kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) on {smi}",
+              flush=True)
         if not rel <= tol_of(torch, dtype):
             fail(f"kernel disagrees with its plain version at 131k ({dtype})")
 
@@ -718,11 +1111,13 @@ def main() -> int:
     # 11-15. the group-window path
     stream_row = run_group_phases(torch, dev, smi, ec)
 
-    err, ms, plain_ms = res[torch.float32]
-    print(json.dumps({"kernels": [{
-        **KERNEL, "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms,
-    }, *eam_rows, stream_row]}))
+    # 16-19. the typed path from an atom file
+    typed_rows = run_typed_phases(torch, dev, smi, ec)
+
+    print(json.dumps({"kernels": [
+        kernel_row(KERNEL, launches, *res[torch.float32]), *eam_rows, stream_row,
+        *typed_rows,
+    ]}))
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -42,6 +42,13 @@ _SIGNATURES = {
         [_P] * 8 + [_I] * 2 + [ctypes.c_float] * 3 + [_P], ctypes.c_int),
     "lj_cluster_stream_f64": (
         [_P] * 8 + [_I] * 2 + [ctypes.c_double] * 3 + [_P], ctypes.c_int),
+    # typed forms: (xc, yc, zc, tc, ijlist, nji, eps, sig6, cutsq, fx, fy,
+    #  fz, n_units, icap, share, ntypes, stream) and (xc, yc, zc, tc, jlist,
+    #  ranges, eps, sig6, cutsq, fx, fy, fz, ng, L, ntypes, stream)
+    "lj_cluster_ilist_typed_f32": ([_P] * 12 + [_I] * 4 + [_P], ctypes.c_int),
+    "lj_cluster_ilist_typed_f64": ([_P] * 12 + [_I] * 4 + [_P], ctypes.c_int),
+    "lj_cluster_stream_typed_f32": ([_P] * 12 + [_I] * 3 + [_P], ctypes.c_int),
+    "lj_cluster_stream_typed_f64": ([_P] * 12 + [_I] * 3 + [_P], ctypes.c_int),
     # (xc, yc, zc, ijlist, nji, rho, n_units, icap, share, coefs, stream)
     "eam_rho_ilist_f32": ([_P] * 6 + [_I] * 3 + [_P] * 2, ctypes.c_int),
     "eam_rho_ilist_f64": ([_P] * 6 + [_I] * 3 + [_P] * 2, ctypes.c_int),

@@ -15,6 +15,11 @@ Prints exactly one JSON line.
 `run_bench_eam` runs the cluster EAM workload of tools/r3_eamc.py on the
 card (the same 32^3 cells, with initEam's overrides: 131,072 atoms,
 cutoff of the potential file, 60 steps) and applies no gate.
+
+`run_bench_file` runs the same LJ workload from an atom file
+(`Params(input_file=...)`: positions, velocities, box and types of the
+file; a file with more than one type runs the typed force with the
+EXPLICIT_TYPES tables, or with `tables`) and applies no gate either.
 """
 
 from __future__ import annotations
@@ -62,6 +67,22 @@ def run_bench_eam(eam_file: str, precision: str = "sp", repeats: int = 3,
     params = Params(precision=precision, scheme="cluster", dense_thermo=False,
                     force_field=FF_EAM, eam_file=eam_file, ntimes=60)
     sim = ClusterSimulation(params, device="cuda")
+    out = sim.run(repeats=repeats, chain=chain)
+    return sim, out, sim.natoms * params.ntimes / out.total_time
+
+
+def run_bench_file(input_file: str, precision: str = "sp", kernel: str = "auto",
+                   tables=None, repeats: int = 3, chain: int = 3):
+    """The cluster LJ run of the atom file `input_file` on the CUDA card,
+    with the force kernel `kernel` and, on a typed file, the type tables
+    `tables` ((eps, sig6, cutsq), each (T, T); None for the defaults).
+    Returns (sim, result, atom-updates per second)."""
+    from mdbench_tpu_torch.config import Params
+    from mdbench_tpu_torch.engine_cluster import ClusterSimulation
+
+    params = Params(precision=precision, scheme="cluster", kernel=kernel,
+                    dense_thermo=False, input_file=input_file)
+    sim = ClusterSimulation(params, device="cuda", tables=tables)
     out = sim.run(repeats=repeats, chain=chain)
     return sim, out, sim.natoms * params.ntimes / out.total_time
 

@@ -2,7 +2,8 @@
 
 The system has no weights: its state is the cluster layout, the ghost
 map and the pair lists, and its parameters are the EAM spline tables and
-pair polynomials. Each function takes the arrays of one of
+pair polynomials, and on typed runs the per-type-pair LJ tables. Each
+function takes the arrays of one of
 mdbench_tpu's NamedTuples — the NamedTuple itself (its arrays convert
 with numpy.asarray), any object with the same attribute names, or a
 mapping of names to numpy arrays — and returns the port's NamedTuple
@@ -43,9 +44,11 @@ def _bool(src, name, device):
     return torch.tensor(_get(src, name).astype(bool), device=device)
 
 
-def clusters_from_numpy(src, device, dtype) -> Clusters:
-    """mdbench_tpu Clusters -> port Clusters (the type plane is dropped:
-    the port runs untyped)."""
+def clusters_from_numpy(src, device, dtype, typed: bool = False) -> Clusters:
+    """mdbench_tpu Clusters -> port Clusters. mdbench_tpu's clusters always
+    hold a type plane (float-encoded, zeros on untyped runs); with `typed`
+    it comes across as the port's int32 `tc`, else `tc` is None, as on the
+    port's untyped runs."""
     return Clusters(
         xc=_float(src, "xc", device, dtype),
         yc=_float(src, "yc", device, dtype),
@@ -53,7 +56,18 @@ def clusters_from_numpy(src, device, dtype) -> Clusters:
         bbox=_float(src, "bbox", device, dtype),
         atom_id=_int(src, "atom_id", device),
         inv_map=_int(src, "inv_map", device),
+        tc=_int(src, "tc", device, torch.int32) if typed else None,
     )
+
+
+def tables_from_numpy(tables, device, dtype) -> tuple:
+    """mdbench_tpu's EXPLICIT_TYPES tables -> the port's: (eps, sig6,
+    cutsq), each a (T, T) tensor on `device` in `dtype`. `tables` is the
+    engine's `type_tables` (three arrays), its `_tables_static` (three
+    nested tuples of floats) or `_tables_jnp`."""
+    eps, sig6, cutsq = (torch.tensor(np.asarray(t, np.float64), dtype=dtype,
+                                     device=device) for t in tables)
+    return eps, sig6, cutsq
 
 
 def halo_from_numpy(src, device, dtype) -> ClusterHalo:
@@ -95,12 +109,13 @@ def pairs_from_numpy(src, device) -> ClusterPairList:
     )
 
 
-def step_state_from_numpy(src, device, dtype) -> CStepState:
-    """mdbench_tpu CStepState -> port CStepState."""
+def step_state_from_numpy(src, device, dtype, typed: bool = False) -> CStepState:
+    """mdbench_tpu CStepState -> port CStepState (`typed` as for
+    clusters_from_numpy)."""
     planes = [_float(src, n, device, dtype)
               for n in ("vxc", "vyc", "vzc", "fxc", "fyc", "fzc")]
     return CStepState(
-        clusters_from_numpy(_field(src, "clusters"), device, dtype),
+        clusters_from_numpy(_field(src, "clusters"), device, dtype, typed),
         *planes,
         halo_from_numpy(_field(src, "halo"), device, dtype),
         pairs_from_numpy(_field(src, "pairs"), device),

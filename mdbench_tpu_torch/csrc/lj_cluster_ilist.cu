@@ -1,8 +1,10 @@
 // Exact-list Lennard-Jones force for the cluster-pair scheme, for Hopper
 // (sm_90a). Replaces mdbench_tpu/ops/pallas/lj_cluster.py::_kernel_ilist
-// (the TPU kernel launched by lj_cluster_force_ilist_pallas).
+// (the TPU kernel launched by lj_cluster_force_ilist_pallas), in both of
+// its forms: untyped, and typed (its `tables` branch, the reference's
+// EXPLICIT_TYPES per-type-pair parameters, clusterpair/atom.c:78-92).
 //
-// Contract (the same as the TPU kernel's, untyped):
+// Contract (the same as the TPU kernel's):
 //   xc, yc, zc   (C_total, 8) coordinate planes; j16 id c covers the 16
 //                atoms of rows 2c and 2c+1, i.e. flat atoms 16c .. 16c+15
 //   ijlist       (n_units, icap) int32 j16 ids; unit u's i-atoms are
@@ -13,6 +15,11 @@
 //   fx, fy, fz   (n_units*share, 8), written (not accumulated):
 //                f_i = sum_j d_ij * 48 eps sr6 (sr6 - 1/2) sr2 over every
 //                listed j atom with 0 < rsq < cutforcesq
+//   typed form:  tc (C_total, 8) int32 atom types and three (T, T) tables
+//                eps, sig6, cutsq in T's precision; each pair takes
+//                eps, sigma6 and cutforcesq from [t_i * T + t_j]. Types
+//                outside [0, T) are clamped into it (the caller keeps
+//                them inside; the clamp only keeps the reads in bounds).
 //
 // Design. One thread per i-atom; the sum stays in registers and runs in
 // list order, so the result is deterministic and needs no atomics. A
@@ -21,15 +28,24 @@
 // (16 atoms x 3 coordinates each) into shared memory with coalesced
 // 16-atom loads, then every thread of the unit reads them back as
 // broadcasts. Only the coordinates of listed j16 are read, once per unit
-// per step: no pre-gathered planes as on the TPU.
+// per step: no pre-gathered planes as on the TPU. The typed form is a
+// second instantiation of the same template: the block copies the three
+// tables into shared memory once, each staged j atom is one packed
+// record of its coordinates and its type (Packed below: one 16-byte
+// shared-memory read per pair in float32, two in float64, where three
+// planes and a type plane took four reads), each thread reads its own
+// type once and keeps pointers to its rows of the tables, and a pair
+// reads its cutoff (and, inside it, eps and sigma6) from shared memory.
+// The TPU kernel's T^2 trace-time selects per tile are not needed; T is a
+// runtime value up to 32 (24 KB of tables in float64).
 //
 // What bounds it on the card: the pair arithmetic (one divide and ~20
 // flops per pair, over icap*16 pairs per i-atom), not memory — each
-// staged coordinate is reused by share*8 threads. The list length
-// varies per unit, so the tile loop runs to the block's longest list
-// and units with shorter lists idle for the rest; packing units of
-// similar length into one block (the TPU path's capacity buckets) is
-// the next step for speed.
+// staged coordinate is reused by share*8 threads; the typed form adds the
+// table reads (one per pair, three inside the cutoff). The list length varies per
+// unit, so the tile loop runs to the block's longest list and units with
+// shorter lists idle for the rest; packing units of similar length into
+// one block (the TPU path's capacity buckets) is the next step for speed.
 //
 // Padding atoms sit at ~1e30; in float32 their rsq overflows to inf and
 // two coinciding padding atoms give rsq == 0. The cutoff test therefore
@@ -47,21 +63,54 @@ namespace {
 constexpr int kThreads = 128;      // threads per block
 constexpr int kJ16 = 16;           // atoms per j-cluster
 constexpr int kSmemBytes = 24576;  // staging budget per block
+constexpr int kMaxTypes = 32;      // typed form: the largest T
+// dynamic shared memory a launch may take without opting in (48 KB less
+// the static s_nmax and some slack)
+constexpr size_t kDefaultSmem = 48 * 1024 - 64;
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
-template <typename T>
+// A staged j atom of the typed form: x, y, z and the type's bits, moved
+// to and from shared memory as 16-byte vectors.
+template <typename T> struct Packed;
+template <> struct Packed<float> {
+  float4 a;
+  __device__ __forceinline__ void put(float x, float y, float z, int t) {
+    a = make_float4(x, y, z, __int_as_float(t));
+  }
+  __device__ __forceinline__ void get(float& x, float& y, float& z, int& t) const {
+    const float4 v = a;
+    x = v.x; y = v.y; z = v.z; t = __float_as_int(v.w);
+  }
+};
+template <> struct Packed<double> {
+  double2 a, b;
+  __device__ __forceinline__ void put(double x, double y, double z, int t) {
+    a = make_double2(x, y);
+    b = make_double2(z, __longlong_as_double(t));
+  }
+  __device__ __forceinline__ void get(double& x, double& y, double& z, int& t) const {
+    const double2 v = a, w = b;
+    x = v.x; y = v.y; z = w.x; t = static_cast<int>(__double_as_longlong(w.y));
+  }
+};
+
+template <typename T, bool kTyped>
 __global__ void __launch_bounds__(kThreads)
 lj_cluster_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
                         const T* __restrict__ zc,
+                        const int32_t* __restrict__ tc,
                         const int32_t* __restrict__ ijlist,
                         const int32_t* __restrict__ nji,
-                        T* __restrict__ fx, T* __restrict__ fy,
-                        T* __restrict__ fz, int n_units, int icap, int share,
-                        int tile_j, T cutforcesq, T sigma6, T epsilon) {
+                        const T* __restrict__ eps_t,
+                        const T* __restrict__ sig6_t,
+                        const T* __restrict__ cutsq_t, T* __restrict__ fx,
+                        T* __restrict__ fy, T* __restrict__ fz, int n_units,
+                        int icap, int share, int tile_j, int ntypes,
+                        T cutforcesq, T sigma6, T epsilon) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_nmax;
   const int tpu = share * 8;           // threads (= i-atoms) per unit
@@ -71,9 +120,23 @@ lj_cluster_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
   const int u = blockIdx.x * upb + lu;
   const bool active = u < n_units;
   const int tile_atoms = tile_j * kJ16;
+  // shared memory, untyped: upb units x 3 planes x tile_atoms coordinates;
+  // typed: upb units x tile_atoms packed records, then the eps, sig6 and
+  // cutsq tables, T^2 each
+  const int nt2 = kTyped ? ntypes * ntypes : 0;
   T* sx = reinterpret_cast<T*>(smem_raw) + lu * 3 * tile_atoms;
   T* sy = sx + tile_atoms;
   T* sz = sy + tile_atoms;
+  Packed<T>* sp = reinterpret_cast<Packed<T>*>(smem_raw) + lu * tile_atoms;
+  T* s_tab = reinterpret_cast<T*>(reinterpret_cast<Packed<T>*>(smem_raw) +
+                                  upb * tile_atoms);
+  if constexpr (kTyped) {
+    for (int k = threadIdx.x; k < nt2; k += kThreads) {
+      s_tab[k] = eps_t[k];
+      s_tab[nt2 + k] = sig6_t[k];
+      s_tab[2 * nt2 + k] = cutsq_t[k];
+    }
+  }
 
   int n = 0;
   if (active) n = min(max(nji[u], 0), icap);
@@ -85,11 +148,17 @@ lj_cluster_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
 
   const int64_t row = static_cast<int64_t>(u) * tpu + ia;
   T xi = T(0), yi = T(0), zi = T(0);
+  int ti = 0;
   if (active) {
     xi = xc[row];
     yi = yc[row];
     zi = zc[row];
+    if constexpr (kTyped) ti = min(max(tc[row], 0), ntypes - 1);
   }
+  // this thread's rows of the tables (typed form only)
+  const T* eps_i = s_tab + ti * ntypes;
+  const T* sig6_i = eps_i + nt2;
+  const T* cutsq_i = sig6_i + nt2;
   const int32_t* list = ijlist + static_cast<int64_t>(active ? u : 0) * icap;
   T ax = T(0), ay = T(0), az = T(0);
 
@@ -97,20 +166,40 @@ lj_cluster_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
     const int m = min(tile_j, n - k0) * kJ16;  // this unit's atoms in the tile
     for (int e = ia; e < m; e += tpu) {
       const int64_t src = static_cast<int64_t>(list[k0 + e / kJ16]) * kJ16 + e % kJ16;
-      sx[e] = xc[src];
-      sy[e] = yc[src];
-      sz[e] = zc[src];
+      if constexpr (kTyped) {
+        sp[e].put(xc[src], yc[src], zc[src], min(max(tc[src], 0), ntypes - 1));
+      } else {
+        sx[e] = xc[src];
+        sy[e] = yc[src];
+        sz[e] = zc[src];
+      }
     }
     __syncthreads();
     for (int e = 0; e < m; ++e) {
-      const T dx = xi - sx[e];
-      const T dy = yi - sy[e];
-      const T dz = zi - sz[e];
+      T xj, yj, zj;
+      int tj = 0;
+      if constexpr (kTyped) {
+        sp[e].get(xj, yj, zj, tj);
+      } else {
+        xj = sx[e];
+        yj = sy[e];
+        zj = sz[e];
+      }
+      const T dx = xi - xj;
+      const T dy = yi - yj;
+      const T dz = zi - zj;
       const T rsq = add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)), mul_rn(dz, dz));
-      if (rsq < cutforcesq && rsq > T(0)) {
+      T cut = cutforcesq;
+      if constexpr (kTyped) cut = cutsq_i[tj];
+      if (rsq < cut && rsq > T(0)) {
+        T s6 = sigma6, ep = epsilon;
+        if constexpr (kTyped) {
+          s6 = sig6_i[tj];
+          ep = eps_i[tj];
+        }
         const T sr2 = T(1) / rsq;
-        const T sr6 = sr2 * sr2 * sr2 * sigma6;
-        const T gf = T(48) * epsilon * sr6 * (sr6 - T(0.5)) * sr2;
+        const T sr6 = sr2 * sr2 * sr2 * s6;
+        const T gf = T(48) * ep * sr6 * (sr6 - T(0.5)) * sr2;
         ax += dx * gf;
         ay += dy * gf;
         az += dz * gf;
@@ -125,21 +214,32 @@ lj_cluster_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
   }
 }
 
-template <typename T>
-int launch(const T* xc, const T* yc, const T* zc, const int32_t* ijlist,
-           const int32_t* nji, T* fx, T* fy, T* fz, int n_units, int icap,
-           int share, T cutforcesq, T sigma6, T epsilon, void* stream) {
+template <typename T, bool kTyped>
+int launch(const T* xc, const T* yc, const T* zc, const int32_t* tc,
+           const int32_t* ijlist, const int32_t* nji, const T* eps_t,
+           const T* sig6_t, const T* cutsq_t, T* fx, T* fy, T* fz,
+           int n_units, int icap, int share, int ntypes, T cutforcesq,
+           T sigma6, T epsilon, void* stream) {
   if (share != 1 && share != 2 && share != 4) return cudaErrorInvalidValue;
   if (n_units <= 0 || icap <= 0) return cudaErrorInvalidValue;
+  if (kTyped && (ntypes < 1 || ntypes > kMaxTypes)) return cudaErrorInvalidValue;
   const int upb = kThreads / (share * 8);
-  int tile_j = kSmemBytes / (upb * 3 * kJ16 * static_cast<int>(sizeof(T)));
+  // bytes staged per listed j atom and unit: 3 coordinates, or a record
+  const int per_atom = static_cast<int>(kTyped ? sizeof(Packed<T>) : 3 * sizeof(T));
+  int tile_j = kSmemBytes / (upb * kJ16 * per_atom);
   if (tile_j < 1) tile_j = 1;
-  const size_t smem = static_cast<size_t>(upb) * 3 * tile_j * kJ16 * sizeof(T);
+  const size_t tables = kTyped ? 3 * sizeof(T) * ntypes * ntypes : 0;
+  const size_t smem = tables + static_cast<size_t>(upb) * tile_j * kJ16 * per_atom;
+  auto* kernel = lj_cluster_ilist_kernel<T, kTyped>;
+  if (smem > kDefaultSmem) {  // beyond the default limit: opt in
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const int blocks = (n_units + upb - 1) / upb;
-  lj_cluster_ilist_kernel<T><<<blocks, kThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      xc, yc, zc, ijlist, nji, fx, fy, fz, n_units, icap, share, tile_j,
-      cutforcesq, sigma6, epsilon);
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      xc, yc, zc, tc, ijlist, nji, eps_t, sig6_t, cutsq_t, fx, fy, fz,
+      n_units, icap, share, tile_j, ntypes, cutforcesq, sigma6, epsilon);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -151,8 +251,9 @@ extern "C" int lj_cluster_ilist_f32(const float* xc, const float* yc,
                                     float* fz, int n_units, int icap,
                                     int share, float cutforcesq, float sigma6,
                                     float epsilon, void* stream) {
-  return launch<float>(xc, yc, zc, ijlist, nji, fx, fy, fz, n_units, icap,
-                       share, cutforcesq, sigma6, epsilon, stream);
+  return launch<float, false>(xc, yc, zc, nullptr, ijlist, nji, nullptr,
+                              nullptr, nullptr, fx, fy, fz, n_units, icap,
+                              share, 0, cutforcesq, sigma6, epsilon, stream);
 }
 
 extern "C" int lj_cluster_ilist_f64(const double* xc, const double* yc,
@@ -162,6 +263,28 @@ extern "C" int lj_cluster_ilist_f64(const double* xc, const double* yc,
                                     int share, double cutforcesq,
                                     double sigma6, double epsilon,
                                     void* stream) {
-  return launch<double>(xc, yc, zc, ijlist, nji, fx, fy, fz, n_units, icap,
-                        share, cutforcesq, sigma6, epsilon, stream);
+  return launch<double, false>(xc, yc, zc, nullptr, ijlist, nji, nullptr,
+                               nullptr, nullptr, fx, fy, fz, n_units, icap,
+                               share, 0, cutforcesq, sigma6, epsilon, stream);
+}
+
+// the typed form: tables eps, sig6, cutsq are (ntypes, ntypes) on the card
+extern "C" int lj_cluster_ilist_typed_f32(
+    const float* xc, const float* yc, const float* zc, const int32_t* tc,
+    const int32_t* ijlist, const int32_t* nji, const float* eps,
+    const float* sig6, const float* cutsq, float* fx, float* fy, float* fz,
+    int n_units, int icap, int share, int ntypes, void* stream) {
+  return launch<float, true>(xc, yc, zc, tc, ijlist, nji, eps, sig6, cutsq,
+                             fx, fy, fz, n_units, icap, share, ntypes, 0.0f,
+                             0.0f, 0.0f, stream);
+}
+
+extern "C" int lj_cluster_ilist_typed_f64(
+    const double* xc, const double* yc, const double* zc, const int32_t* tc,
+    const int32_t* ijlist, const int32_t* nji, const double* eps,
+    const double* sig6, const double* cutsq, double* fx, double* fy,
+    double* fz, int n_units, int icap, int share, int ntypes, void* stream) {
+  return launch<double, true>(xc, yc, zc, tc, ijlist, nji, eps, sig6, cutsq,
+                              fx, fy, fz, n_units, icap, share, ntypes, 0.0,
+                              0.0, 0.0, stream);
 }

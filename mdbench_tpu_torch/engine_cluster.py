@@ -22,6 +22,14 @@ card), the Newton half-list force (half_neigh=1; torch ops), or, asked
 for by name, the plain twins ("ilist", "xla"). On a CPU tensor every
 name runs the plain versions.
 
+Typed LJ runs (the reference's EXPLICIT_TYPES, clusterpair/atom.c:78-92)
+carry an int32 type plane in the clusters and three (T, T) tables
+(epsilon, sigma^6, cutoff^2) on the device; every force of the axis then
+takes its typed form (on the card the typed kernels). Types come from
+`types=`, or from an atom file (`params.input_file`) with more than one
+type; `params.ntypes > 1` alone runs the tables over all-zero types, as
+mdbench_tpu does on the lattice.
+
 The time-step loop is a Python loop of eager torch ops on `device`
 (mdbench_tpu compiled it into one lax.scan). The integration and the
 ghost refresh update the state's tensors IN PLACE, where mdbench_tpu
@@ -40,6 +48,7 @@ import numpy as np
 import torch
 
 from mdbench_tpu_torch.config import FF_EAM, FF_LJ, Params
+from mdbench_tpu_torch.io.readers import read_atom
 from mdbench_tpu_torch.models.eam_tables import (
     apply_eam_overrides,
     fit_eam_poly,
@@ -132,9 +141,7 @@ def check_slice(params: Params) -> None:
         "force_field other than lj or eam": (
             params.force_field not in (FF_LJ, FF_EAM)
         ),
-        "ntypes > 1 (typed tables)": params.ntypes > 1,
         "derive_bf16": bool(params.derive_bf16),
-        "input_file (atom readers)": bool(params.input_file),
     }
     missing = [name for name, hit in unported.items() if hit]
     if missing:
@@ -151,7 +158,12 @@ class ClusterSimulation:
     without one raises — nothing drops to the CPU. On the CPU the force
     runs the plain torch versions of the CUDA kernels. The kernel axis
     (`params.kernel`, `params.half_neigh`) picks the force as
-    mdbench_tpu's engine does; see the module docstring."""
+    mdbench_tpu's engine does; see the module docstring.
+
+    Without `x`, the atoms come from `params.input_file` (read with its
+    box; velocities not rescaled unless `adjust`) or else from the FCC
+    lattice. `types` (nlocal,) and `tables` (eps, sig6, cutsq), each
+    (T, T), make the run typed, as mdbench_tpu's engine takes them."""
 
     def __init__(
         self,
@@ -160,6 +172,8 @@ class ClusterSimulation:
         v: Optional[np.ndarray] = None,
         adjust: Optional[bool] = None,
         device="cuda",
+        types: Optional[np.ndarray] = None,
+        tables: Optional[tuple] = None,
     ):
         if params.force_field == FF_EAM:
             # mdbench_tpu's refusals for cluster EAM, ahead of check_slice
@@ -205,11 +219,47 @@ class ClusterSimulation:
             self.eam_dev = EamDevice.from_tables(
                 self.eam_tables, self.device, params.dtype
             )
+        if x is None and params.input_file:
+            r = read_atom(params)
+            x, v = r.x, r.v
+            if r.ntypes > 1 and types is None:
+                types = r.types
+            if adjust is None:
+                adjust = False
         if x is None:
+            # the lattice's types are dropped, as in mdbench_tpu: with
+            # params.ntypes > 1 its tables run over all-zero types
             x, v, _ = create_fcc_lattice(params)
             if adjust is None:
                 adjust = True
         self.natoms = self.nlocal = x.shape[0]
+        # EXPLICIT_TYPES tables (reference clusterpair/atom.c:78-92): every
+        # type pair gets the single epsilon/sigma/cutoff of params unless
+        # `tables` is given
+        types0 = (np.zeros(self.nlocal, np.int32) if types is None
+                  else np.asarray(types, np.int32))
+        nt_seen = int(types0.max()) + 1 if self.nlocal else 1
+        self.ntypes = max(int(params.ntypes), nt_seen)
+        if tables is None and self.ntypes > 1:
+            nt = self.ntypes
+            tables = (np.full((nt, nt), params.epsilon),
+                      np.full((nt, nt), params.sigma6),
+                      np.full((nt, nt), params.cutforce**2))
+        self.type_tables = (
+            tuple(np.asarray(t, np.float64) for t in tables)
+            if tables is not None else None
+        )
+        self.types_flat0 = self.tables = None
+        if self.type_tables is not None:
+            if params.force_field == FF_EAM:
+                raise ValueError(
+                    "cluster-scheme EAM is single-type (funcfl): it takes "
+                    "no type tables and no ntypes > 1")
+            self.types_flat0 = torch.as_tensor(types0, device=self.device)
+            self.tables = tuple(
+                torch.as_tensor(t, dtype=params.dtype, device=self.device)
+                for t in self.type_tables
+            )
         self.scales: ThermoScales = setup_thermo(params, self.natoms)
         self.dtforce = adjusted_dtforce(params, self.scales)
         if adjust:
@@ -326,7 +376,7 @@ class ClusterSimulation:
         x_flat = self._wrap_flat(x_flat)
         clusters, ovf_c = build_clusters(
             self.grid, x_flat, self.nlocal, self.n_clusters_pad,
-            self.ghost_cap, group=GROUP,
+            self.ghost_cap, group=GROUP, types=self.types_flat0,
         )
         aid = clusters.atom_id
         valid = aid >= 0
@@ -362,7 +412,8 @@ class ClusterSimulation:
         """(fx, fy, fz) on the local cluster rows, by the kernel axis
         (mdbench_tpu engine_cluster.py:424-482): the two-pass EAM force
         (its ghost-fp refresh reads the halo), the half-list force, the
-        exact-list force, the group-window force, or a plain twin."""
+        exact-list force, the group-window force, or a plain twin; each LJ
+        force in its typed form on a typed run."""
         p = self.params
         npad, cutsq = self.n_clusters_pad, p.cutforce**2
         planes = (clusters.xc, clusters.yc, clusters.zc)
@@ -376,18 +427,22 @@ class ClusterSimulation:
                 *planes, pairs.ijlist, halo.border_map, *args,
                 share=self.ishare)[:3]
         lj = (cutsq, p.sigma6, p.epsilon)
+        typed = dict(tc=clusters.tc, tables=self.tables)
         if p.half_neigh:
-            return lj_cluster_force_half_ref(*planes, pairs.jlist, npad, *lj)
+            return lj_cluster_force_half_ref(*planes, pairs.jlist, npad, *lj,
+                                             **typed)
         if self._kmode == "ilist_pl":
             return lj_cluster_force_ilist(
-                *planes, pairs.ijlist, pairs.nji, npad, *lj, share=self.ishare)
+                *planes, pairs.ijlist, pairs.nji, npad, *lj, share=self.ishare,
+                **typed)
         if self._kmode == "ilist":
             return lj_cluster_force_ilist_ref(
-                *planes, pairs.ijlist, npad, *lj, share=self.ishare)
+                *planes, pairs.ijlist, npad, *lj, share=self.ishare, **typed)
         if self._kmode == "pallas":
             return lj_cluster_force_stream(
-                *planes, pairs.jlist, pairs.ranges, npad, *lj)
-        return lj_cluster_force_group_ref(*planes, pairs.jlist, npad, *lj)
+                *planes, pairs.jlist, pairs.ranges, npad, *lj, **typed)
+        return lj_cluster_force_group_ref(*planes, pairs.jlist, npad, *lj,
+                                          **typed)
 
     def _thermo(self, vxc, vyc, vzc):
         vsq = (

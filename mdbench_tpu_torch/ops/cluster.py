@@ -114,6 +114,9 @@ class Clusters(NamedTuple):
     bbox: torch.Tensor  # (C_total, 8)
     atom_id: torch.Tensor  # (n_clusters_pad, 8) int64 atom row, -1 = pad
     inv_map: torch.Tensor  # (nlocal,) int64 atom row -> cluster*8+slot
+    # (C_total, 8) int32 atom types (reference cl_type, clusterpair/
+    # atom.h:36), 0 in padding and sentinel rows; None on untyped runs
+    tc: Optional[torch.Tensor] = None
 
 
 class ClusterHalo(NamedTuple):
@@ -159,11 +162,15 @@ def build_clusters(
     n_clusters_pad: int,  # local cluster capacity
     ghost_capacity: int,  # ghost row capacity
     group: int = 1,  # pad each column to a multiple of `group` clusters
+    types: Optional[torch.Tensor] = None,  # (>= nlocal,) int atom types
 ) -> tuple[Clusters, torch.Tensor]:
     """Sort atoms by (column, float32 z, atom row) and chop each column's
     run into 8-atom clusters, padding each column's cluster count to a
     multiple of `group` (reference binAtoms + sortAtomsByZCoord +
-    buildClusters, neighbor.c:599-753). Returns (clusters, overflow)."""
+    buildClusters, neighbor.c:599-753). With `types`, the clusters carry
+    the atoms' types in the int32 plane `tc` (0 in padding, ghost and
+    sentinel rows; update_cluster_pbc fills the ghost rows). Returns
+    (clusters, overflow)."""
     dev, dtype = x.device, x.dtype
     xl = x[:nlocal]
     sx, sy = grid.col_size
@@ -216,6 +223,10 @@ def build_clusters(
         return full
 
     xc, yc, zc = plane(0), plane(1), plane(2)
+    tc = None
+    if types is not None:
+        tc = torch.zeros((total, M), dtype=torch.int32, device=dev)
+        tc[:n_clusters_pad] = torch.where(valid, types[:nlocal][atom_rows], 0)
     aid = torch.where(valid, atom_rows, -1)
     slots = torch.arange(n_clusters_pad * M, device=dev)
     dest = torch.where(valid, atom_rows, nlocal).reshape(-1)
@@ -223,7 +234,7 @@ def build_clusters(
     inv[dest] = slots  # invalid slots all land in the dropped last entry
     return Clusters(
         xc=xc, yc=yc, zc=zc, bbox=compute_bboxes(xc, yc, zc),
-        atom_id=aid, inv_map=inv[:nlocal],
+        atom_id=aid, inv_map=inv[:nlocal], tc=tc,
     ), overflow
 
 
@@ -342,7 +353,8 @@ def update_cluster_pbc(
     """Refresh the ghost rows from their owners (reference updatePbc,
     clusterpair/pbc.c:45-113): ghost rows (2g, 2g+1) = owner rows
     (2b, 2b+1) + shift. Updates the planes (and, with update_bbox, the
-    bboxes) IN PLACE, where mdbench_tpu rebuilt them with .at[].set;
+    bboxes and the type plane, if any) IN PLACE, where mdbench_tpu
+    rebuilt them with .at[].set;
     owners are local or sentinel rows, never ghost rows, so reads and
     writes do not overlap. Returns `clusters` for chaining."""
     g0 = n_clusters_pad
@@ -361,6 +373,8 @@ def update_cluster_pbc(
         z = torch.zeros_like(shx)
         shift8 = torch.stack([shx, shx, shy, shy, shz, shz, z, z], dim=1)
         clusters.bbox[g0 : g0 + nrows_g] = clusters.bbox[row_map] + shift8
+        if clusters.tc is not None:
+            clusters.tc[g0 : g0 + nrows_g] = clusters.tc[row_map]
     return clusters
 
 

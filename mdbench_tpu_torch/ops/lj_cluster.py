@@ -11,6 +11,15 @@ Two kernel wrappers, each beside its plain torch version:
   ``csrc/lj_cluster_stream.cu`` (the port of ``_kernel_stream``), on a
   CPU tensor it runs `lj_cluster_force_group_ref` with the windows.
 
+Each force also takes a typed form (reference EXPLICIT_TYPES,
+clusterpair/atom.c:78-92): `tc`, the int32 (C_total, 8) type plane of
+the clusters, and `tables`, three (T, T) tensors (epsilon, sigma^6,
+cutoff^2) indexed [type_i][type_j]. Every pair then takes its epsilon,
+sigma^6 and cutoff^2 from the tables, with the untyped arithmetic
+otherwise, so uniform tables give the untyped force. On a CUDA tensor the
+typed form launches the typed instantiation of the same kernel (counted
+apart from the untyped one).
+
 Any other device raises; nothing falls back from a kernel to its plain
 version. `lj_cluster_force_group_ref` without windows and the Newton
 half-list force `lj_cluster_force_half_ref` are torch ops on any device,
@@ -28,9 +37,29 @@ from mdbench_tpu_torch import _build
 LAUNCHES = 0
 # the same for lj_cluster_force_stream
 STREAM_LAUNCHES = 0
+# the same for the typed forms of the two wrappers
+TYPED_LAUNCHES = 0
+STREAM_TYPED_LAUNCHES = 0
 
 GROUP = 16  # i-clusters per group list (the stream kernel's block)
 TILE_ATOMS = 128  # j atoms per window tile (8 j16)
+# the most atom types the typed kernels take: their blocks hold the three
+# (T, T) tables in shared memory (24 KB at T = 32 in float64)
+MAX_TYPES = 32
+
+
+def _pair_params(tables, ti, tj, like):
+    """Per-pair (epsilon, sigma6, cutforcesq) = tables[k][ti][tj], with ti
+    and tj broadcast against each other, in `like`'s dtype and device."""
+    nt = tables[0].shape[0]
+    idx = ti.long() * nt + tj.long()
+    return tuple(t.to(device=like.device, dtype=like.dtype).reshape(-1)[idx]
+                 for t in tables)
+
+
+def _check_typed_pair(tc, tables):
+    if (tc is None) != (tables is None):
+        raise ValueError("tc and tables go together: both or neither")
 
 
 def lj_cluster_force_ilist_ref(
@@ -39,12 +68,16 @@ def lj_cluster_force_ilist_ref(
     n_clusters_pad: int,
     cutforcesq: float, sigma6: float, epsilon: float,
     share: int = 2,
+    tc=None,  # (C_total, 8) int types, typed runs only
+    tables=None,  # (eps, sig6, cutsq), each (T, T), typed runs only
 ):
     """Plain torch version: the literal twin of mdbench_tpu's
-    `lj_cluster_force_xla_ilist` (untyped). Every listed j16 of unit u
-    (share consecutive i-clusters) interacts with all of the unit's
-    i-atoms; sentinel ids contribute exactly 0. Returns (fx, fy, fz),
+    `lj_cluster_force_xla_ilist`, untyped or typed. Every listed j16 of
+    unit u (share consecutive i-clusters) interacts with all of the unit's
+    i-atoms; sentinel ids contribute exactly 0. Typed, the scalars
+    cutforcesq, sigma6 and epsilon are not read. Returns (fx, fy, fz),
     each (n_clusters_pad, 8)."""
+    _check_typed_pair(tc, tables)
     nu, icap = ijlist.shape
     if nu * share != n_clusters_pad:
         raise ValueError("ijlist rows * share must equal n_clusters_pad")
@@ -57,6 +90,10 @@ def lj_cluster_force_ilist_ref(
         return pi - pj
 
     dx, dy, dz = planes(xc), planes(yc), planes(zc)
+    if tables is not None:
+        epsilon, sigma6, cutforcesq = _pair_params(
+            tables, tc[:n_clusters_pad].reshape(nu, share * 8, 1),
+            tc.reshape(cjn, 16)[jl].reshape(nu, 1, icap * 16), xc)
     rsq = dx * dx + dy * dy + dz * dz
     mask = (rsq < cutforcesq) & (rsq > 0.0)
     rs = torch.where(mask, rsq, 1.0)
@@ -98,6 +135,34 @@ def _check_cuda_args(xc, yc, zc, ijlist, nji, n_clusters_pad, share):
         raise ValueError("n_units * share must equal n_clusters_pad <= C_total")
 
 
+def _typed_operands(xc, tc, tables):
+    """Check a typed call's type plane and tables against the planes xc
+    and return (T, eps, sig6, cutsq) as contiguous tensors on xc's device
+    in its dtype. Tables may come as float64 CPU tensors (copied over) or
+    already on the device in the planes' dtype; T is 1..MAX_TYPES."""
+    if not torch.is_tensor(tc) or tc.dtype != torch.int32:
+        raise TypeError("tc must be an int32 tensor")
+    if tc.device != xc.device or tc.shape != xc.shape or not tc.is_contiguous():
+        raise ValueError("tc must be a contiguous (C_total, 8) plane on the planes' device")
+    if len(tables) != 3:
+        raise ValueError("tables must be three (T, T) tensors: eps, sig6, cutsq")
+    nt = tables[0].shape[0] if tables[0].dim() == 2 else 0
+    out = []
+    for t in tables:
+        if t.dim() != 2 or tuple(t.shape) != (nt, nt):
+            raise ValueError("tables must be three (T, T) tensors of one T")
+        if t.device == xc.device and t.dtype == xc.dtype:
+            out.append(t.contiguous())
+        elif t.device.type == "cpu" and t.dtype == torch.float64:
+            out.append(t.to(device=xc.device, dtype=xc.dtype).contiguous())
+        else:
+            raise TypeError("tables must be float64 on the host or in the planes' "
+                            "dtype on their device")
+    if not 1 <= nt <= MAX_TYPES:
+        raise ValueError(f"the typed kernels take 1 to {MAX_TYPES} types, got {nt}")
+    return (nt, *out)
+
+
 def lj_cluster_force_ilist(
     xc, yc, zc,  # (C_total, 8) coordinate planes
     ijlist,  # (n_units, icap) int32 exact per-i-unit j16 ids
@@ -105,27 +170,46 @@ def lj_cluster_force_ilist(
     n_clusters_pad: int,
     cutforcesq: float, sigma6: float, epsilon: float,
     share: int = 2,
+    tc=None,  # (C_total, 8) int32 types, typed runs only
+    tables=None,  # (eps, sig6, cutsq), each (T, T), typed runs only
 ):
     """Exact-list LJ force, (fx, fy, fz) each (n_clusters_pad, 8).
 
     CPU tensors take the plain version. CUDA tensors launch the CUDA
-    kernel on the current stream (built from csrc/ at first use): the
-    operands are checked first and a launch error raises. Entries of a
-    unit's list past nji[u] are not read on the card; the list must
-    hold the sentinel j16 id there, as derive_ilists writes it."""
-    global LAUNCHES
+    kernel on the current stream (built from csrc/ at first use), its
+    typed instantiation when `tc` and `tables` are given: the operands
+    are checked first and a launch error raises. Entries of a unit's list
+    past nji[u] are not read on the card; the list must hold the sentinel
+    j16 id there, as derive_ilists writes it."""
+    global LAUNCHES, TYPED_LAUNCHES
+    _check_typed_pair(tc, tables)
     if xc.device.type == "cpu":
         return lj_cluster_force_ilist_ref(
             xc, yc, zc, ijlist, n_clusters_pad, cutforcesq, sigma6, epsilon,
-            share,
+            share, tc=tc, tables=tables,
         )
     if xc.device.type != "cuda":
         raise ValueError(f"no force kernel for device {xc.device}")
     _check_cuda_args(xc, yc, zc, ijlist, nji, n_clusters_pad, share)
     lib = _build.load()
-    fn = lib.lj_cluster_ilist_f32 if xc.dtype == torch.float32 else lib.lj_cluster_ilist_f64
+    f32 = xc.dtype == torch.float32
     out = [torch.empty((n_clusters_pad, 8), dtype=xc.dtype, device=xc.device)
            for _ in range(3)]
+    if tables is not None:
+        nt, *tabs = _typed_operands(xc, tc, tables)
+        fn = lib.lj_cluster_ilist_typed_f32 if f32 else lib.lj_cluster_ilist_typed_f64
+        with torch.cuda.device(xc.device):
+            err = fn(
+                xc.data_ptr(), yc.data_ptr(), zc.data_ptr(), tc.data_ptr(),
+                ijlist.data_ptr(), nji.data_ptr(), *(t.data_ptr() for t in tabs),
+                *(o.data_ptr() for o in out), ijlist.shape[0], ijlist.shape[1],
+                share, nt, torch.cuda.current_stream().cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"lj_cluster_ilist_typed launch failed: CUDA error {err}")
+        TYPED_LAUNCHES += 1
+        return tuple(out)
+    fn = lib.lj_cluster_ilist_f32 if f32 else lib.lj_cluster_ilist_f64
     with torch.cuda.device(xc.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
@@ -147,20 +231,23 @@ def _group_chunks(ng: int, gm: int, width: int, max_elems: int):
     return [slice(g0, min(g0 + step, ng)) for g0 in range(0, ng, step)]
 
 
-def _lj_pairs(xc, yc, zc, jl, rows, cutforcesq, sigma6, epsilon, extra=None):
+def _lj_pairs(xc, yc, zc, jl, rows, cutforcesq, sigma6, epsilon, extra=None,
+              tc=None, tables=None):
     """(dx, dy, dz, gf) of every (i-atom, listed j-atom) pair of the
     groups whose i-atoms are the flat rows `rows` (c, gm) and whose j16
     lists are `jl` (c, L): each (c, gm, L*16); gf is 0 outside
     0 < rsq < cutforcesq and outside `extra` (a bool mask), selected,
-    never multiplied by a mask."""
+    never multiplied by a mask. With `tables`, each pair's epsilon,
+    sigma6 and cutforcesq come from them at the pair's types in `tc`."""
     c, L = jl.shape
     cjn = xc.shape[0] // 2
 
-    def diff(p):
-        return (p.reshape(-1)[rows][:, :, None]
-                - p.reshape(cjn, 16)[jl].reshape(c, 1, L * 16))
+    def gather(p):
+        return p.reshape(-1)[rows][:, :, None], p.reshape(cjn, 16)[jl].reshape(c, 1, L * 16)
 
-    dx, dy, dz = diff(xc), diff(yc), diff(zc)
+    dx, dy, dz = (pi - pj for pi, pj in map(gather, (xc, yc, zc)))
+    if tables is not None:
+        epsilon, sigma6, cutforcesq = _pair_params(tables, *gather(tc), xc)
     rsq = dx * dx + dy * dy + dz * dz
     mask = (rsq < cutforcesq) & (rsq > 0.0)
     if extra is not None:
@@ -179,15 +266,19 @@ def lj_cluster_force_group_ref(
     cutforcesq: float, sigma6: float, epsilon: float,
     ranges=None,  # (NG, 2*group+1) int tile windows, or None
     max_elems: int = 1 << 25,
+    tc=None,  # (C_total, 8) int types, typed runs only
+    tables=None,  # (eps, sig6, cutsq), each (T, T), typed runs only
 ):
-    """Plain torch group-list force. Without `ranges` it is the twin of
-    mdbench_tpu's `lj_cluster_force_xla`: every i-atom of group g meets
-    every atom of every j16 in row g of `jlist`. With `ranges` it is the
-    twin of the stream kernel: the atoms of tile s (list entries
-    8s..8s+7) count for member m only if start[m] <= s < end[m] and
-    s < njg. Sentinel j16 and entries past nj contribute exactly 0
-    through the cutoff. Groups run in chunks of at most `max_elems`
-    pair elements. Returns (fx, fy, fz), each (n_clusters_pad, 8)."""
+    """Plain torch group-list force, untyped or typed. Without `ranges`
+    it is the twin of mdbench_tpu's `lj_cluster_force_xla`: every i-atom
+    of group g meets every atom of every j16 in row g of `jlist`. With
+    `ranges` it is the twin of the stream kernel: the atoms of tile s
+    (list entries 8s..8s+7) count for member m only if start[m] <= s <
+    end[m] and s < njg. Sentinel j16 and entries past nj contribute
+    exactly 0 through the cutoff. Groups run in chunks of at most
+    `max_elems` pair elements. Returns (fx, fy, fz), each
+    (n_clusters_pad, 8)."""
+    _check_typed_pair(tc, tables)
     ng, L = jlist.shape
     group = n_clusters_pad // ng
     if ng * group != n_clusters_pad:
@@ -213,7 +304,7 @@ def lj_cluster_force_group_ref(
             extra = ((tile >= start) & (tile < end)
                      & (tile < rg[:, 2 * group, None, None]))
         dx, dy, dz, gf = _lj_pairs(xc, yc, zc, jl_all[sl], rows, cutforcesq,
-                                   sigma6, epsilon, extra)
+                                   sigma6, epsilon, extra, tc, tables)
         for o, d in zip(out, (dx, dy, dz)):
             o[sl] = (d * gf).sum(2)
     return tuple(o.reshape(n_clusters_pad, 8) for o in out)
@@ -225,8 +316,10 @@ def lj_cluster_force_half_ref(
     n_clusters_pad: int,
     cutforcesq: float, sigma6: float, epsilon: float,
     max_elems: int = 1 << 25,
+    tc=None,  # (C_total, 8) int types, typed runs only
+    tables=None,  # (eps, sig6, cutsq), each (T, T), typed runs only
 ):
-    """Newton half-list force, the twin of mdbench_tpu's
+    """Newton half-list force, untyped or typed, the twin of mdbench_tpu's
     `lj_cluster_force_xla_half` (reference half_neigh, clusterpair/
     force_lj.c:167-431). In the flat slot ids i -> g*128 + k and
     j -> c*16 + l, a pair with a local j (gid_j < n_clusters_pad*8) is
@@ -235,6 +328,7 @@ def lj_cluster_force_half_ref(
     reaction forces fold back onto the local j16 rows with index_add_,
     which on a CUDA tensor sums with atomics in an order that changes
     from run to run. Returns (fx, fy, fz), each (n_clusters_pad, 8)."""
+    _check_typed_pair(tc, tables)
     ng, L = jlist.shape
     group = n_clusters_pad // ng
     if ng * group != n_clusters_pad:
@@ -257,7 +351,7 @@ def lj_cluster_force_half_ref(
         local_j = gid_j < n_clusters_pad * 8
         half = ~local_j | (gid_j > rows[:, :, None])
         dx, dy, dz, gf = _lj_pairs(xc, yc, zc, jl, rows, cutforcesq, sigma6,
-                                   epsilon, half)
+                                   epsilon, half, tc, tables)
         for o, f16, d in zip(fi, fj16, (dx, dy, dz)):
             fd = d * gf
             o[sl] = fd.sum(2)
@@ -289,29 +383,47 @@ def lj_cluster_force_stream(
     ranges,  # (NG, 33) int32 tile windows [start x16, end x16, njg]
     n_clusters_pad: int,
     cutforcesq: float, sigma6: float, epsilon: float,
+    tc=None,  # (C_total, 8) int32 types, typed runs only
+    tables=None,  # (eps, sig6, cutsq), each (T, T), typed runs only
 ):
     """Group-window LJ force, (fx, fy, fz) each (n_clusters_pad, 8).
 
     CPU tensors take the plain version (`lj_cluster_force_group_ref` with
     the windows). CUDA tensors launch the CUDA kernel on the current
-    stream (built from csrc/ at first use) after the operands are
-    checked; a launch error raises. Every j16 id of a tile below njg is
-    read, entries past nj included: they must be valid rows (a real j16,
-    more than cutneigh from the whole group, or the sentinel j16)."""
-    global STREAM_LAUNCHES
+    stream (built from csrc/ at first use), its typed instantiation when
+    `tc` and `tables` are given, after the operands are checked; a launch
+    error raises. Every j16 id of a tile below njg is read, entries past
+    nj included: they must be valid rows (a real j16, more than cutneigh
+    from the whole group, or the sentinel j16)."""
+    global STREAM_LAUNCHES, STREAM_TYPED_LAUNCHES
+    _check_typed_pair(tc, tables)
     if xc.device.type == "cpu":
         return lj_cluster_force_group_ref(
             xc, yc, zc, jlist, n_clusters_pad, cutforcesq, sigma6, epsilon,
-            ranges=ranges,
+            ranges=ranges, tc=tc, tables=tables,
         )
     if xc.device.type != "cuda":
         raise ValueError(f"no force kernel for device {xc.device}")
     _check_stream_args(xc, yc, zc, jlist, ranges, n_clusters_pad)
     lib = _build.load()
-    fn = (lib.lj_cluster_stream_f32 if xc.dtype == torch.float32
-          else lib.lj_cluster_stream_f64)
+    f32 = xc.dtype == torch.float32
     out = [torch.empty((n_clusters_pad, 8), dtype=xc.dtype, device=xc.device)
            for _ in range(3)]
+    if tables is not None:
+        nt, *tabs = _typed_operands(xc, tc, tables)
+        fn = lib.lj_cluster_stream_typed_f32 if f32 else lib.lj_cluster_stream_typed_f64
+        with torch.cuda.device(xc.device):
+            err = fn(
+                xc.data_ptr(), yc.data_ptr(), zc.data_ptr(), tc.data_ptr(),
+                jlist.data_ptr(), ranges.data_ptr(), *(t.data_ptr() for t in tabs),
+                *(o.data_ptr() for o in out), jlist.shape[0], jlist.shape[1], nt,
+                torch.cuda.current_stream().cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"lj_cluster_stream_typed launch failed: CUDA error {err}")
+        STREAM_TYPED_LAUNCHES += 1
+        return tuple(out)
+    fn = lib.lj_cluster_stream_f32 if f32 else lib.lj_cluster_stream_f64
     with torch.cuda.device(xc.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(

@@ -1,8 +1,8 @@
 """The force kernels (the exact-list LJ kernel csrc/lj_cluster_ilist.cu,
 the two EAM passes of csrc/eam_cluster.cu and the group-window LJ kernel
-csrc/lj_cluster_stream.cu) against their plain torch versions, on a CUDA
-card. This file imports no jax, so it runs on a machine that has
-torch and a card but no jax:
+csrc/lj_cluster_stream.cu, the LJ kernels untyped and typed) against
+their plain torch versions, on a CUDA card. This file imports no jax, so
+it runs on a machine that has torch and a card but no jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_group_lists, write_standin_funcfl
+from chip_smoke import LJ_COUNTS, random_group_lists, random_tables, write_standin_funcfl
 from mdbench_tpu_torch.config import FF_EAM, Params
 from mdbench_tpu_torch.convert import clusters_from_numpy, pairs_from_numpy
 from mdbench_tpu_torch.engine_cluster import ClusterSimulation
@@ -266,3 +266,94 @@ def test_cuda_stream_wrapper_device_rule(cuda):
                                     SIG6, EPS)
     tlj.lj_cluster_force_stream(*(a.to(cuda) for a in args), npad, CUT2, SIG6, EPS)
     assert tlj.STREAM_LAUNCHES == before + 1
+
+
+def _types_and_tables(seed, shape, ntypes, dtype, device):
+    """Random int32 types in [0, ntypes) and chip_smoke's random symmetric
+    non-uniform tables, on `device`."""
+    tc = torch.tensor(np.random.default_rng(seed).integers(0, ntypes, shape),
+                      dtype=torch.int32, device=device)
+    tabs = tuple(torch.tensor(t, dtype=dtype, device=device)
+                 for t in random_tables(seed + 7, ntypes))
+    return tc, tabs
+
+
+UNIFORM = tuple(np.full((2, 2), val) for val in (EPS, SIG6, CUT2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ntypes", [1, 2, 3])
+@pytest.mark.parametrize("share,nu", [(1, 128), (2, 64), (4, 32)])
+@pytest.mark.parametrize("tdtype", [torch.float32, torch.float64])
+def test_cuda_typed_kernel_matches_plain(cuda, ntypes, share, nu, tdtype):
+    """K1t against the typed plain version, T = 1, 2, 3; with uniform
+    tables it gives the untyped kernel's force."""
+    cl, pairs, npad, share = synthetic_case(seed=share, nu=nu, share=share)
+    c = clusters_from_numpy(cl, cuda, tdtype)
+    pr = pairs_from_numpy(pairs, cuda)
+    tc, tabs = _types_and_tables(share + 10 * ntypes, tuple(c.xc.shape), ntypes,
+                                 tdtype, cuda)
+    args = (c.xc, c.yc, c.zc, pr.ijlist, pr.nji, npad, CUT2, SIG6, EPS)
+    before = (tlj.LAUNCHES, tlj.TYPED_LAUNCHES)
+    f_k = tlj.lj_cluster_force_ilist(*args, share=share, tc=tc, tables=tabs)
+    torch.cuda.synchronize()
+    assert (tlj.LAUNCHES, tlj.TYPED_LAUNCHES) == (before[0], before[1] + 1)
+    f_r = tlj.lj_cluster_force_ilist_ref(
+        c.xc, c.yc, c.zc, pr.ijlist, npad, CUT2, SIG6, EPS, share=share, tc=tc,
+        tables=tabs)
+    assert _rel(f_k, f_r) <= TOL[tdtype]
+    for f in f_k:  # the all-padding units
+        assert (f[8:12] == 0).all()
+    f_u = tlj.lj_cluster_force_ilist(*args, share=share, tc=tc % 2,
+                                     tables=tuple(torch.tensor(t) for t in UNIFORM))
+    assert _rel(f_u, tlj.lj_cluster_force_ilist(*args, share=share)) <= TOL[tdtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ntypes", [1, 2, 3])
+@pytest.mark.parametrize("tdtype", [torch.float32, torch.float64])
+def test_cuda_typed_stream_kernel_matches_plain(cuda, ntypes, tdtype):
+    """K4t against the typed plain version with the windows, T = 1, 2, 3;
+    with uniform tables it gives the untyped kernel's force."""
+    planes, jl, rg, npad = random_group_lists(ntypes, ng=24, L=40)
+    xc, yc, zc = (torch.tensor(p, dtype=tdtype, device=cuda) for p in planes)
+    jl, rg = torch.tensor(jl, device=cuda), torch.tensor(rg, device=cuda)
+    tc, tabs = _types_and_tables(ntypes, tuple(xc.shape), ntypes, tdtype, cuda)
+    args = (xc, yc, zc, jl, rg, npad, CUT2, SIG6, EPS)
+    before = (tlj.STREAM_LAUNCHES, tlj.STREAM_TYPED_LAUNCHES)
+    f_k = tlj.lj_cluster_force_stream(*args, tc=tc, tables=tabs)
+    torch.cuda.synchronize()
+    assert (tlj.STREAM_LAUNCHES, tlj.STREAM_TYPED_LAUNCHES) == (before[0], before[1] + 1)
+    f_r = tlj.lj_cluster_force_group_ref(xc, yc, zc, jl, npad, CUT2, SIG6, EPS,
+                                         ranges=rg, tc=tc, tables=tabs)
+    assert float(f_r[0].abs().max()) > 1.0
+    assert _rel(f_k, f_r) <= TOL[tdtype]
+    for f in f_k:  # the all-padding group's rows
+        assert (f[16:32] == 0).all()
+    f_u = tlj.lj_cluster_force_stream(*args, tc=tc % 2,
+                                      tables=tuple(torch.tensor(t) for t in UNIFORM))
+    assert _rel(f_u, tlj.lj_cluster_force_stream(*args)) <= TOL[tdtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [{"kernel": "auto"}, {"kernel": "pallas"},
+                                   {"half_neigh": 1}])
+def test_cuda_typed_engine_matches_cpu(cuda, extra):
+    """A jittered 6^3 DP box with two random types and non-uniform tables:
+    the card's step-0 forces against the CPU plain path, the typed kernel
+    launched and the untyped one not."""
+    p = Params(nx=6, ny=6, nz=6, precision="dp", scheme="cluster", **extra)
+    x, v, _ = create_fcc_lattice(p)
+    x = x + np.random.default_rng(5).normal(0.0, 0.05, x.shape)
+    types = np.random.default_rng(6).integers(0, 2, x.shape[0]).astype(np.int32)
+    kw = dict(x=x, v=v, types=types, tables=random_tables(4, 2))
+    before = {n: getattr(tlj, n) for n in LJ_COUNTS}
+    f_gpu = ClusterSimulation(p, device=cuda, **kw).first_force_atoms()
+    grew = {n: getattr(tlj, n) - before[n] for n in LJ_COUNTS}
+    typed = {"auto": "TYPED_LAUNCHES", "pallas": "STREAM_TYPED_LAUNCHES"}.get(
+        extra.get("kernel"))
+    assert all(n == 0 for k, n in grew.items() if k != typed)
+    if typed:
+        assert grew[typed] >= 1
+    f_cpu = ClusterSimulation(p, device="cpu", **kw).first_force_atoms()
+    assert np.abs(f_gpu - f_cpu).max() <= 1e-10 * np.abs(f_cpu).max()

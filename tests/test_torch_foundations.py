@@ -88,11 +88,7 @@ def test_thermo_setup_matches(ff):
 @pytest.mark.parametrize("kw", [
     {"scheme": "verlet"},
     {"force_field": tconfig.FF_DEM},
-    {"input_file": "atoms.dmp"},
-    {"ntypes": 2},
-    {"ntypes": 2, "kernel": "pallas"},
     {"derive_bf16": True},
-    {"ntypes": 2, "half_neigh": 1},
 ])
 def test_unported_settings_raise(kw):
     p = tconfig.Params(**{"scheme": "cluster", "nx": 4, "ny": 4, "nz": 4, **kw})
