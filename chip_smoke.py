@@ -11,8 +11,10 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      float32 (<= 1e-5 of max |f|) and float64 (<= 1e-12), share 1, 2, 4;
   4. main path: the benchmark run of `python -m mdbench_tpu_torch.bench`
      (131,072 atoms, 200 SP steps, cluster scheme), gated on the C
-     reference's temperature trace; the kernel's launch count over that
-     run must cover every force evaluation of it;
+     reference's temperature trace; it must plan capacity buckets, the
+     set-up forces before the plan launch the flat kernel (K1) and the
+     bucketed form (K1b) must cover every force evaluation of the checked
+     and timed runs; no other kernel launches;
   5. small input: a jittered 8^3 box in float64, step-0 forces and a
      40-step temperature trace with both rebuild kinds, card against the
      CPU plain path;
@@ -23,8 +25,10 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      float32 (<= 1e-5 of max |value|) and float64 (<= 1e-12), share 1,
      2, 4; all-padding units get exactly zero density and force;
   8. EAM main path: the cluster EAM run of run_bench_eam (131,072 atoms,
-     60 SP steps) on the stand-in potential below; both EAM kernels'
-     launch counts must cover every force evaluation of it; then the same
+     60 SP steps) on the stand-in potential below; it must plan capacity
+     buckets, the flat passes (K2, K3) launch for the set-up forces before
+     the plan and the bucketed ones (K2b, K3b) must each cover every force
+     evaluation of the checked and timed runs; then the same
      run in float64, whose temperatures at steps 20/40/60 the SP run must
      meet within rel 2e-3 / 1e-2 / 3e-2 (tools/r3_eamc.py's SP tolerances;
      the golden EAM trace needs the real Cu_u3.eam);
@@ -78,7 +82,27 @@ Phases, each fatal (non-zero exit, no result line) on failure:
  19. K1t and K4t at the main path's shapes: phase 18's final SP states
      with their tables and phase 17's with the default ones (error
      against plain, against the untyped kernel with uniform tables;
-     median times beside the untyped kernel's on the same lists).
+     median times beside the untyped kernel's on the same lists);
+     phases 12, 17 and 18 launch no K1b;
+ 20. bucketed kernels: K1b, K2b and K3b against their plain bucketed
+     twins on the random cases of phases 3 and 7 with hand-set plans (a
+     zero tier, dummy units, and once a bucket whose cap is below its
+     longest list), float32 (<= 1e-5) and float64 (<= 1e-12), share 1, 2,
+     4; on untruncated plans equal to K1, K2 and K3 bit for bit;
+ 21. flat against bucketed: the 131k/200 SP run alternately without
+     buckets (a subclass whose _plan_buckets returns False) and with them,
+     F B B F F B B F, each golden-gated, AB_REPEATS timed regions of one
+     run each (not the bench's 3 x 3, to keep the script short); median
+     TOTALs; then a jittered 8^3 DP box with a hand-set plan, card against
+     the CPU plain path (step-0 forces <= 1e-10, 40-step temperatures <=
+     1e-9, both rebuild kinds), without and with the prune every 3 steps;
+ 22. K1b, K2b and K3b at the main paths' shapes: phases 4's and 8's final
+     states beside K1, K2 and K3 on the same lists (bit-equal), error
+     against the plain twins, median times, bound, and the j16 slots the
+     blocks' tile loops run in unit order and in nji order;
+ 23. measure_phases on phase 4's final state (FORCE and NEIGH ms), and
+     run_chunked(10, 4) at 131k with a rebuild every 10 steps, whose
+     temperatures must equal run(ntimes=40)'s within rel 1e-6.
 
 Every kernel count is set to 0 just before each main path (phases 4, 8,
 12 and both runs of 17) and read just after it. Then it prints a JSON
@@ -130,6 +154,29 @@ STREAM_TYPED_KERNEL = {
     "source": "mdbench_tpu_torch/csrc/lj_cluster_stream.cu",
     "replaces": "mdbench_tpu/ops/pallas/lj_cluster.py:50",
 }
+# the capacity-bucketed forms (K1b, K2b, K3b): the same TPU kernels,
+# called once per bucket by mdbench_tpu (engine_cluster.py:516,
+# ops/pallas/eam_cluster.py:289)
+BUCKET_KERNELS = {
+    "lj_cluster_ilist_buckets": {
+        "name": "lj_cluster_ilist_buckets",
+        "route": "cuda",
+        "source": "mdbench_tpu_torch/csrc/lj_cluster_ilist.cu",
+        "replaces": "mdbench_tpu/ops/pallas/lj_cluster.py:433",
+    },
+    "eam_rho_buckets": {
+        "name": "eam_rho_buckets",
+        "route": "cuda",
+        "source": "mdbench_tpu_torch/csrc/eam_cluster.cu",
+        "replaces": "mdbench_tpu/ops/pallas/eam_cluster.py:45",
+    },
+    "eam_force_buckets": {
+        "name": "eam_force_buckets",
+        "route": "cuda",
+        "source": "mdbench_tpu_torch/csrc/eam_cluster.cu",
+        "replaces": "mdbench_tpu/ops/pallas/eam_cluster.py:86",
+    },
+}
 EAM_KERNELS = {
     "eam_rho_ilist": {
         "name": "eam_rho_ilist",
@@ -145,10 +192,12 @@ EAM_KERNELS = {
     },
 }
 REPEATS, CHAIN = 3, 3  # as python -m mdbench_tpu_torch.bench
+AB_REPEATS = 3  # phase 21: timed regions per run, each of one chained run
 # SP against DP temperatures of the EAM run (tools/r3_eamc.py GOLDEN_TOL)
 EAM_SP_TOL = {20: 2e-3, 40: 1e-2, 60: 3e-2}
 # the LJ wrappers' launch counts
-LJ_COUNTS = ("LAUNCHES", "TYPED_LAUNCHES", "STREAM_LAUNCHES", "STREAM_TYPED_LAUNCHES")
+LJ_COUNTS = ("LAUNCHES", "TYPED_LAUNCHES", "STREAM_LAUNCHES", "STREAM_TYPED_LAUNCHES",
+             "BUCKET_LAUNCHES")
 # the non-uniform two-type tables of phase 18 (tests/test_cluster.py:65-68)
 NONUNIFORM_TABLES = (np.array([[1.0, 0.7], [0.7, 1.3]]),
                      np.array([[1.0, 0.95], [0.95, 1.05]]) ** 6,
@@ -334,6 +383,25 @@ def random_case(torch, seed, share, dtype, device, cjn=512, icap=24,
             torch.tensor(nji, device=device), nu * share)
 
 
+def hand_plan(nji, icap: int, gran: int = 1, trunc: bool = False):
+    """A hand-set capacity-bucket plan (sizes, caps) for lists of lengths
+    `nji` (numpy), with every feature the planner's plans can have: a
+    zero tier holding the empty lists (rounded down to `gran` units); a
+    middle tier of about half the units (at least `gran`) at the cap of
+    its longest list rounded up to 8, or with `trunc` 4 below that longest
+    list (a bucket that truncates: its units read only cap entries); a
+    last tier at `icap` that also holds `gran` dummy units. Sizes are
+    multiples of `gran` (128 // share for mdbench_tpu's Pallas kernels)."""
+    srt = np.sort(np.asarray(nji))
+    nu = srt.size
+    z = int((srt == 0).sum()) // gran * gran
+    a = max((nu // 2 - z) // gran * gran, gran)
+    longest = int(srt[min(z + a, nu) - 1])
+    cap_a = max(longest - 4, 1) if trunc else max((longest + 7) // 8 * 8, 8)
+    rest = (max(nu - z - a, 0) // gran + 1) * gran
+    return (z, a, rest), (0, cap_a, int(icap))
+
+
 def random_group_lists(seed, ng=8, L=32, ghost_rows=64, spacing=1.1):
     """A numpy case for the group-window force: (planes, jlist, ranges,
     n_clusters_pad), planes three (C_total, 8) float64 arrays, jlist
@@ -446,7 +514,9 @@ def run_eam_phases(torch, dev, smi: str, ec) -> list:
                   f"err {e2:.3e} rel {r2:.3e}; force max abs err {e3:.3e} rel "
                   f"{r3:.3e} (tol {tol_of(torch, dtype):.0e})", flush=True)
 
-    # 8. EAM main path at full width; count the kernels' launches in it
+    # 8. EAM main path at full width; count the kernels' launches in it:
+    # K2 and K3 for the set-up forces before the bucket plan, K2b and K3b
+    # for every force after it
     reset_counts(lj, ec)
     t0 = time.perf_counter()
     sim, out, rate = run_bench_eam(eam_file, "sp", repeats=REPEATS, chain=CHAIN)
@@ -458,16 +528,18 @@ def run_eam_phases(torch, dev, smi: str, ec) -> list:
     print(f"EAM main path: {sim.natoms} atoms, {p.ntimes} steps, {p.precision}, "
           f"cutforce {p.cutforce}, cutneigh {p.cutneigh}, n_clusters_pad "
           f"{sim.n_clusters_pad}, icap {sim.icap}, ghost_cap {sim.ghost_cap}, "
-          f"list_cap {sim.list_cap}, grows {sim.grows or 'none'}")
+          f"list_cap {sim.list_cap}, grows {sim.grows or 'none'}, buckets {sim.buckets}")
     print(f"EAM main path: TOTAL {out.total_time:.6f} s per run, {rate:.6e} "
           f"atom-updates/s, run() wall {wall:.2f} s, on {smi}")
     lj_launches = {name: getattr(lj, name) for name in LJ_COUNTS}
-    print(f"EAM main path: kernel launches {launches} (each >= {need} force "
-          f"evaluations); LJ kernels {lj_launches}", flush=True)
+    print(f"EAM main path: kernel launches {launches} (K2 and K3 >= 1 before the "
+          f"plan, K2b and K3b each >= {need} force evaluations); LJ kernels "
+          f"{lj_launches}", flush=True)
+    if sim.buckets is None:
+        fail("the EAM 131k run planned no capacity buckets")
     for name, n in launches.items():
-        if n < need:
-            fail(f"the EAM main path launched {name} {n} times, fewer than "
-                 f"its {need} force evaluations")
+        if n < (need if name.endswith("_buckets") else 1):
+            fail(f"the EAM main path launched {name} {n} times")
     if any(lj_launches.values()):
         fail("the EAM main path launched an LJ kernel")
     temps = out.temps
@@ -549,7 +621,7 @@ def run_eam_phases(torch, dev, smi: str, ec) -> list:
             if dtype == torch.float32:
                 rows[name] = kernel_row(EAM_KERNELS[name], launches[name], err, ms,
                                         plain_ms, bound)
-    return [rows[name] for name in EAM_KERNELS]
+    return [rows[name] for name in EAM_KERNELS], (sim, st, launches)
 
 
 def stub_force_err(torch, got, want):
@@ -853,6 +925,7 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
 
         # 18. non-uniform tables: SP against DP on both paths
         states18 = {}
+        b_before = lj.BUCKET_LAUNCHES
         for kernel in ("auto", "pallas"):
             sim_sp, out_sp, rate_sp = run_bench_file(
                 path, "sp", kernel, NONUNIFORM_TABLES, repeats=1, chain=1)
@@ -872,6 +945,8 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
                   f"{rate_sp:.6e} atom-updates/s (SP) on {smi}; worst rel/tol "
                   f"{worst:.3f}", flush=True)
             states18[kernel] = (sim_sp, out_sp.state)
+        if lj.BUCKET_LAUNCHES != b_before:
+            fail("a typed run launched the bucketed kernel K1b")
 
     base = dict(nx=8, ny=8, nz=8, ntimes=40, reneigh_every=10, resort_every=20,
                 precision="dp", scheme="cluster")
@@ -963,6 +1038,320 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
     return rows
 
 
+def slot_sums(torch, pairs, share: int, icap: int, buckets, per: int = 0) -> tuple:
+    """(flat, sorted, listed) j16 slots of the exact-list kernels on these
+    lists: a block holds upb = 16 / share units and its tile loop runs to
+    its longest list, so it costs upb * max(n) slots; flat, a unit's n is
+    min(nji, icap) in unit order; sorted (K1b), min(nji, its bucket's cap)
+    in nji order, 0 for dummy units. listed is the sum of the flat n.
+    With `per`, groups of `per` units take the place of blocks (per = 32 /
+    (8 * share): the units of one warp, which is what idles when its own
+    units' lists are done)."""
+    from mdbench_tpu_torch.ops.lj_cluster import bucket_table
+
+    upb = per or 128 // (8 * share)
+    nji = pairs.nji.long()
+    nu = nji.shape[0]
+    n_flat = nji.clamp(max=icap)
+    units = pairs.bcrows.long()[::share] // share
+    ends, caps = (torch.as_tensor(a, dtype=torch.int64, device=nji.device)
+                  for a in bucket_table(buckets))
+    pos = torch.arange(units.shape[0], device=nji.device)
+    cap = caps[torch.searchsorted(ends, pos, right=True)].clamp(max=icap)
+    n_sorted = torch.where(units < nu, torch.minimum(nji[units.clamp(max=nu - 1)], cap), 0)
+
+    def blocks(n):
+        n = torch.nn.functional.pad(n, (0, -n.shape[0] % upb))
+        return int(n.reshape(-1, upb).amax(1).sum()) * upb
+
+    return blocks(n_flat), blocks(n_sorted), int(n_flat.sum())
+
+
+def flat_simulation_class():
+    """ClusterSimulation that never plans capacity buckets: phase 21's
+    flat side, with no knob added to the package."""
+    from mdbench_tpu_torch.engine_cluster import ClusterSimulation
+
+    class FlatSimulation(ClusterSimulation):
+        def _plan_buckets(self, nji) -> bool:
+            return False
+
+    return FlatSimulation
+
+
+def run_bucket_kernel_phase(torch, dev, ec) -> None:
+    """Phase 20: K1b, K2b and K3b against their plain bucketed twins on
+    the random cases of phases 3 and 7, with hand-set plans (zero tier,
+    dummy units, and one truncating bucket), float32 and float64, share 1,
+    2, 4; on untruncated plans bit-equal to K1, K2 and K3."""
+    from mdbench_tpu_torch.models.eam_tables import fit_eam_poly, load_eam
+    from mdbench_tpu_torch import _build
+    from mdbench_tpu_torch.ops import lj_cluster as lj
+    from mdbench_tpu_torch.ops.cluster import bucket_maps_core
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    eam_file = str(_build.BUILD_DIR / "standin_cu.eam")
+    write_standin_funcfl(eam_file)
+    poly = fit_eam_poly(load_eam(eam_file))
+    rng = np.random.default_rng(20)
+    for dtype in (torch.float32, torch.float64):
+        tol = tol_of(torch, dtype)
+        for share in (1, 2, 4):
+            for trunc in (False, True):
+                # phase 3's lattice (LJ) and phase 7's (EAM, 1.45 A)
+                for kind, spacing, seed in (("lj", 1.1, share), ("eam", 1.45, 10 + share)):
+                    xc, yc, zc, ijl, nji, npad = random_case(
+                        torch, seed, share, dtype, dev, spacing=spacing)
+                    plan = hand_plan(nji.cpu().numpy(), ijl.shape[1], trunc=trunc)
+                    bij, bcr, binv, bovf = bucket_maps_core(
+                        ijl, nji, npad, share, xc.shape[0], *plan)
+                    if bool(bovf) != trunc or sum(plan[0]) <= nji.shape[0] or not plan[0][0]:
+                        fail(f"phase 20's plan {plan} lacks a zero tier, dummy units "
+                             "or the truncating bucket")
+                    maps = (bij, bcr, binv)
+                    if kind == "lj":
+                        args = (npad, 2.5**2, 1.0, 1.0)
+                        got = {"K1b": lj.lj_cluster_force_buckets(
+                            xc, yc, zc, *maps, nji, npad, plan, *args[1:], share=share)}
+                        want = {"K1b": lj.lj_cluster_force_buckets_ref(
+                            xc, yc, zc, *maps, npad, plan, *args[1:], share=share)}
+                        flat = {"K1b": lj.lj_cluster_force_ilist(
+                            xc, yc, zc, ijl, nji, *args, share=share)}
+                    else:
+                        fp = torch.tensor(rng.normal(-10.0, 3.0, tuple(xc.shape)),
+                                          dtype=dtype, device=dev)
+                        args = (npad, poly.cut**2, poly)
+                        got = {"K2b": (ec.eam_rho_buckets(xc, yc, zc, *maps, nji, *args,
+                                                          plan, share=share),),
+                               "K3b": ec.eam_force_buckets(xc, yc, zc, fp, *maps, nji,
+                                                           *args, plan, share=share)}
+                        want = {"K2b": (ec.eam_rho_buckets_ref(xc, yc, zc, *maps, *args,
+                                                               plan, share),),
+                                "K3b": ec.eam_force_buckets_ref(xc, yc, zc, fp, *maps,
+                                                                *args, plan, share)}
+                        flat = {"K2b": (ec.eam_rho_ilist(xc, yc, zc, ijl, nji, *args,
+                                                         share=share),),
+                                "K3b": ec.eam_force_ilist(xc, yc, zc, fp, ijl, nji, *args,
+                                                          share=share)}
+                    torch.cuda.synchronize()
+                    for name in got:
+                        err, rel = rel_err(torch, got[name], want[name])
+                        if not rel <= tol:
+                            fail(f"{name} disagrees with its plain twin ({dtype}, share "
+                                 f"{share}, trunc {trunc}): rel {rel:.3e}")
+                        if any(bool((f[8:12] != 0).any()) for f in got[name]):
+                            fail(f"{name}: padding units got a value")
+                        same = all(torch.equal(a, b) for a, b in zip(got[name], flat[name]))
+                        if not trunc and not same:
+                            fail(f"{name} is not its flat kernel bit for bit ({dtype}, "
+                                 f"share {share})")
+                        print(f"{name} random {str(dtype)[6:]} share {share} plan {plan}: "
+                              f"max abs err {err:.3e}, rel {rel:.3e} (tol {tol:.0e}); "
+                              f"equal to the flat kernel: {same}", flush=True)
+
+
+def run_bucket_phases(torch, dev, smi: str, ec, lj_main, eam_main) -> list:
+    """Phases 20-23 (capacity buckets). `lj_main` is phase 4's (sim,
+    final state, K1b launches), `eam_main` phase 8's (sim, final state,
+    launches). Returns the K1b, K2b and K3b rows of the JSON line."""
+    from mdbench_tpu_torch.bench import load_check_golden
+    from mdbench_tpu_torch.config import Params
+    from mdbench_tpu_torch.engine_cluster import GROUP, ClusterSimulation
+    from mdbench_tpu_torch.models.lattice import create_fcc_lattice
+    from mdbench_tpu_torch.ops import lj_cluster as lj
+    from mdbench_tpu_torch.ops.eam import EamDevice
+    from mdbench_tpu_torch.stats import compute_cluster_stats
+
+    # 20. the bucketed kernels on random cases
+    run_bucket_kernel_phase(torch, dev, ec)
+
+    # 21. the 131k LJ run, flat against bucketed, alternating
+    check_golden = load_check_golden()
+    flat_cls = flat_simulation_class()
+    totals = {"flat": [], "bucketed": []}
+    for side in ("flat", "bucketed", "bucketed", "flat") * 2:
+        params = Params(precision="sp", scheme="cluster", dense_thermo=False)
+        before = lj.BUCKET_LAUNCHES
+        sim = (flat_cls if side == "flat" else ClusterSimulation)(params, device=dev)
+        out = sim.run(repeats=AB_REPEATS, chain=1)
+        check_golden(out.temps, params.reneigh_every)
+        if (sim.buckets is None) != (side == "flat") or (
+                (lj.BUCKET_LAUNCHES > before) != (side == "bucketed")):
+            fail(f"phase 21's {side} run took the other path")
+        totals[side].append(out.total_time)
+        print(f"A/B {side}: TOTAL {out.total_time:.6f} s, golden gate passed, buckets "
+              f"{sim.buckets}, grows {sim.grows or 'none'}", flush=True)
+    med = {k: float(np.median(v)) for k, v in totals.items()}
+    print(f"A/B 131k/200 SP (F B B F F B B F, repeats {AB_REPEATS}, chain 1): median "
+          f"TOTAL flat {med['flat']:.6f} s, bucketed {med['bucketed']:.6f} s; flat "
+          f"{totals['flat']}, bucketed {totals['bucketed']} on {smi}", flush=True)
+
+    base = dict(nx=8, ny=8, nz=8, ntimes=40, reneigh_every=10, resort_every=20,
+                precision="dp", scheme="cluster")
+    x, v, _ = create_fcc_lattice(Params(**base))
+    x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
+    plan = None
+    for extra in ({}, {"prune_every": 3}):
+        kw = {**base, **extra}
+
+        def sim_on(device):
+            nonlocal plan
+            sim = ClusterSimulation(Params(**kw), x=x, v=v, device=device)
+            if plan is None:
+                plan = hand_plan(sim.initial_state().pairs.nji.cpu().numpy(), sim.icap)
+            sim.buckets = plan
+            return sim
+
+        before = lj.BUCKET_LAUNCHES
+        f_cpu, f_gpu = (sim_on(d).first_force_atoms() for d in ("cpu", dev))
+        frel = np.abs(f_gpu - f_cpu).max() / np.abs(f_cpu).max()
+        r_cpu, r_gpu = (sim_on(d).run() for d in ("cpu", dev))
+        trel = float(np.max(np.abs(r_gpu.temps - r_cpu.temps) / np.abs(r_cpu.temps)))
+        n = lj.BUCKET_LAUNCHES - before
+        print(f"bucketed small input 8^3 dp {extra}, plan {plan}: step-0 force rel err "
+              f"{frel:.3e} (tol 1e-10), 40-step temperature rel err {trel:.3e} (tol "
+              f"1e-9), {n} K1b launches", flush=True)
+        if not (frel <= 1e-10 and trel <= 1e-9) or n < 41:
+            fail(f"the card's bucketed run {extra} disagrees with the CPU plain path")
+
+    # 22. K1b, K2b and K3b at 131k beside K1, K2 and K3 on the same lists
+    rows = []
+    sim, st, b_launches = lj_main
+    cl, pr = st.clusters, st.pairs
+    npad, share, buckets = sim.n_clusters_pad, sim.ishare, sim.buckets
+    p = sim.params
+    cut = (p.cutforce**2, p.sigma6, p.epsilon)
+    maps = (pr.bijlist, pr.bcrows, pr.binv)
+    cs = compute_cluster_stats(cl, pr, npad, GROUP, p.cutforce**2, p.cutneigh**2,
+                               buckets=buckets)
+    evaluated, inside = ilist_pairs(cs, share), cs["pairs_within_cutforce"]
+    slots = slot_sums(torch, pr, share, pr.ijlist.shape[1], buckets)
+    warps = slot_sums(torch, pr, share, pr.ijlist.shape[1], buckets, per=4 // share or 1)
+    print(f"K1b at 131k: phase 4's final lists, buckets {buckets}; j16 slots by block "
+          f"flat {slots[0]}, nji-sorted {slots[1]} (sorted / flat "
+          f"{slots[1] / slots[0]:.4f}), by warp flat {warps[0]}, nji-sorted {warps[1]} "
+          f"({warps[1] / warps[0]:.4f}), listed {slots[2]}; bucketed padded pairs "
+          f"{cs['padded_pairs']}", flush=True)
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        planes = [q.to(dtype) for q in (cl.xc, cl.yc, cl.zc)]
+
+        def kern():
+            return lj.lj_cluster_force_buckets(*planes, *maps, pr.nji, npad, buckets,
+                                               *cut, share=share)
+
+        def flat():
+            return lj.lj_cluster_force_ilist(*planes, pr.ijlist, pr.nji, npad, *cut,
+                                             share=share)
+
+        def plain():
+            return lj.lj_cluster_force_buckets_ref(*planes, *maps, npad, buckets, *cut,
+                                                   share=share)
+
+        out = kern()
+        err, rel = rel_err(torch, out, plain())
+        same = all(torch.equal(a, b) for a, b in zip(out, flat()))
+        ms, ms_flat = median_ms(torch, kern, 50), median_ms(torch, flat, 50)
+        plain_ms = median_ms(torch, plain, 5)
+        bound = bound_of(lj_ops(evaluated, inside),
+                         nbytes_of(*planes, *maps[:2], pr.nji, *out), dtype)
+        res[dtype] = (err, ms, plain_ms, bound)
+        print(f"K1b at 131k ({str(dtype)[6:]}): max abs err {err:.3e}, rel {rel:.3e} "
+              f"(tol {tol_of(torch, dtype):.0e}); equal to K1: {same}; median K1b "
+              f"{ms:.4f} ms, K1 on the same lists {ms_flat:.4f} ms (K1b / K1 "
+              f"{ms / ms_flat:.4f}), plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]}) on {smi}", flush=True)
+        if not rel <= tol_of(torch, dtype) or not same:
+            fail(f"K1b at 131k disagrees with its plain twin or with K1 ({dtype})")
+    rows.append(kernel_row(BUCKET_KERNELS["lj_cluster_ilist_buckets"], b_launches,
+                           *res[torch.float32]))
+
+    sim_e, st_e, launches_e = eam_main
+    cl, pr = st_e.clusters, st_e.pairs
+    npad, share, buckets = sim_e.n_clusters_pad, sim_e.ishare, sim_e.buckets
+    maps = (pr.bijlist, pr.bcrows, pr.binv)
+    args = (npad, sim_e.params.cutforce**2, sim_e.eam_poly)
+    cs = compute_cluster_stats(cl, pr, npad, GROUP, sim_e.params.cutforce**2,
+                               sim_e.params.cutneigh**2, buckets=buckets)
+    evaluated, inside = ilist_pairs(cs, share), cs["pairs_within_cutforce"]
+    deg = {k: len(getattr(sim_e.eam_poly, k)) - 1 for k in ("dens", "g1", "g2")}
+    ops = {"eam_rho_buckets": 8 * evaluated + (6 + 2 * deg["dens"]) * inside,
+           "eam_force_buckets": 8 * evaluated + (10 + 2 * (deg["g1"] + deg["g2"])) * inside}
+    slots = slot_sums(torch, pr, share, pr.ijlist.shape[1], buckets)
+    warps = slot_sums(torch, pr, share, pr.ijlist.shape[1], buckets, per=4 // share or 1)
+    print(f"K2b/K3b at 131k: phase 8's final lists, buckets {buckets}; j16 slots by "
+          f"block flat {slots[0]}, nji-sorted {slots[1]} (sorted / flat "
+          f"{slots[1] / slots[0]:.4f}), by warp flat {warps[0]}, nji-sorted {warps[1]} "
+          f"({warps[1] / warps[0]:.4f}), listed {slots[2]}", flush=True)
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        planes = [q.to(dtype) for q in (cl.xc, cl.yc, cl.zc)]
+        rho_ref = ec.eam_rho_ilist_ref(*planes, pr.ijlist, *args, share=share)
+        fp = ec.fp_plane_from_rho(
+            rho_ref, EamDevice.from_tables(sim_e.eam_tables, dev, dtype),
+            st_e.halo.border_map, planes[0].shape[0])
+        calls = {
+            "eam_rho_buckets": (
+                lambda: (ec.eam_rho_buckets(*planes, *maps, pr.nji, *args, buckets,
+                                            share=share),),
+                lambda: (ec.eam_rho_ilist(*planes, pr.ijlist, pr.nji, *args,
+                                          share=share),),
+                lambda: (ec.eam_rho_buckets_ref(*planes, *maps, *args, buckets,
+                                                share),)),
+            "eam_force_buckets": (
+                lambda: ec.eam_force_buckets(*planes, fp, *maps, pr.nji, *args, buckets,
+                                             share=share),
+                lambda: ec.eam_force_ilist(*planes, fp, pr.ijlist, pr.nji, *args,
+                                           share=share),
+                lambda: ec.eam_force_buckets_ref(*planes, fp, *maps, *args, buckets,
+                                                 share)),
+        }
+        for name, (kern, flat, plain) in calls.items():
+            out = kern()
+            err, rel = rel_err(torch, out, plain())
+            same = all(torch.equal(a, b) for a, b in zip(out, flat()))
+            ms, ms_flat = median_ms(torch, kern, 50), median_ms(torch, flat, 50)
+            plain_ms = median_ms(torch, plain, 5)
+            moved = nbytes_of(*planes, *maps[:2], pr.nji, *out) + (
+                nbytes_of(fp) if name == "eam_force_buckets" else 0)
+            bound = bound_of(ops[name], moved, dtype)
+            print(f"{name} at 131k ({str(dtype)[6:]}): max abs err {err:.3e}, rel "
+                  f"{rel:.3e} (tol {tol_of(torch, dtype):.0e}); equal to the flat "
+                  f"kernel: {same}; median {ms:.4f} ms, flat kernel on the same lists "
+                  f"{ms_flat:.4f} ms (ratio {ms / ms_flat:.4f}), plain {plain_ms:.4f} "
+                  f"ms, bound {bound[0]:.4f} ms ({bound[1]}) on {smi}", flush=True)
+            if not rel <= tol_of(torch, dtype) or not same:
+                fail(f"{name} at 131k disagrees with its plain twin or its flat "
+                     f"kernel ({dtype})")
+            if dtype == torch.float32:
+                res[name] = kernel_row(BUCKET_KERNELS[name], launches_e[name], err, ms,
+                                       plain_ms, bound)
+    rows += [res["eam_rho_buckets"], res["eam_force_buckets"]]
+
+    # 23. measure_phases on phase 4's final state; run_chunked at 131k
+    sim, st, _ = lj_main
+    t_force, t_neigh = sim.measure_phases(st)
+    print(f"measure_phases at 131k (phase 4's final state, buckets {sim.buckets}): "
+          f"FORCE {t_force * 1e3:.4f} ms per call, NEIGH {t_neigh * 1e3:.4f} ms per "
+          f"full rebuild on {smi}", flush=True)
+    if not (0 < t_force < 1 and 0 < t_neigh < 10):
+        fail("measure_phases gave no plausible times")
+    kw = dict(precision="sp", scheme="cluster", reneigh_every=10)
+    steps = []
+    before = lj.BUCKET_LAUNCHES
+    chunked = ClusterSimulation(Params(**kw), device=dev).run_chunked(
+        10, 4, lambda state, step: steps.append(step))
+    n = lj.BUCKET_LAUNCHES - before
+    ref = ClusterSimulation(Params(**kw), device=dev).run(ntimes=40)
+    rel = float(np.max(np.abs(chunked.temps - ref.temps) / np.abs(ref.temps)))
+    print(f"run_chunked(10, 4) at 131k (reneigh_every 10): callback steps {steps}, "
+          f"{n} K1b launches, temperatures against run(ntimes=40) rel {rel:.3e} (tol "
+          f"1e-6), chunked wall {chunked.total_time:.4f} s", flush=True)
+    if steps != [0, 10, 20, 30, 40] or not rel <= 1e-6 or n < 40:
+        fail("run_chunked at 131k departs from run()")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1019,27 +1408,34 @@ def main() -> int:
             if not rel <= tol_of(torch, dtype):
                 fail(f"kernel disagrees with its plain version ({dtype}, share {share})")
 
-    # 4. main path: the benchmark run; count the kernel's launches in it
+    # 4. main path: the benchmark run; count the kernels' launches in it:
+    # the set-up forces before the bucket plan launch K1, every force
+    # after it K1b
     reset_counts(lj, ec)
     t0 = time.perf_counter()
     sim, out, rate = run_bench(repeats=REPEATS, chain=CHAIN)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = lj.LAUNCHES
-    others = {name: getattr(lj, name) for name in LJ_COUNTS if name != "LAUNCHES"}
+    launches, b_launches = lj.LAUNCHES, lj.BUCKET_LAUNCHES
+    others = {name: getattr(lj, name) for name in LJ_COUNTS
+              if name not in ("LAUNCHES", "BUCKET_LAUNCHES")}
     p = sim.params
     runs = 1 + REPEATS * CHAIN  # the un-timed checked run + the timed ones
     need = runs * (p.ntimes + 1)  # initial state's force + one per step
     print(f"main path: {sim.natoms} atoms, {p.ntimes} steps, {p.precision}, "
           f"n_clusters_pad {sim.n_clusters_pad}, icap {sim.icap}, "
-          f"ghost_cap {sim.ghost_cap}, list_cap {sim.list_cap}, grows {sim.grows or 'none'}")
+          f"ghost_cap {sim.ghost_cap}, list_cap {sim.list_cap}, grows {sim.grows or 'none'}, "
+          f"buckets {sim.buckets}")
     print(f"main path: golden gate passed; TOTAL {out.total_time:.6f} s per run, "
           f"{rate:.6e} atom-updates/s, run() wall {wall:.2f} s")
-    print(f"main path: kernel launches {launches} (>= {need} force evaluations); "
-          f"other LJ kernels {others}; EAM {dict(ec.LAUNCHES)}", flush=True)
-    if launches < need:
-        fail(f"the main path launched the kernel {launches} times, fewer than "
-             f"its {need} force evaluations")
+    print(f"main path: K1 launches {launches} (set-up, before the plan), K1b "
+          f"{b_launches} (>= {need} force evaluations of the checked and timed "
+          f"runs); other LJ kernels {others}; EAM {dict(ec.LAUNCHES)}", flush=True)
+    if sim.buckets is None:
+        fail("the 131k run planned no capacity buckets")
+    if launches < 1 or b_launches < need:
+        fail(f"the main path launched K1 {launches} and K1b {b_launches} times: "
+             f"K1 before the plan and K1b for its {need} force evaluations")
     if any(others.values()) or any(ec.LAUNCHES.values()):
         fail("the main path launched another force kernel")
     temps = out.temps
@@ -1106,7 +1502,7 @@ def main() -> int:
             fail(f"kernel disagrees with its plain version at 131k ({dtype})")
 
     # 7-10. the cluster EAM path
-    eam_rows = run_eam_phases(torch, dev, smi, ec)
+    eam_rows, eam_main = run_eam_phases(torch, dev, smi, ec)
 
     # 11-15. the group-window path
     stream_row = run_group_phases(torch, dev, smi, ec)
@@ -1114,9 +1510,13 @@ def main() -> int:
     # 16-19. the typed path from an atom file
     typed_rows = run_typed_phases(torch, dev, smi, ec)
 
+    # 20-23. capacity buckets on the exact-list path
+    bucket_rows = run_bucket_phases(torch, dev, smi, ec, (sim, st, b_launches),
+                                    eam_main)
+
     print(json.dumps({"kernels": [
         kernel_row(KERNEL, launches, *res[torch.float32]), *eam_rows, stream_row,
-        *typed_rows,
+        *typed_rows, *bucket_rows,
     ]}))
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(smi)

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source compiles with its own ``nvcc`` process, all
 started together, and the objects link into one shared library with a
 plain C interface, loaded with ``ctypes``. The library lands in
-``mdbench_tpu_torch/_build/`` under a name keyed by a hash of the sources
-and flags, so an edited source rebuilds and an unchanged one loads the
+``mdbench_tpu_torch/_build/`` under a name keyed by a hash of the sources,
+the headers they include (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one loads the
 cached file; the compilers' output (``-Xptxas -v``: registers, shared
 memory, spills per kernel) is kept beside it in a ``.log`` file. The
 build runs at first use (the first launch on a CUDA tensor), never at
@@ -56,6 +57,21 @@ _SIGNATURES = {
     #  coefs, stream)
     "eam_force_ilist_f32": ([_P] * 9 + [_I] * 3 + [_P] * 2, ctypes.c_int),
     "eam_force_ilist_f64": ([_P] * 9 + [_I] * 3 + [_P] * 2, ctypes.c_int),
+    # bucketed forms: (xc, yc, zc, bijlist, bcrows, nji, fx, fy, fz, n_rows,
+    #  icap, n_units, share, nbuckets, ends, caps, cutforcesq, sigma6,
+    #  epsilon, stream)
+    "lj_cluster_ilist_buckets_f32": (
+        [_P] * 9 + [_I] * 5 + [_P] * 2 + [ctypes.c_float] * 3 + [_P], ctypes.c_int),
+    "lj_cluster_ilist_buckets_f64": (
+        [_P] * 9 + [_I] * 5 + [_P] * 2 + [ctypes.c_double] * 3 + [_P], ctypes.c_int),
+    # (xc, yc, zc, bijlist, bcrows, nji, rho, n_rows, icap, n_units, share,
+    #  nbuckets, ends, caps, coefs, stream)
+    "eam_rho_buckets_f32": ([_P] * 7 + [_I] * 5 + [_P] * 4, ctypes.c_int),
+    "eam_rho_buckets_f64": ([_P] * 7 + [_I] * 5 + [_P] * 4, ctypes.c_int),
+    # (xc, yc, zc, fp, bijlist, bcrows, nji, fx, fy, fz, n_rows, icap,
+    #  n_units, share, nbuckets, ends, caps, coefs, stream)
+    "eam_force_buckets_f32": ([_P] * 10 + [_I] * 5 + [_P] * 4, ctypes.c_int),
+    "eam_force_buckets_f64": ([_P] * 10 + [_I] * 5 + [_P] * 4, ctypes.c_int),
 }
 
 _lib = None  # the loaded library, once per process
@@ -80,9 +96,10 @@ def sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(SRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmdbench_kernels_{h.hexdigest()[:16]}.so"

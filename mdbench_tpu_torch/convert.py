@@ -86,9 +86,9 @@ def pairs_from_numpy(src, device) -> ClusterPairList:
     """mdbench_tpu ClusterPairList -> port ClusterPairList, in either
     form. The group list and the tile windows lose their TPU block axis:
     jlist (NG, 1, L) -> (NG, L) int64, ranges (NG, 1, 2G+1) -> (NG, 2G+1)
-    int32. The exact-list fields (ijlist, nji, iovf) and the windows carry
-    over where the source holds them and are None where it does not; the
-    bucket maps have no counterpart (ROADMAP 1a)."""
+    int32. The exact-list fields (ijlist, nji, iovf), the windows and the
+    capacity-bucket maps (bijlist, bcrows, binv, int32) carry over where
+    the source holds them and are None where it does not."""
     jl = _get(src, "jlist")
     ng = jl.shape[0]
 
@@ -106,6 +106,8 @@ def pairs_from_numpy(src, device) -> ClusterPairList:
         ranges=opt("ranges", lambda: torch.tensor(
             _get(src, "ranges").reshape(ng, -1).astype(np.int32),
             device=device)),
+        **{name: opt(name, lambda name=name: _int(src, name, device, torch.int32))
+           for name in ("bijlist", "bcrows", "binv")},
     )
 
 

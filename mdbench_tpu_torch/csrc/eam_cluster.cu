@@ -23,6 +23,20 @@
 //   evaluated highest degree first (Horner). Outputs (n_units*share, 8)
 //   are written, not accumulated.
 //
+// Bucketed form (K2b, K3b; the same passes per capacity bucket in
+// mdbench_tpu/ops/pallas/eam_cluster.py, `buckets=`): the same kernels with
+// lj_cluster_ilist.cu's runtime unit map (unit_map.cuh). ijlist is then
+// bijlist (n_rows, icap), the lists in nji-sorted order; bcrows
+// (n_rows*share,) gives each position's cluster rows (a dummy unit's lie
+// past n_units*share: it reads and writes nothing); each bucket's units
+// read min(nji, cap) entries, a cap-0 tier none (its rows get exactly 0).
+// Each unit's rows are written straight from its position, and pass 2
+// reads fp_i from the unit's own rows of fp: no permuted i-planes, no
+// fp_plane[bcrows] and no inverse gather, which on the TPU served the
+// BlockSpec's contiguous blocks. One launch per pass covers every bucket.
+// Each unit's sum runs in list order, so K2b and K3b equal K2 and K3 bit
+// for bit on the same lists.
+//
 // Design: K1's (lj_cluster_ilist.cu). One thread per i-atom; the sum in
 // registers in list order, deterministic, no atomics; the unit's listed
 // j16 staged in shared memory in tiles (coalesced 16-atom loads,
@@ -47,7 +61,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "unit_map.cuh"
+
 namespace {
+
+using unit_map::Buckets;
+using unit_map::unit_of;
 
 constexpr int kThreads = 128;      // threads per block
 constexpr int kJ16 = 16;           // atoms per j-cluster
@@ -89,9 +108,11 @@ __global__ void __launch_bounds__(kThreads)
 eam_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
                  const T* __restrict__ zc, const T* __restrict__ fp,
                  const int32_t* __restrict__ ijlist,
-                 const int32_t* __restrict__ nji, T* __restrict__ out0,
-                 T* __restrict__ out1, T* __restrict__ out2, int n_units,
-                 int icap, int share, int tile_j, const EamCoefs<T> c) {
+                 const int32_t* __restrict__ nji,
+                 const int32_t* __restrict__ bcrows, T* __restrict__ out0,
+                 T* __restrict__ out1, T* __restrict__ out2, int n_rows,
+                 int n_units, int icap, int share, int tile_j,
+                 const Buckets bk, const EamCoefs<T> c) {
   constexpr int kVals = kForce ? 4 : 3;  // staged values per j atom
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_nmax;
@@ -99,8 +120,10 @@ eam_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
   const int upb = kThreads / tpu;      // units per block
   const int lu = threadIdx.x / tpu;    // unit within the block
   const int ia = threadIdx.x % tpu;    // i-atom within the unit
-  const int u = blockIdx.x * upb + lu;
-  const bool active = u < n_units;
+  const int s = blockIdx.x * upb + lu; // the unit's list row
+  int cap;
+  const int u = unit_of(s, n_rows, n_units, share, icap, bcrows, bk, cap);
+  const bool active = u >= 0;
   const int tile_atoms = tile_j * kJ16;
   T* sx = reinterpret_cast<T*>(smem_raw) + lu * kVals * tile_atoms;
   T* sy = sx + tile_atoms;
@@ -108,7 +131,7 @@ eam_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
   T* sf = sz + tile_atoms;  // pass 2 only
 
   int n = 0;
-  if (active) n = min(max(nji[u], 0), icap);
+  if (active) n = min(max(nji[u], 0), cap);
   if (threadIdx.x == 0) s_nmax = 0;
   __syncthreads();
   if (active && ia == 0) atomicMax(&s_nmax, n);
@@ -123,7 +146,7 @@ eam_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
     zi = zc[row];
     if constexpr (kForce) fpi = fp[row];
   }
-  const int32_t* list = ijlist + static_cast<int64_t>(active ? u : 0) * icap;
+  const int32_t* list = ijlist + static_cast<int64_t>(active ? s : 0) * icap;
   T a0 = T(0), a1 = T(0), a2 = T(0);
 
   for (int k0 = 0; k0 < nmax; k0 += tile_j) {
@@ -167,11 +190,12 @@ eam_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
 
 template <typename T, bool kForce>
 int launch(const T* xc, const T* yc, const T* zc, const T* fp,
-           const int32_t* ijlist, const int32_t* nji, T* out0, T* out1,
-           T* out2, int n_units, int icap, int share, const double* coefs,
-           void* stream) {
+           const int32_t* ijlist, const int32_t* nji, const int32_t* bcrows,
+           T* out0, T* out1, T* out2, int n_rows, int n_units, int icap,
+           int share, const Buckets& bk, const double* coefs, void* stream) {
   if (share != 1 && share != 2 && share != 4) return cudaErrorInvalidValue;
-  if (n_units <= 0 || icap <= 0 || coefs == nullptr) return cudaErrorInvalidValue;
+  if (n_rows <= 0 || n_units <= 0 || icap <= 0 || coefs == nullptr)
+    return cudaErrorInvalidValue;
   EamCoefs<T> c;
   c.mid = static_cast<T>(coefs[0]);
   c.iscale = static_cast<T>(coefs[1]);
@@ -186,12 +210,40 @@ int launch(const T* xc, const T* yc, const T* zc, const T* fp,
   int tile_j = kSmemBytes / (upb * kVals * kJ16 * static_cast<int>(sizeof(T)));
   if (tile_j < 1) tile_j = 1;
   const size_t smem = static_cast<size_t>(upb) * kVals * tile_j * kJ16 * sizeof(T);
-  const int blocks = (n_units + upb - 1) / upb;
+  const int blocks = (n_rows + upb - 1) / upb;
   eam_ilist_kernel<T, kForce><<<blocks, kThreads, smem,
                                 static_cast<cudaStream_t>(stream)>>>(
-      xc, yc, zc, fp, ijlist, nji, out0, out1, out2, n_units, icap, share,
-      tile_j, c);
+      xc, yc, zc, fp, ijlist, nji, bcrows, out0, out1, out2, n_rows, n_units,
+      icap, share, tile_j, bk, c);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the flat forms: list row u is unit u
+template <typename T, bool kForce>
+int launch_flat(const T* xc, const T* yc, const T* zc, const T* fp,
+                const int32_t* ijlist, const int32_t* nji, T* out0, T* out1,
+                T* out2, int n_units, int icap, int share, const double* coefs,
+                void* stream) {
+  const Buckets flat{};  // n = 0: no map
+  return launch<T, kForce>(xc, yc, zc, fp, ijlist, nji, nullptr, out0, out1,
+                           out2, n_units, n_units, icap, share, flat, coefs,
+                           stream);
+}
+
+// the bucketed forms: nbuckets position ranges ending at ends[k]
+// (ends[nbuckets-1] == n_rows) with caps caps[k], both host arrays
+template <typename T, bool kForce>
+int launch_buckets(const T* xc, const T* yc, const T* zc, const T* fp,
+                   const int32_t* bijlist, const int32_t* bcrows,
+                   const int32_t* nji, T* out0, T* out1, T* out2, int n_rows,
+                   int icap, int n_units, int share, int nbuckets,
+                   const int* ends, const int* caps, const double* coefs,
+                   void* stream) {
+  Buckets bk{};
+  if (bcrows == nullptr || !unit_map::make_buckets(nbuckets, ends, caps, n_rows, bk))
+    return cudaErrorInvalidValue;
+  return launch<T, kForce>(xc, yc, zc, fp, bijlist, nji, bcrows, out0, out1,
+                           out2, n_rows, n_units, icap, share, bk, coefs, stream);
 }
 
 }  // namespace
@@ -201,7 +253,7 @@ extern "C" int eam_rho_ilist_f32(const float* xc, const float* yc,
                                  const int32_t* nji, float* rho, int n_units,
                                  int icap, int share, const double* coefs,
                                  void* stream) {
-  return launch<float, false>(xc, yc, zc, nullptr, ijlist, nji, rho, nullptr,
+  return launch_flat<float, false>(xc, yc, zc, nullptr, ijlist, nji, rho, nullptr,
                               nullptr, n_units, icap, share, coefs, stream);
 }
 
@@ -210,7 +262,7 @@ extern "C" int eam_rho_ilist_f64(const double* xc, const double* yc,
                                  const int32_t* nji, double* rho, int n_units,
                                  int icap, int share, const double* coefs,
                                  void* stream) {
-  return launch<double, false>(xc, yc, zc, nullptr, ijlist, nji, rho, nullptr,
+  return launch_flat<double, false>(xc, yc, zc, nullptr, ijlist, nji, rho, nullptr,
                                nullptr, n_units, icap, share, coefs, stream);
 }
 
@@ -220,7 +272,7 @@ extern "C" int eam_force_ilist_f32(const float* xc, const float* yc,
                                    float* fx, float* fy, float* fz,
                                    int n_units, int icap, int share,
                                    const double* coefs, void* stream) {
-  return launch<float, true>(xc, yc, zc, fp, ijlist, nji, fx, fy, fz, n_units,
+  return launch_flat<float, true>(xc, yc, zc, fp, ijlist, nji, fx, fy, fz, n_units,
                              icap, share, coefs, stream);
 }
 
@@ -230,6 +282,58 @@ extern "C" int eam_force_ilist_f64(const double* xc, const double* yc,
                                    double* fx, double* fy, double* fz,
                                    int n_units, int icap, int share,
                                    const double* coefs, void* stream) {
-  return launch<double, true>(xc, yc, zc, fp, ijlist, nji, fx, fy, fz, n_units,
+  return launch_flat<double, true>(xc, yc, zc, fp, ijlist, nji, fx, fy, fz, n_units,
                               icap, share, coefs, stream);
+}
+
+// the bucketed passes (K2b, K3b): (xc, yc, zc, [fp,] bijlist, bcrows, nji,
+// outputs, n_rows, icap, n_units, share, nbuckets, ends, caps, coefs,
+// stream); outputs are (n_units*share, 8)
+extern "C" int eam_rho_buckets_f32(const float* xc, const float* yc, const float* zc,
+                                   const int32_t* bijlist, const int32_t* bcrows,
+                                   const int32_t* nji, float* rho, int n_rows,
+                                   int icap, int n_units, int share, int nbuckets,
+                                   const int* ends, const int* caps,
+                                   const double* coefs, void* stream) {
+  return launch_buckets<float, false>(xc, yc, zc, nullptr, bijlist, bcrows, nji,
+                                      rho, nullptr, nullptr, n_rows, icap, n_units,
+                                      share, nbuckets, ends, caps, coefs, stream);
+}
+
+extern "C" int eam_rho_buckets_f64(const double* xc, const double* yc,
+                                   const double* zc, const int32_t* bijlist,
+                                   const int32_t* bcrows, const int32_t* nji,
+                                   double* rho, int n_rows, int icap, int n_units,
+                                   int share, int nbuckets, const int* ends,
+                                   const int* caps, const double* coefs,
+                                   void* stream) {
+  return launch_buckets<double, false>(xc, yc, zc, nullptr, bijlist, bcrows, nji,
+                                       rho, nullptr, nullptr, n_rows, icap, n_units,
+                                       share, nbuckets, ends, caps, coefs, stream);
+}
+
+extern "C" int eam_force_buckets_f32(const float* xc, const float* yc,
+                                     const float* zc, const float* fp,
+                                     const int32_t* bijlist, const int32_t* bcrows,
+                                     const int32_t* nji, float* fx, float* fy,
+                                     float* fz, int n_rows, int icap, int n_units,
+                                     int share, int nbuckets, const int* ends,
+                                     const int* caps, const double* coefs,
+                                     void* stream) {
+  return launch_buckets<float, true>(xc, yc, zc, fp, bijlist, bcrows, nji, fx, fy,
+                                     fz, n_rows, icap, n_units, share, nbuckets,
+                                     ends, caps, coefs, stream);
+}
+
+extern "C" int eam_force_buckets_f64(const double* xc, const double* yc,
+                                     const double* zc, const double* fp,
+                                     const int32_t* bijlist, const int32_t* bcrows,
+                                     const int32_t* nji, double* fx, double* fy,
+                                     double* fz, int n_rows, int icap, int n_units,
+                                     int share, int nbuckets, const int* ends,
+                                     const int* caps, const double* coefs,
+                                     void* stream) {
+  return launch_buckets<double, true>(xc, yc, zc, fp, bijlist, bcrows, nji, fx, fy,
+                                      fz, n_rows, icap, n_units, share, nbuckets,
+                                      ends, caps, coefs, stream);
 }

@@ -40,12 +40,33 @@
 // runtime value up to 32 (24 KB of tables in float64).
 //
 // What bounds it on the card: the pair arithmetic (one divide and ~20
-// flops per pair, over icap*16 pairs per i-atom), not memory — each
+// flops per pair, over nji*16 pairs per i-atom), not memory — each
 // staged coordinate is reused by share*8 threads; the typed form adds the
-// table reads (one per pair, three inside the cutoff). The list length varies per
-// unit, so the tile loop runs to the block's longest list and units with
-// shorter lists idle for the rest; packing units of similar length into
-// one block (the TPU path's capacity buckets) is the next step for speed.
+// table reads (one per pair, three inside the cutoff). The tile loop runs
+// to the block's longest list, and units with shorter lists idle for the
+// rest of it.
+//
+// The bucketed form (K1b; replaces the per-bucket calls of the same TPU
+// kernel in mdbench_tpu/engine_cluster.py::_force_buckets) is the same
+// kernel with a runtime unit map, so each unit's sum is K1's bit for bit:
+//   ijlist       (n_rows, icap) = bijlist, the lists in nji-sorted order
+//                (the capacity buckets' maps, ops/cluster.py)
+//   bcrows       (n_rows*share,) int32: the cluster rows of the unit at
+//                each position; a row past n_units*share marks a dummy
+//                unit, which reads and writes nothing
+//   buckets      position ranges [end[k-1], end[k]) with caps cap[k]: a
+//                unit reads min(nji, cap[k]) entries, so a bucket whose
+//                cap is below its longest list truncates as the TPU path's
+//                bijlist[:, :cap] does; a cap-0 tier reads nothing and its
+//                units' rows get exactly 0
+//   fx, fy, fz   (n_units*share, 8), each unit's rows written straight
+//                from its position: no permuted i-planes and no inverse
+//                gather, which on the TPU only served BlockSpec's need for
+//                contiguous blocks
+// A block takes upb consecutive positions, so its units have nearly equal
+// lists and the tile loop's length is what each of them needs. One launch
+// covers every bucket, the zero tier included (its blocks write zeros and
+// stop): the step is launch-bound, and a launch per bucket would add two.
 //
 // Padding atoms sit at ~1e30; in float32 their rsq overflows to inf and
 // two coinciding padding atoms give rsq == 0. The cutoff test therefore
@@ -58,7 +79,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "unit_map.cuh"
+
 namespace {
+
+using unit_map::Buckets;
+using unit_map::unit_of;
 
 constexpr int kThreads = 128;      // threads per block
 constexpr int kJ16 = 16;           // atoms per j-cluster
@@ -105,20 +131,24 @@ lj_cluster_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
                         const int32_t* __restrict__ tc,
                         const int32_t* __restrict__ ijlist,
                         const int32_t* __restrict__ nji,
+                        const int32_t* __restrict__ bcrows,
                         const T* __restrict__ eps_t,
                         const T* __restrict__ sig6_t,
                         const T* __restrict__ cutsq_t, T* __restrict__ fx,
-                        T* __restrict__ fy, T* __restrict__ fz, int n_units,
-                        int icap, int share, int tile_j, int ntypes,
-                        T cutforcesq, T sigma6, T epsilon) {
+                        T* __restrict__ fy, T* __restrict__ fz, int n_rows,
+                        int n_units, int icap, int share, int tile_j,
+                        int ntypes, const Buckets bk, T cutforcesq, T sigma6,
+                        T epsilon) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_nmax;
   const int tpu = share * 8;           // threads (= i-atoms) per unit
   const int upb = kThreads / tpu;      // units per block
   const int lu = threadIdx.x / tpu;    // unit within the block
   const int ia = threadIdx.x % tpu;    // i-atom within the unit
-  const int u = blockIdx.x * upb + lu;
-  const bool active = u < n_units;
+  const int s = blockIdx.x * upb + lu; // the unit's list row
+  int cap;
+  const int u = unit_of(s, n_rows, n_units, share, icap, bcrows, bk, cap);
+  const bool active = u >= 0;
   const int tile_atoms = tile_j * kJ16;
   // shared memory, untyped: upb units x 3 planes x tile_atoms coordinates;
   // typed: upb units x tile_atoms packed records, then the eps, sig6 and
@@ -139,7 +169,7 @@ lj_cluster_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
   }
 
   int n = 0;
-  if (active) n = min(max(nji[u], 0), icap);
+  if (active) n = min(max(nji[u], 0), cap);
   if (threadIdx.x == 0) s_nmax = 0;
   __syncthreads();
   if (active && ia == 0) atomicMax(&s_nmax, n);
@@ -159,7 +189,7 @@ lj_cluster_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
   const T* eps_i = s_tab + ti * ntypes;
   const T* sig6_i = eps_i + nt2;
   const T* cutsq_i = sig6_i + nt2;
-  const int32_t* list = ijlist + static_cast<int64_t>(active ? u : 0) * icap;
+  const int32_t* list = ijlist + static_cast<int64_t>(active ? s : 0) * icap;
   T ax = T(0), ay = T(0), az = T(0);
 
   for (int k0 = 0; k0 < nmax; k0 += tile_j) {
@@ -216,12 +246,12 @@ lj_cluster_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
 
 template <typename T, bool kTyped>
 int launch(const T* xc, const T* yc, const T* zc, const int32_t* tc,
-           const int32_t* ijlist, const int32_t* nji, const T* eps_t,
-           const T* sig6_t, const T* cutsq_t, T* fx, T* fy, T* fz,
-           int n_units, int icap, int share, int ntypes, T cutforcesq,
-           T sigma6, T epsilon, void* stream) {
+           const int32_t* ijlist, const int32_t* nji, const int32_t* bcrows,
+           const T* eps_t, const T* sig6_t, const T* cutsq_t, T* fx, T* fy,
+           T* fz, int n_rows, int n_units, int icap, int share, int ntypes,
+           const Buckets& bk, T cutforcesq, T sigma6, T epsilon, void* stream) {
   if (share != 1 && share != 2 && share != 4) return cudaErrorInvalidValue;
-  if (n_units <= 0 || icap <= 0) return cudaErrorInvalidValue;
+  if (n_rows <= 0 || n_units <= 0 || icap <= 0) return cudaErrorInvalidValue;
   if (kTyped && (ntypes < 1 || ntypes > kMaxTypes)) return cudaErrorInvalidValue;
   const int upb = kThreads / (share * 8);
   // bytes staged per listed j atom and unit: 3 coordinates, or a record
@@ -236,11 +266,41 @@ int launch(const T* xc, const T* yc, const T* zc, const int32_t* tc,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int blocks = (n_units + upb - 1) / upb;
+  const int blocks = (n_rows + upb - 1) / upb;
   kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xc, yc, zc, tc, ijlist, nji, eps_t, sig6_t, cutsq_t, fx, fy, fz,
-      n_units, icap, share, tile_j, ntypes, cutforcesq, sigma6, epsilon);
+      xc, yc, zc, tc, ijlist, nji, bcrows, eps_t, sig6_t, cutsq_t, fx, fy, fz,
+      n_rows, n_units, icap, share, tile_j, ntypes, bk, cutforcesq, sigma6,
+      epsilon);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the flat forms: list row u is unit u
+template <typename T, bool kTyped>
+int launch_flat(const T* xc, const T* yc, const T* zc, const int32_t* tc,
+                const int32_t* ijlist, const int32_t* nji, const T* eps_t,
+                const T* sig6_t, const T* cutsq_t, T* fx, T* fy, T* fz,
+                int n_units, int icap, int share, int ntypes, T cutforcesq,
+                T sigma6, T epsilon, void* stream) {
+  const Buckets flat{};  // n = 0: no map
+  return launch<T, kTyped>(xc, yc, zc, tc, ijlist, nji, nullptr, eps_t, sig6_t,
+                           cutsq_t, fx, fy, fz, n_units, n_units, icap, share,
+                           ntypes, flat, cutforcesq, sigma6, epsilon, stream);
+}
+
+// the bucketed form (untyped): nbuckets position ranges ending at ends[k]
+// (ends[nbuckets-1] == n_rows) with caps caps[k], both host arrays
+template <typename T>
+int launch_buckets(const T* xc, const T* yc, const T* zc, const int32_t* bijlist,
+                   const int32_t* bcrows, const int32_t* nji, T* fx, T* fy,
+                   T* fz, int n_rows, int icap, int n_units, int share,
+                   int nbuckets, const int* ends, const int* caps, T cutforcesq,
+                   T sigma6, T epsilon, void* stream) {
+  Buckets bk{};
+  if (bcrows == nullptr || !unit_map::make_buckets(nbuckets, ends, caps, n_rows, bk))
+    return cudaErrorInvalidValue;
+  return launch<T, false>(xc, yc, zc, nullptr, bijlist, nji, bcrows, nullptr,
+                          nullptr, nullptr, fx, fy, fz, n_rows, n_units, icap,
+                          share, 0, bk, cutforcesq, sigma6, epsilon, stream);
 }
 
 }  // namespace
@@ -251,9 +311,9 @@ extern "C" int lj_cluster_ilist_f32(const float* xc, const float* yc,
                                     float* fz, int n_units, int icap,
                                     int share, float cutforcesq, float sigma6,
                                     float epsilon, void* stream) {
-  return launch<float, false>(xc, yc, zc, nullptr, ijlist, nji, nullptr,
-                              nullptr, nullptr, fx, fy, fz, n_units, icap,
-                              share, 0, cutforcesq, sigma6, epsilon, stream);
+  return launch_flat<float, false>(xc, yc, zc, nullptr, ijlist, nji, nullptr,
+                                   nullptr, nullptr, fx, fy, fz, n_units, icap,
+                                   share, 0, cutforcesq, sigma6, epsilon, stream);
 }
 
 extern "C" int lj_cluster_ilist_f64(const double* xc, const double* yc,
@@ -263,9 +323,9 @@ extern "C" int lj_cluster_ilist_f64(const double* xc, const double* yc,
                                     int share, double cutforcesq,
                                     double sigma6, double epsilon,
                                     void* stream) {
-  return launch<double, false>(xc, yc, zc, nullptr, ijlist, nji, nullptr,
-                               nullptr, nullptr, fx, fy, fz, n_units, icap,
-                               share, 0, cutforcesq, sigma6, epsilon, stream);
+  return launch_flat<double, false>(xc, yc, zc, nullptr, ijlist, nji, nullptr,
+                                    nullptr, nullptr, fx, fy, fz, n_units, icap,
+                                    share, 0, cutforcesq, sigma6, epsilon, stream);
 }
 
 // the typed form: tables eps, sig6, cutsq are (ntypes, ntypes) on the card
@@ -274,9 +334,9 @@ extern "C" int lj_cluster_ilist_typed_f32(
     const int32_t* ijlist, const int32_t* nji, const float* eps,
     const float* sig6, const float* cutsq, float* fx, float* fy, float* fz,
     int n_units, int icap, int share, int ntypes, void* stream) {
-  return launch<float, true>(xc, yc, zc, tc, ijlist, nji, eps, sig6, cutsq,
-                             fx, fy, fz, n_units, icap, share, ntypes, 0.0f,
-                             0.0f, 0.0f, stream);
+  return launch_flat<float, true>(xc, yc, zc, tc, ijlist, nji, eps, sig6, cutsq,
+                                  fx, fy, fz, n_units, icap, share, ntypes, 0.0f,
+                                  0.0f, 0.0f, stream);
 }
 
 extern "C" int lj_cluster_ilist_typed_f64(
@@ -284,7 +344,31 @@ extern "C" int lj_cluster_ilist_typed_f64(
     const int32_t* ijlist, const int32_t* nji, const double* eps,
     const double* sig6, const double* cutsq, double* fx, double* fy,
     double* fz, int n_units, int icap, int share, int ntypes, void* stream) {
-  return launch<double, true>(xc, yc, zc, tc, ijlist, nji, eps, sig6, cutsq,
-                              fx, fy, fz, n_units, icap, share, ntypes, 0.0,
-                              0.0, 0.0, stream);
+  return launch_flat<double, true>(xc, yc, zc, tc, ijlist, nji, eps, sig6, cutsq,
+                                   fx, fy, fz, n_units, icap, share, ntypes, 0.0,
+                                   0.0, 0.0, stream);
+}
+
+// the bucketed form (K1b): (xc, yc, zc, bijlist, bcrows, nji, fx, fy, fz,
+// n_rows, icap, n_units, share, nbuckets, ends, caps, cutforcesq, sigma6,
+// epsilon, stream); fx, fy, fz are (n_units*share, 8)
+extern "C" int lj_cluster_ilist_buckets_f32(
+    const float* xc, const float* yc, const float* zc, const int32_t* bijlist,
+    const int32_t* bcrows, const int32_t* nji, float* fx, float* fy, float* fz,
+    int n_rows, int icap, int n_units, int share, int nbuckets, const int* ends,
+    const int* caps, float cutforcesq, float sigma6, float epsilon, void* stream) {
+  return launch_buckets<float>(xc, yc, zc, bijlist, bcrows, nji, fx, fy, fz,
+                               n_rows, icap, n_units, share, nbuckets, ends, caps,
+                               cutforcesq, sigma6, epsilon, stream);
+}
+
+extern "C" int lj_cluster_ilist_buckets_f64(
+    const double* xc, const double* yc, const double* zc, const int32_t* bijlist,
+    const int32_t* bcrows, const int32_t* nji, double* fx, double* fy, double* fz,
+    int n_rows, int icap, int n_units, int share, int nbuckets, const int* ends,
+    const int* caps, double cutforcesq, double sigma6, double epsilon,
+    void* stream) {
+  return launch_buckets<double>(xc, yc, zc, bijlist, bcrows, nji, fx, fy, fz,
+                                n_rows, icap, n_units, share, nbuckets, ends, caps,
+                                cutforcesq, sigma6, epsilon, stream);
 }

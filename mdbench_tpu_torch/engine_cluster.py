@@ -20,7 +20,13 @@ exact-list LJ or two-pass EAM force ("auto", "ilist_pl"; CUDA kernels on
 the card), the group-window LJ force ("pallas"; a CUDA kernel on the
 card), the Newton half-list force (half_neigh=1; torch ops), or, asked
 for by name, the plain twins ("ilist", "xla"). On a CPU tensor every
-name runs the plain versions.
+name runs the plain versions. On "auto"/"ilist_pl" untyped runs of 4096
+units or more, the calibration after the first build plans capacity
+buckets, as mdbench_tpu does: every rebuild then sorts the units by list
+length into the plan's buckets (ops/cluster.attach_bucket_maps), and the
+exact-list force runs bucketed (on the card the bucketed forms of the
+kernels). run_chunked runs in host-visible chunks with a replay of a
+chunk that overflowed; measure_phases times the force and the rebuild.
 
 Typed LJ runs (the reference's EXPLICIT_TYPES, clusterpair/atom.c:78-92)
 carry an int32 type plane in the clusters and three (T, T) tables
@@ -60,6 +66,7 @@ from mdbench_tpu_torch.ops.cluster import (
     ClusterHalo,
     ClusterPairList,
     Clusters,
+    attach_bucket_maps,
     bin_clusters,
     build_cluster_pairs,
     build_clusters,
@@ -67,6 +74,7 @@ from mdbench_tpu_torch.ops.cluster import (
     derive_ilists,
     make_cluster_grid,
     make_j16_bboxes,
+    plan_capacity_buckets,
     refresh_pair_ranges,
     setup_cluster_pbc,
     update_cluster_pbc,
@@ -77,6 +85,7 @@ from mdbench_tpu_torch.ops.eam_cluster import (
     eam_cluster_force_ref,
 )
 from mdbench_tpu_torch.ops.lj_cluster import (
+    lj_cluster_force_buckets,
     lj_cluster_force_group_ref,
     lj_cluster_force_half_ref,
     lj_cluster_force_ilist,
@@ -316,6 +325,10 @@ class ClusterSimulation:
             int(math.ceil(4.19 * r_eff**3 * params.rho / 16.0 * 1.35 / 8.0))
             * 8,
         )
+        # capacity buckets of the exact-list kernels, (sizes, caps) in
+        # units, or None for the flat capacity: planned once, after the
+        # first build, by _calibrate_list_cap
+        self.buckets = None
         self.dtype = params.dtype
         self.grows: list = []  # the flags behind each capacity growth
         self.x_flat0 = self._flat(x, SENTINEL_COORD)
@@ -357,10 +370,10 @@ class ClusterSimulation:
             need_ranges=not self._ilist,
         )
         if self._ilist:
-            pairs = derive_ilists(
+            pairs = self._with_buckets(derive_ilists(
                 clusters, pairs, npad, GROUP, p.cutneigh, self.icap,
                 share=self.ishare,
-            )
+            ), clusters)
             iovf = pairs.iovf
         else:
             iovf = torch.zeros((), dtype=torch.bool, device=self.device)
@@ -369,6 +382,14 @@ class ClusterSimulation:
             pairs.overflow[0], pairs.overflow[1], iovf,
         ])
         return clusters, halo, pairs, ovf
+
+    def _with_buckets(self, pairs: ClusterPairList, clusters: Clusters):
+        """The exact lists with the bucket maps of the plan, if there is
+        one (mdbench_tpu attaches them after every derive_ilists)."""
+        if self.buckets is None:
+            return pairs
+        return attach_bucket_maps(pairs, self.n_clusters_pad, self.ishare,
+                                  clusters.xc.shape[0], *self.buckets)
 
     def _reneighbor_from_flat(self, x_flat, v_flat):
         """Full build from flat atom arrays: wrap, cluster, lists.
@@ -410,19 +431,24 @@ class ClusterSimulation:
     def _force_from(self, clusters: Clusters, pairs: ClusterPairList,
                     halo: ClusterHalo):
         """(fx, fy, fz) on the local cluster rows, by the kernel axis
-        (mdbench_tpu engine_cluster.py:424-482): the two-pass EAM force
+        (mdbench_tpu engine_cluster.py:387-482): the two-pass EAM force
         (its ghost-fp refresh reads the halo), the half-list force, the
         exact-list force, the group-window force, or a plain twin; each LJ
-        force in its typed form on a typed run."""
+        force in its typed form on a typed run. The exact-list kernels
+        (EAM, and untyped LJ) run bucketed when the lists carry the bucket
+        maps."""
         p = self.params
         npad, cutsq = self.n_clusters_pad, p.cutforce**2
         planes = (clusters.xc, clusters.yc, clusters.zc)
+        bucketed = self.buckets is not None and pairs.bijlist is not None
+        bpairs = (pairs.bijlist, pairs.bcrows, pairs.binv) if bucketed else None
         if self.eam_poly is not None:
             args = (npad, cutsq, self.eam_dev, self.eam_poly)
             if self._kmode == "ilist_pl":
                 return eam_cluster_force(
                     *planes, pairs.ijlist, pairs.nji, halo.border_map, *args,
-                    share=self.ishare)[:3]
+                    share=self.ishare, buckets=self.buckets if bucketed else None,
+                    bpairs=bpairs)[:3]
             return eam_cluster_force_ref(
                 *planes, pairs.ijlist, halo.border_map, *args,
                 share=self.ishare)[:3]
@@ -432,6 +458,10 @@ class ClusterSimulation:
             return lj_cluster_force_half_ref(*planes, pairs.jlist, npad, *lj,
                                              **typed)
         if self._kmode == "ilist_pl":
+            if bucketed and clusters.tc is None:
+                return lj_cluster_force_buckets(
+                    *planes, *bpairs, pairs.nji, npad, self.buckets, *lj,
+                    share=self.ishare)
             return lj_cluster_force_ilist(
                 *planes, pairs.ijlist, pairs.nji, npad, *lj, share=self.ishare,
                 **typed)
@@ -539,10 +569,10 @@ class ClusterSimulation:
         list's) or refresh the group lists' tile windows."""
         p = self.params
         if self._ilist:
-            pairs = derive_ilists(
+            pairs = self._with_buckets(derive_ilists(
                 state.clusters, state.pairs, self.n_clusters_pad, GROUP,
                 p.cutneigh, self.icap, share=self.ishare,
-            )
+            ), state.clusters)
         else:
             pairs = refresh_pair_ranges(
                 state.clusters, state.pairs, self.n_clusters_pad, GROUP,
@@ -608,8 +638,10 @@ class ClusterSimulation:
         the exact-list capacity to the observed maximum (+15% + 2): every
         padded slot costs work each step. The need is the longest group
         list on the exact-list path, the farthest window end (njg tiles of
-        8) on the group-window path. Returns True if either shrank (the
-        caller rebuilds; later growth is the overflow retry)."""
+        8) on the group-window path. Then plan the capacity buckets
+        (_plan_buckets). Returns True if a capacity shrank or buckets were
+        planned (the caller rebuilds; later growth is the overflow
+        retry)."""
         if self._ilist:
             need = int(state0.pairs.nj.max())
         else:
@@ -626,7 +658,27 @@ class ClusterSimulation:
         if tight_i < self.icap:
             self.icap = tight_i
             shrunk = True
+        if self._plan_buckets(state0.pairs.nji.cpu().numpy()):
+            shrunk = True
         return shrunk
+
+    def _plan_buckets(self, nji: np.ndarray) -> bool:
+        """Plan capacity buckets for the exact-list kernels from the
+        observed list lengths (ops/cluster.plan_capacity_buckets with
+        mdbench_tpu's margin 2 and zero tier), once, on kernel "ilist_pl"
+        untyped runs only (mdbench_tpu engine_cluster.py:900-919); the
+        planner itself refuses boxes of fewer than 4096 units. Returns True
+        if it set a plan."""
+        if self.buckets is not None:
+            return False
+        if self._kmode != "ilist_pl" or self.type_tables is not None:
+            return False
+        plan = plan_capacity_buckets(nji, self.icap, self.ishare, margin=2,
+                                     zero_tier=True)
+        if plan is None:
+            return False
+        self.buckets = plan
+        return True
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -676,6 +728,111 @@ class ClusterSimulation:
             )
         raise RuntimeError("cluster capacity overflow persisted")
 
+    def _setup_state(self, max_retries: int = 5,
+                     calibrate: bool = True) -> CStepState:
+        """run()'s set-up alone: the initial state, grown until nothing
+        overflows, with the list capacities calibrated (and the buckets
+        planned) once if `calibrate`."""
+        calibrated = not calibrate
+        for _ in range(max_retries + 1):
+            state = self.initial_state()
+            flags = state.overflow.cpu().numpy()
+            if flags.any():
+                self._grow(flags)
+                continue
+            if not calibrated:
+                calibrated = True
+                if self._calibrate_list_cap(state):
+                    continue
+            return state
+        raise RuntimeError("cluster capacity overflow persisted")
+
+    def _restart_from_flat(self, xb, vb, flags=None,
+                           max_retries: int = 5) -> CStepState:
+        """Grow the capacities named by `flags` and rebuild a runnable
+        state from flat atom arrays (a chunk boundary's _flatten, original
+        atom order), which become the engine's t=0 arrays: the lists are a
+        function of the positions, so the rebuilt state carries the same
+        physics (mdbench_tpu engine_cluster.py:988-1005)."""
+        self.x_flat0, self.v_flat0 = xb, vb
+        self._grow(flags)
+        return self._setup_state(max_retries, calibrate=False)
+
+    def run_chunked(self, chunk: int, nchunks: int, callback,
+                    max_retries: int = 5, tail: int = 0) -> CRunResult:
+        """Run nchunks * chunk + tail steps in host-visible chunks (for
+        trajectory output; mdbench_tpu engine_cluster.py:1007-1091).
+        callback(state, step) runs at step 0 and after every chunk and the
+        tail. Each chunk runs `_run_steps(chunk)`, so its rebuild cadence
+        counts from the chunk's start. Set-up as in run(). A chunk that
+        overflows is discarded: the capacities grow, the state is rebuilt
+        from the chunk's starting boundary (snapshotted through _flatten
+        before it ran) and the chunk is replayed. total_time is the host
+        time from the first chunk to the end, callbacks included."""
+        state = self._setup_state(max_retries)
+        callback(state, 0)
+        temps_all, press_all = [], []
+        t0 = time.perf_counter()
+        retries = 0
+        lengths = [chunk] * nchunks + ([tail] if tail else [])
+        c = 0
+        while c < len(lengths):
+            xb, vb = self._flatten(state)  # the chunk consumes the state
+            state, temps, press = self._run_steps(state, lengths[c])
+            flags = state.overflow.cpu().numpy()
+            if flags.any():
+                retries += 1
+                if retries > max_retries:
+                    raise RuntimeError(
+                        "cluster capacity overflow persisted in run_chunked")
+                state = self._restart_from_flat(xb, vb, flags, max_retries)
+                continue  # replay chunk c from its boundary
+            c += 1
+            callback(state, sum(lengths[:c]))
+            temps_all.append(temps.cpu().numpy())
+            press_all.append(press.cpu().numpy())
+        self._sync()
+        total = time.perf_counter() - t0
+        empty = np.zeros((0,))
+        return CRunResult(
+            temps=np.concatenate(temps_all) if temps_all else empty,
+            press=np.concatenate(press_all) if press_all else empty,
+            state=state, total_time=total,
+        )
+
+    def measure_phases(self, state: CStepState, reps: int = 20):
+        """Out-of-band FORCE and NEIGH times in seconds per call
+        (mdbench_tpu engine_cluster.py:1139-1182): `reps` chained forces
+        on `state`'s lists, each fed the planes + 1e-30 * the previous
+        force's fx[0, 0] so that no call can be skipped, and max(reps // 4,
+        1) full rebuilds from the t=0 atoms (_reneighbor_from_flat, chained
+        the same way through nj[0]). Each is run once to warm up, then timed
+        between device synchronisations. `state` is not changed."""
+        def force_reps():
+            xc = state.clusters.xc
+            for _ in range(reps):
+                fx = self._force_from(state.clusters._replace(xc=xc),
+                                      state.pairs, state.halo)[0]
+                xc = xc + 1e-30 * fx[0, 0]
+
+        n_neigh = max(reps // 4, 1)
+
+        def neigh_reps():
+            x_flat = self.x_flat0
+            for _ in range(n_neigh):
+                pairs = self._reneighbor_from_flat(x_flat, self.v_flat0)[3]
+                x_flat = x_flat + 1e-30 * pairs.nj[0].to(x_flat.dtype)
+
+        times = []
+        for fn, n in ((force_reps, reps), (neigh_reps, n_neigh)):
+            fn()
+            self._sync()
+            t0 = time.perf_counter()
+            fn()
+            self._sync()
+            times.append((time.perf_counter() - t0) / n)
+        return times[0], times[1]
+
     def _grow(self, flags=None):
         """Targeted capacity growth; flags in N_FLAGS order, None grows
         all."""
@@ -686,6 +843,12 @@ class ClusterSimulation:
         )
         if flags[6]:
             self.icap = (int(self.icap * 1.5) + 7) // 8 * 8
+            if self.buckets is not None:
+                # a bucket overflowed, or the flat capacity: every cap
+                # widens by 8 (a zero tier becomes an 8-cap tier) and the
+                # last follows icap
+                sizes, caps = self.buckets
+                self.buckets = (sizes, tuple(c + 8 for c in caps[:-1]) + (self.icap,))
         blk = 8 * GROUP
         if flags[0]:
             self.n_clusters_pad = (

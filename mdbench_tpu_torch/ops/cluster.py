@@ -1,6 +1,7 @@
 """GROMACS-style M x N cluster machinery in torch ops (the port of
 ``mdbench_tpu.ops.cluster``: the group lists with or without their
-per-member tile windows, the windows' refresh, and the exact unit lists).
+per-member tile windows, the windows' refresh, the exact unit lists, and
+the capacity buckets over them: the planner and the per-rebuild maps).
 
 Reference scheme (src/clusterpair/): atoms grouped into 8-atom i-clusters
 and 16-atom j-clusters ("j16": two consecutive 8-atom rows), bounding-box
@@ -147,6 +148,12 @@ class ClusterPairList(NamedTuple):
     # (NG, 2*group+1) int32: each member's start tile, then its end tile,
     # then the group's tile bound njg (a tile = TILE_J j16 = 128 atoms)
     ranges: Optional[torch.Tensor] = None
+    # capacity-bucket maps (attach_bucket_maps; untyped exact-list runs
+    # with a bucket plan): units in nji order, padded with dummy units to
+    # the plan's total
+    bijlist: Optional[torch.Tensor] = None  # (total_units, icap) int32
+    bcrows: Optional[torch.Tensor] = None  # (total_units*share,) int32 rows
+    binv: Optional[torch.Tensor] = None  # (n_clusters_pad,) int32 inverse
 
 
 def _zbits(z: torch.Tensor) -> torch.Tensor:
@@ -667,3 +674,98 @@ def derive_ilists(
     return pairs._replace(
         ijlist=ijl.to(torch.int32).contiguous(), nji=nji, iovf=(nji > icap).any()
     )
+
+
+def plan_capacity_buckets(nji: np.ndarray, cap: int, share: int,
+                          margin: int = 4, zero_tier: bool = False):
+    """Capacity buckets for the exact-list force from an observed list-
+    length distribution, number for number mdbench_tpu's planner: every
+    multiple of 8 below `cap` is a candidate cap (with `zero_tier`, also a
+    cap-0 tier for the units whose lists are exactly empty); a tier keeps
+    int(0.99 * #{nji + margin <= cap}) units rounded down to the size
+    granule max(128 // share, 8) (a TPU tiling constant, kept so that the
+    static sizes, and with them the overflow and grow sequence, are
+    mdbench_tpu's), when that adds at least one granule; the rest go to a
+    last tier at `cap`. Returns (sizes, caps), or None for boxes of fewer
+    than 4096 units or when no tier forms."""
+    nu = nji.shape[0]
+    if nu < 4096:
+        return None
+    gran = max(128 // share, 8)
+    srt = np.sort(nji) + margin
+    cand = list(range(8, cap, 8))
+    if zero_tier:
+        cand = [0] + cand
+    sizes, caps = [], []
+    used = 0
+    for c_k in cand:
+        fit = (np.sort(nji) <= 0) if c_k == 0 else (srt <= c_k)
+        n_fit = int(fit.sum() * 0.99) // gran * gran - used
+        if n_fit >= gran:
+            sizes.append(n_fit)
+            caps.append(c_k)
+            used += n_fit
+    if not sizes:
+        return None
+    sizes.append(max(gran, (nu - used + gran - 1) // gran * gran))
+    caps.append(cap)
+    return tuple(sizes), tuple(caps)
+
+
+def bucket_maps_core(ijlist, nji, n_clusters_pad: int, share: int,
+                     total_rows: int, sizes, caps):
+    """The bucket maps of one set of exact lists (mdbench_tpu's
+    bucket_maps_core, the same arrays bit for bit). Units are ordered by
+    list length with a STABLE argsort (ties keep unit order, as jnp.argsort
+    does) and padded to sum(sizes) with dummy units, which read the
+    sentinel j16 total_rows // 2 - 1 and the last `share` rows. Returns
+    (bijlist (total, icap) int32: the lists in that order; bcrows
+    (total*share,) int32: each position's cluster rows; binv
+    (n_clusters_pad,) int32: each cluster row's position row; bovf: a
+    bucket's longest list exceeds its cap)."""
+    nu, icap = ijlist.shape
+    dev = ijlist.device
+    total = int(sum(sizes))
+    if total < nu:
+        raise ValueError(f"bucket sizes hold {total} units, fewer than {nu}")
+    i32 = dict(dtype=torch.int32, device=dev)
+    order = torch.argsort(nji, stable=True)
+    if total > nu:
+        order = torch.cat([order, torch.full((total - nu,), nu, dtype=order.dtype,
+                                             device=dev)])
+    sent16 = total_rows // 2 - 1
+    ijl_ext = torch.cat([ijlist, torch.full((1, icap), sent16, **i32)])
+    bijlist = ijl_ext[order].contiguous()
+    crow0 = torch.where(order < nu, order * share, total_rows - share)
+    bcrows = (crow0[:, None] + torch.arange(share, device=dev)[None, :]).reshape(-1)
+    # slot nu takes one write per dummy unit; on CUDA such duplicate
+    # scatters land in no set order, which is harmless because nothing
+    # reads slot nu (c // share < nu below)
+    inv_u = torch.zeros(nu + 1, dtype=torch.int64, device=dev)
+    inv_u[order] = torch.arange(total, device=dev)
+    c = torch.arange(n_clusters_pad, device=dev)
+    binv = inv_u[c // share] * share + c % share
+    # each bucket's longest list is its last unit's (dummies have none);
+    # compared one scalar view at a time: a host list or host tensor
+    # indexing a CUDA tensor is a copy that synchronises the stream
+    nji_sorted = torch.cat([nji, torch.zeros(1, dtype=nji.dtype, device=dev)])[order]
+    bovf = torch.zeros((), dtype=torch.bool, device=dev)
+    off = 0
+    for n_k, c_k in zip(sizes, caps):
+        last = min(off + n_k, nu) - 1
+        if last >= off:
+            bovf = bovf | (nji_sorted[last] > c_k)
+        off += n_k
+    return (bijlist, bcrows.to(torch.int32).contiguous(),
+            binv.to(torch.int32).contiguous(), bovf)
+
+
+def attach_bucket_maps(pairs: ClusterPairList, n_clusters_pad: int, share: int,
+                       total_rows: int, sizes, caps) -> ClusterPairList:
+    """The pair list with its bucket maps (bucket_maps_core) and the
+    buckets' overflow folded into iovf (the engine grows the caps and
+    retries)."""
+    bijlist, bcrows, binv, bovf = bucket_maps_core(
+        pairs.ijlist, pairs.nji, n_clusters_pad, share, total_rows, sizes, caps)
+    return pairs._replace(bijlist=bijlist, bcrows=bcrows, binv=binv,
+                          iovf=pairs.iovf | bovf)

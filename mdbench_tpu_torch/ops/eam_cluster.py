@@ -14,10 +14,11 @@ table per pair.
 
 `eam_cluster_force` is the wrapper the engine calls. On a CUDA tensor it
 launches the hand-written kernels of ``csrc/eam_cluster.cu`` for the two
-passes (`eam_rho_ilist`, `eam_force_ilist`) and runs the frho spline and
-the ghost refresh as torch ops between them on the same stream; on a CPU
-tensor it runs the plain version `eam_cluster_force_ref`. Nothing falls
-back from one to the other.
+passes (`eam_rho_ilist`, `eam_force_ilist`; with capacity buckets their
+bucketed forms `eam_rho_buckets`, `eam_force_buckets`) and runs the frho
+spline and the ghost refresh as torch ops between them on the same
+stream; on a CPU tensor it runs the plain version `eam_cluster_force_ref`.
+Nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -27,34 +28,42 @@ import torch
 
 from mdbench_tpu_torch import _build
 from mdbench_tpu_torch.ops.eam import EamDevice, _grid_index, _horner
-from mdbench_tpu_torch.ops.lj_cluster import _check_cuda_args
+from mdbench_tpu_torch.ops.lj_cluster import (
+    _check_bucket_args,
+    _check_cuda_args,
+    per_bucket,
+)
 
 # kernel launches made by the wrappers, by kernel (a run's proof that it
 # went through the CUDA kernels); callers may reset them to 0
-LAUNCHES = {"eam_rho_ilist": 0, "eam_force_ilist": 0}
+LAUNCHES = {"eam_rho_ilist": 0, "eam_force_ilist": 0,
+            "eam_rho_buckets": 0, "eam_force_buckets": 0}
 
 N_COEF = 17  # coefficients per polynomial (degree 16) the kernels take
 
 
 def _pair_geometry(xc, yc, zc, ijlist, n_clusters_pad, cutforcesq, poly,
-                   share):
+                   share, xi=None):
     """(dx, dy, dz, mask, t) of every (i-atom, listed j-atom) pair:
     dx, dy, dz and mask (0 < rsq < cutforcesq) are (n_units, share*8,
     icap*16), as mdbench_tpu's XLA twin forms them; t holds the mapped
     distance of the pairs in `mask` only, in mask order (the polynomials
     are evaluated there alone: the twin's where(mask, p(t), 0) has the same
-    values)."""
+    values). `xi` (three (n_clusters_pad, 8) planes) replaces the i-side
+    rows, the first n_clusters_pad rows of xc, yc, zc by default."""
     nu, icap = ijlist.shape
     if nu * share != n_clusters_pad:
         raise ValueError("ijlist rows * share must equal n_clusters_pad")
     cjn = xc.shape[0] // 2
     jl = ijlist.long()
+    if xi is None:
+        xi = tuple(p[:n_clusters_pad] for p in (xc, yc, zc))
 
-    def diff(p):
+    def diff(p, p_i):
         pj = p.reshape(cjn, 16)[jl].reshape(nu, 1, icap * 16)
-        return p[:n_clusters_pad].reshape(nu, share * 8, 1) - pj
+        return p_i.reshape(nu, share * 8, 1) - pj
 
-    dx, dy, dz = diff(xc), diff(yc), diff(zc)
+    dx, dy, dz = (diff(p, p_i) for p, p_i in zip((xc, yc, zc), xi))
     rsq = dx * dx + dy * dy + dz * dz
     mask = (rsq < cutforcesq) & (rsq > 0.0)
     r = torch.sqrt(rsq[mask])
@@ -63,27 +72,32 @@ def _pair_geometry(xc, yc, zc, ijlist, n_clusters_pad, cutforcesq, poly,
 
 
 def eam_rho_ilist_ref(xc, yc, zc, ijlist, n_clusters_pad: int,
-                      cutforcesq: float, poly, share: int = 2):
+                      cutforcesq: float, poly, share: int = 2, xi=None):
     """Plain torch pass 1: rho (n_clusters_pad, 8), the sum of dens(r)
-    over every listed j atom with 0 < rsq < cutforcesq."""
+    over every listed j atom with 0 < rsq < cutforcesq (i-side rows `xi`
+    as in _pair_geometry)."""
     dx, _, _, mask, t = _pair_geometry(
-        xc, yc, zc, ijlist, n_clusters_pad, cutforcesq, poly, share)
+        xc, yc, zc, ijlist, n_clusters_pad, cutforcesq, poly, share, xi)
     dens = torch.zeros_like(dx)
     dens[mask] = _horner(poly.dens, t)
     return dens.sum(2).reshape(n_clusters_pad, 8)
 
 
 def eam_force_ilist_ref(xc, yc, zc, fp_plane, ijlist, n_clusters_pad: int,
-                        cutforcesq: float, poly, share: int = 2):
+                        cutforcesq: float, poly, share: int = 2, xi=None,
+                        fpi=None):
     """Plain torch pass 2: (fx, fy, fz), each (n_clusters_pad, 8). fp_i is
-    fp_plane[:n_clusters_pad]; fp_j is read from fp_plane's rows of the
-    listed j16, ghost rows included."""
+    `fpi`, by default fp_plane[:n_clusters_pad]; fp_j is read from
+    fp_plane's rows of the listed j16, ghost rows included (i-side rows
+    `xi` as in _pair_geometry)."""
     nu, icap = ijlist.shape
     dx, dy, dz, mask, t = _pair_geometry(
-        xc, yc, zc, ijlist, n_clusters_pad, cutforcesq, poly, share)
+        xc, yc, zc, ijlist, n_clusters_pad, cutforcesq, poly, share, xi)
     cjn = fp_plane.shape[0] // 2
     fpj = fp_plane.reshape(cjn, 16)[ijlist.long()].reshape(nu, 1, icap * 16)
-    fpi = fp_plane[:n_clusters_pad].reshape(nu, share * 8, 1)
+    if fpi is None:
+        fpi = fp_plane[:n_clusters_pad]
+    fpi = fpi.reshape(nu, share * 8, 1)
     fpair = torch.zeros_like(dx)
     fpair[mask] = -((fpi + fpj)[mask] * _horner(poly.g1, t)
                     + _horner(poly.g2, t))
@@ -117,17 +131,60 @@ def fp_plane_from_rho(rho, eam: EamDevice, border_map, c_total: int):
     return _fp_ghost_refresh(fp_plane, border_map, npad)
 
 
+def eam_rho_buckets_ref(xc, yc, zc, bijlist, bcrows, binv, n_clusters_pad: int,
+                        cutforcesq: float, poly, buckets, share: int = 2):
+    """Plain torch bucketed pass 1 (mdbench_tpu's run_pass of
+    eam_cluster_force_pallas with buckets): rho (n_clusters_pad, 8)."""
+    xi = [p[bcrows.long()] for p in (xc, yc, zc)]
+    (rho,) = per_bucket(
+        1, bijlist, binv, buckets, share, xc,
+        lambda jl, n, r0, r1: (eam_rho_ilist_ref(
+            xc, yc, zc, jl, n, cutforcesq, poly, share,
+            xi=tuple(p[r0:r1] for p in xi)),))
+    return rho
+
+
+def eam_force_buckets_ref(xc, yc, zc, fp_plane, bijlist, bcrows, binv,
+                          n_clusters_pad: int, cutforcesq: float, poly, buckets,
+                          share: int = 2):
+    """Plain torch bucketed pass 2, fp_i = fp_plane[bcrows] as in
+    mdbench_tpu: (fx, fy, fz), each (n_clusters_pad, 8)."""
+    rows = bcrows.long()
+    xi = [p[rows] for p in (xc, yc, zc)]
+    fpi = fp_plane[rows]
+    return per_bucket(
+        3, bijlist, binv, buckets, share, xc,
+        lambda jl, n, r0, r1: eam_force_ilist_ref(
+            xc, yc, zc, fp_plane, jl, n, cutforcesq, poly, share,
+            xi=tuple(p[r0:r1] for p in xi), fpi=fpi[r0:r1]))
+
+
 def eam_cluster_force_ref(xc, yc, zc, ijlist, border_map,
                           n_clusters_pad: int, cutforcesq: float,
-                          eam: EamDevice, poly, share: int = 2):
+                          eam: EamDevice, poly, share: int = 2,
+                          buckets=None, bpairs=None):
     """Plain torch cluster EAM force, the literal twin of mdbench_tpu's
     `eam_cluster_force_xla`: pass 1, the frho spline, the ghost refresh,
-    pass 2. Returns (fx, fy, fz, fp_plane)."""
-    rho = eam_rho_ilist_ref(xc, yc, zc, ijlist, n_clusters_pad, cutforcesq,
-                            poly, share)
+    pass 2. With `buckets` (sizes, caps) and `bpairs` (bijlist, bcrows,
+    binv), both passes run bucketed, as `eam_cluster_force_pallas` does
+    with them. Returns (fx, fy, fz, fp_plane)."""
+    if buckets is not None:
+        bijlist, bcrows, binv = bpairs
+        rho = eam_rho_buckets_ref(xc, yc, zc, bijlist, bcrows, binv,
+                                  n_clusters_pad, cutforcesq, poly, buckets,
+                                  share)
+    else:
+        rho = eam_rho_ilist_ref(xc, yc, zc, ijlist, n_clusters_pad,
+                                cutforcesq, poly, share)
     fp_plane = fp_plane_from_rho(rho, eam, border_map, xc.shape[0])
-    fx, fy, fz = eam_force_ilist_ref(xc, yc, zc, fp_plane, ijlist,
-                                     n_clusters_pad, cutforcesq, poly, share)
+    if buckets is not None:
+        fx, fy, fz = eam_force_buckets_ref(
+            xc, yc, zc, fp_plane, bijlist, bcrows, binv, n_clusters_pad,
+            cutforcesq, poly, buckets, share)
+    else:
+        fx, fy, fz = eam_force_ilist_ref(xc, yc, zc, fp_plane, ijlist,
+                                         n_clusters_pad, cutforcesq, poly,
+                                         share)
     return fx, fy, fz, fp_plane
 
 
@@ -154,25 +211,28 @@ def _check_fp_plane(fp_plane, xc):
             "device, dtype and shape")
 
 
-def _launch(name, xc, args, n_outputs, ijlist, share, coefs):
+def _launch(name, xc, args, n_outputs, n_out, scalars):
     """Launch kernel `name` (f32 or f64 entry point by xc's dtype) on the
-    current stream with `args` (tensors) before its outputs; returns the
-    outputs, each (n_units*share, 8). Raises on a launch error."""
+    current stream with `args` (tensors), its outputs (each (n_out, 8)),
+    then `scalars` (ints and host pointers); returns the outputs. Raises
+    on a launch error."""
     lib = _build.load()
     fn = getattr(lib, f"{name}_{'f32' if xc.dtype == torch.float32 else 'f64'}")
-    n_out = ijlist.shape[0] * share
     out = [torch.empty((n_out, 8), dtype=xc.dtype, device=xc.device)
            for _ in range(n_outputs)]
     with torch.cuda.device(xc.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             *(t.data_ptr() for t in args), *(o.data_ptr() for o in out),
-            ijlist.shape[0], ijlist.shape[1], share, coefs.ctypes.data, stream,
+            *scalars, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
     return out
+
+
+def _flat_scalars(ijlist, share, coefs):
+    return (ijlist.shape[0], ijlist.shape[1], share, coefs.ctypes.data)
 
 
 def eam_rho_ilist(xc, yc, zc, ijlist, nji, n_clusters_pad: int,
@@ -187,8 +247,9 @@ def eam_rho_ilist(xc, yc, zc, ijlist, nji, n_clusters_pad: int,
     if xc.device.type != "cuda":
         raise ValueError(f"no EAM kernel for device {xc.device}")
     _check_cuda_args(xc, yc, zc, ijlist, nji, n_clusters_pad, share)
+    coefs = _coefs(poly, cutforcesq)
     (rho,) = _launch("eam_rho_ilist", xc, (xc, yc, zc, ijlist, nji), 1,
-                     ijlist, share, _coefs(poly, cutforcesq))
+                     n_clusters_pad, _flat_scalars(ijlist, share, coefs))
     return rho
 
 
@@ -203,26 +264,90 @@ def eam_force_ilist(xc, yc, zc, fp_plane, ijlist, nji, n_clusters_pad: int,
         raise ValueError(f"no EAM kernel for device {xc.device}")
     _check_cuda_args(xc, yc, zc, ijlist, nji, n_clusters_pad, share)
     _check_fp_plane(fp_plane, xc)
+    coefs = _coefs(poly, cutforcesq)
     return tuple(_launch("eam_force_ilist", xc,
-                         (xc, yc, zc, fp_plane, ijlist, nji), 3, ijlist,
-                         share, _coefs(poly, cutforcesq)))
+                         (xc, yc, zc, fp_plane, ijlist, nji), 3,
+                         n_clusters_pad, _flat_scalars(ijlist, share, coefs)))
+
+
+def _bucket_scalars(bijlist, nji, share, table, coefs):
+    ends, caps = table
+    return (bijlist.shape[0], bijlist.shape[1], nji.shape[0], share, len(ends),
+            ends.ctypes.data, caps.ctypes.data, coefs.ctypes.data)
+
+
+def eam_rho_buckets(xc, yc, zc, bijlist, bcrows, binv, nji,
+                    n_clusters_pad: int, cutforcesq: float, poly, buckets,
+                    share: int = 2):
+    """Bucketed pass 1 (K2b), rho (n_clusters_pad, 8), from the bucket
+    maps of ops/cluster.py. CPU tensors take `eam_rho_buckets_ref`; CUDA
+    tensors launch the bucketed density kernel once, after the operands
+    are checked (the list contract of `lj_cluster_force_buckets`: binv is
+    not read on the card, bcrows holds every unit once)."""
+    if xc.device.type == "cpu":
+        return eam_rho_buckets_ref(xc, yc, zc, bijlist, bcrows, binv,
+                                   n_clusters_pad, cutforcesq, poly, buckets,
+                                   share)
+    if xc.device.type != "cuda":
+        raise ValueError(f"no EAM kernel for device {xc.device}")
+    table = _check_bucket_args(xc, yc, zc, bijlist, bcrows, binv, nji,
+                               n_clusters_pad, buckets, share)
+    coefs = _coefs(poly, cutforcesq)
+    (rho,) = _launch("eam_rho_buckets", xc, (xc, yc, zc, bijlist, bcrows, nji),
+                     1, n_clusters_pad,
+                     _bucket_scalars(bijlist, nji, share, table, coefs))
+    return rho
+
+
+def eam_force_buckets(xc, yc, zc, fp_plane, bijlist, bcrows, binv, nji,
+                      n_clusters_pad: int, cutforcesq: float, poly, buckets,
+                      share: int = 2):
+    """Bucketed pass 2 (K3b), (fx, fy, fz) each (n_clusters_pad, 8); fp_i
+    is each unit's own rows of fp_plane. The device rule and contract of
+    `eam_rho_buckets`."""
+    if xc.device.type == "cpu":
+        return eam_force_buckets_ref(xc, yc, zc, fp_plane, bijlist, bcrows,
+                                     binv, n_clusters_pad, cutforcesq, poly,
+                                     buckets, share)
+    if xc.device.type != "cuda":
+        raise ValueError(f"no EAM kernel for device {xc.device}")
+    table = _check_bucket_args(xc, yc, zc, bijlist, bcrows, binv, nji,
+                               n_clusters_pad, buckets, share)
+    _check_fp_plane(fp_plane, xc)
+    coefs = _coefs(poly, cutforcesq)
+    return tuple(_launch(
+        "eam_force_buckets", xc, (xc, yc, zc, fp_plane, bijlist, bcrows, nji), 3,
+        n_clusters_pad, _bucket_scalars(bijlist, nji, share, table, coefs)))
 
 
 def eam_cluster_force(xc, yc, zc, ijlist, nji, border_map,
                       n_clusters_pad: int, cutforcesq: float,
-                      eam: EamDevice, poly, share: int = 2):
+                      eam: EamDevice, poly, share: int = 2,
+                      buckets=None, bpairs=None):
     """Cluster EAM force, (fx, fy, fz, fp_plane): the contract of
-    `eam_cluster_force_ref`. On a CPU tensor it is the plain version. On a
-    CUDA tensor: kernel pass 1, the frho spline and ghost refresh as torch
-    ops on the current stream (so they precede pass 2 there), kernel
-    pass 2. Other devices raise ValueError."""
+    `eam_cluster_force_ref`, bucketed with `buckets` and `bpairs`
+    (bijlist, bcrows, binv). On a CPU tensor it is the plain version. On a
+    CUDA tensor: kernel pass 1 (K2, or K2b bucketed), the frho spline and
+    ghost refresh as torch ops on the current stream (so they precede
+    pass 2 there), kernel pass 2 (K3, or K3b). Other devices raise
+    ValueError."""
     if xc.device.type == "cpu":
         return eam_cluster_force_ref(xc, yc, zc, ijlist, border_map,
                                      n_clusters_pad, cutforcesq, eam, poly,
-                                     share)
-    rho = eam_rho_ilist(xc, yc, zc, ijlist, nji, n_clusters_pad, cutforcesq,
-                        poly, share)
+                                     share, buckets, bpairs)
+    if buckets is not None:
+        lists = (*bpairs, nji)
+        rho = eam_rho_buckets(xc, yc, zc, *lists, n_clusters_pad, cutforcesq,
+                              poly, buckets, share)
+    else:
+        rho = eam_rho_ilist(xc, yc, zc, ijlist, nji, n_clusters_pad,
+                            cutforcesq, poly, share)
     fp_plane = fp_plane_from_rho(rho, eam, border_map, xc.shape[0])
-    fx, fy, fz = eam_force_ilist(xc, yc, zc, fp_plane, ijlist, nji,
-                                 n_clusters_pad, cutforcesq, poly, share)
+    if buckets is not None:
+        fx, fy, fz = eam_force_buckets(xc, yc, zc, fp_plane, *lists,
+                                       n_clusters_pad, cutforcesq, poly,
+                                       buckets, share)
+    else:
+        fx, fy, fz = eam_force_ilist(xc, yc, zc, fp_plane, ijlist, nji,
+                                     n_clusters_pad, cutforcesq, poly, share)
     return fx, fy, fz, fp_plane

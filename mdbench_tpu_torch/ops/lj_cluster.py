@@ -1,11 +1,16 @@
 """Lennard-Jones forces of the cluster scheme.
 
-Two kernel wrappers, each beside its plain torch version:
+Three kernel wrappers, each beside its plain torch version:
 
 - `lj_cluster_force_ilist`, the exact-list force: on a CUDA tensor it
   launches ``csrc/lj_cluster_ilist.cu`` (the port of the TPU kernel
   ``mdbench_tpu/ops/pallas/lj_cluster.py::_kernel_ilist``), on a CPU
   tensor it runs `lj_cluster_force_ilist_ref`;
+- `lj_cluster_force_buckets`, the same force over capacity buckets (units
+  in nji-sorted order, the maps of ``ops/cluster.bucket_maps_core``): on a
+  CUDA tensor it launches the bucketed form of the same kernel (the port
+  of mdbench_tpu's per-bucket calls in `_force_buckets`), on a CPU tensor
+  it runs `lj_cluster_force_buckets_ref`;
 - `lj_cluster_force_stream`, the group-window force over group-shared
   j16 lists and per-member tile windows: on a CUDA tensor it launches
   ``csrc/lj_cluster_stream.cu`` (the port of ``_kernel_stream``), on a
@@ -28,6 +33,9 @@ as their counterparts are XLA ops on every backend in mdbench_tpu.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from mdbench_tpu_torch import _build
@@ -40,12 +48,16 @@ STREAM_LAUNCHES = 0
 # the same for the typed forms of the two wrappers
 TYPED_LAUNCHES = 0
 STREAM_TYPED_LAUNCHES = 0
+# the same for lj_cluster_force_buckets (the bucketed exact-list form)
+BUCKET_LAUNCHES = 0
 
 GROUP = 16  # i-clusters per group list (the stream kernel's block)
 TILE_ATOMS = 128  # j atoms per window tile (8 j16)
 # the most atom types the typed kernels take: their blocks hold the three
 # (T, T) tables in shared memory (24 KB at T = 32 in float64)
 MAX_TYPES = 32
+# the most capacity buckets the bucketed kernels take (csrc/unit_map.cuh)
+MAX_BUCKETS = 32
 
 
 def _pair_params(tables, ti, tj, like):
@@ -70,26 +82,33 @@ def lj_cluster_force_ilist_ref(
     share: int = 2,
     tc=None,  # (C_total, 8) int types, typed runs only
     tables=None,  # (eps, sig6, cutsq), each (T, T), typed runs only
+    xi=None,  # (xi_x, xi_y, xi_z), each (n_clusters_pad, 8): i-side planes
 ):
     """Plain torch version: the literal twin of mdbench_tpu's
     `lj_cluster_force_xla_ilist`, untyped or typed. Every listed j16 of
     unit u (share consecutive i-clusters) interacts with all of the unit's
     i-atoms; sentinel ids contribute exactly 0. Typed, the scalars
-    cutforcesq, sigma6 and epsilon are not read. Returns (fx, fy, fz),
-    each (n_clusters_pad, 8)."""
+    cutforcesq, sigma6 and epsilon are not read. `xi` replaces the i-side
+    rows (default the first n_clusters_pad rows of xc, yc, zc) while the
+    j16 rows still come from the full planes, as the `xi=` of
+    `lj_cluster_force_ilist_pallas` does (untyped only). Returns (fx, fy,
+    fz), each (n_clusters_pad, 8)."""
     _check_typed_pair(tc, tables)
     nu, icap = ijlist.shape
     if nu * share != n_clusters_pad:
         raise ValueError("ijlist rows * share must equal n_clusters_pad")
+    if xi is not None and tables is not None:
+        raise ValueError("xi is untyped only")
     cjn = xc.shape[0] // 2
     jl = ijlist.long()
+    if xi is None:
+        xi = tuple(p[:n_clusters_pad] for p in (xc, yc, zc))
 
-    def planes(p):
+    def planes(p, p_i):
         pj = p.reshape(cjn, 16)[jl].reshape(nu, 1, icap * 16)
-        pi = p[:n_clusters_pad].reshape(nu, share * 8, 1)
-        return pi - pj
+        return p_i.reshape(nu, share * 8, 1) - pj
 
-    dx, dy, dz = planes(xc), planes(yc), planes(zc)
+    dx, dy, dz = (planes(p, p_i) for p, p_i in zip((xc, yc, zc), xi))
     if tables is not None:
         epsilon, sigma6, cutforcesq = _pair_params(
             tables, tc[:n_clusters_pad].reshape(nu, share * 8, 1),
@@ -221,6 +240,147 @@ def lj_cluster_force_ilist(
     if err != 0:
         raise RuntimeError(f"lj_cluster_ilist launch failed: CUDA error {err}")
     LAUNCHES += 1
+    return tuple(out)
+
+
+def per_bucket(n_outputs: int, bijlist, binv, buckets, share: int, like,
+               pass_fn):
+    """The bucketed structure of mdbench_tpu's exact-list forces: per
+    bucket of `buckets` (sizes, caps), pass_fn(lists, n_rows, r0, r1) on
+    its lists bijlist[off:off+n_k, :c_k] and its rows [r0, r1) of the
+    permuted order, n_rows = r1 - r0 (zeros, in `like`'s dtype, for a
+    cap-0 bucket); the buckets' rows concatenated, then gathered back
+    through binv. Returns n_outputs (n_clusters_pad, 8) tensors."""
+    sizes, caps = buckets
+    parts = []
+    off = 0
+    for n_k, c_k in zip(sizes, caps):
+        r0, r1 = off * share, (off + n_k) * share
+        if c_k == 0:
+            z = torch.zeros((r1 - r0, 8), dtype=like.dtype, device=like.device)
+            parts.append((z,) * n_outputs)
+        else:
+            parts.append(tuple(pass_fn(bijlist[off : off + n_k, :c_k], r1 - r0,
+                                       r0, r1)))
+        off += n_k
+    inv = binv.long()
+    return tuple(torch.cat(fs)[inv] for fs in zip(*parts))
+
+
+def lj_cluster_force_buckets_ref(
+    xc, yc, zc,  # (C_total, 8) coordinate planes
+    bijlist,  # (total_units, icap) int j16 ids in nji order (bucket maps)
+    bcrows,  # (total_units*share,) int cluster rows of each position
+    binv,  # (n_clusters_pad,) int position row of each cluster row
+    n_clusters_pad: int,
+    buckets,  # (sizes, caps): units per bucket, in order, and their caps
+    cutforcesq: float, sigma6: float, epsilon: float,
+    share: int = 2,
+):
+    """Plain torch bucketed force, the literal twin of mdbench_tpu's
+    `_force_buckets`: the i-side rows permuted through bcrows; per bucket,
+    the plain exact-list force of its units on bijlist[off:off+n_k, :c_k]
+    (a cap-0 bucket gives zeros); the buckets' rows concatenated, then
+    gathered back through binv. Returns (fx, fy, fz), each
+    (n_clusters_pad, 8)."""
+    if binv.shape != (n_clusters_pad,):
+        raise ValueError("binv must be (n_clusters_pad,)")
+    xi = [p[bcrows.long()] for p in (xc, yc, zc)]
+    return per_bucket(
+        3, bijlist, binv, buckets, share, xc,
+        lambda jl, n, r0, r1: lj_cluster_force_ilist_ref(
+            xc, yc, zc, jl, n, cutforcesq, sigma6, epsilon, share,
+            xi=tuple(p[r0:r1] for p in xi)))
+
+
+@functools.lru_cache(maxsize=64)
+def bucket_table(buckets) -> tuple:
+    """(ends, caps) of a plan (sizes, caps) as the kernels take them:
+    read-only int32 host arrays of each bucket's end position and cap,
+    kept alive by the cache while a launch reads them. Raises ValueError
+    for a plan the kernels do not take."""
+    sizes, caps = (tuple(int(v) for v in t) for t in buckets)
+    if not 1 <= len(sizes) == len(caps) <= MAX_BUCKETS:
+        raise ValueError(f"a bucket plan has 1 to {MAX_BUCKETS} buckets, sizes "
+                         "and caps alike")
+    if min(sizes) < 0 or min(caps) < 0:
+        raise ValueError("bucket sizes and caps must be non-negative")
+    ends = np.cumsum(np.asarray(sizes, np.int64)).astype(np.int32)
+    caps = np.asarray(caps, np.int32)
+    for a in (ends, caps):  # cached and shared: read-only
+        a.setflags(write=False)
+    return ends, caps
+
+
+def _check_bucket_args(xc, yc, zc, bijlist, bcrows, binv, nji, n_clusters_pad,
+                       buckets, share) -> tuple:
+    """The checks of the bucketed kernels' wrappers before a launch;
+    returns bucket_table(buckets)."""
+    _check_planes(xc, yc, zc, bijlist, bcrows, binv, nji)
+    if share not in (1, 2, 4):
+        raise ValueError(f"share must be 1, 2 or 4, got {share}")
+    if any(t.dtype != torch.int32 for t in (bijlist, bcrows, binv, nji)):
+        raise TypeError("bijlist, bcrows, binv and nji must be int32")
+    if not all(t.is_contiguous() for t in (bijlist, bcrows, nji)):
+        raise ValueError("bijlist, bcrows and nji must be contiguous")
+    ends, caps = bucket_table(tuple(map(tuple, buckets)))
+    n_rows = bijlist.shape[0] if bijlist.dim() == 2 else -1
+    if n_rows != int(ends[-1]) or bcrows.shape != (n_rows * share,):
+        raise ValueError("bijlist must be (sum(sizes), icap) and bcrows "
+                         "(sum(sizes) * share,)")
+    if nji.dim() != 1 or nji.shape[0] * share != n_clusters_pad:
+        raise ValueError("nji must be (n_units,) with n_units * share == n_clusters_pad")
+    if binv.shape != (n_clusters_pad,) or n_clusters_pad > xc.shape[0]:
+        raise ValueError("binv must be (n_clusters_pad,), n_clusters_pad <= C_total")
+    return ends, caps
+
+
+def lj_cluster_force_buckets(
+    xc, yc, zc,  # (C_total, 8) coordinate planes
+    bijlist,  # (total_units, icap) int32 j16 ids in nji order
+    bcrows,  # (total_units*share,) int32 cluster rows of each position
+    binv,  # (n_clusters_pad,) int32 position row of each cluster row
+    nji,  # (n_units,) int32 list lengths, in unit order
+    n_clusters_pad: int,
+    buckets,  # (sizes, caps)
+    cutforcesq: float, sigma6: float, epsilon: float,
+    share: int = 2,
+):
+    """Capacity-bucketed exact-list LJ force (K1b), (fx, fy, fz) each
+    (n_clusters_pad, 8), from the bucket maps of ops/cluster.py.
+
+    CPU tensors take the plain twin `lj_cluster_force_buckets_ref`. CUDA
+    tensors launch the bucketed form of the exact-list kernel once on the
+    current stream, after the operands are checked; a launch error
+    raises. The kernel writes each unit's rows straight from its position
+    (binv is not read there): bcrows must hold every unit's rows once, as
+    bucket_maps_core builds it. A unit reads min(nji, its bucket's cap)
+    entries of its list."""
+    global BUCKET_LAUNCHES
+    if xc.device.type == "cpu":
+        return lj_cluster_force_buckets_ref(
+            xc, yc, zc, bijlist, bcrows, binv, n_clusters_pad, buckets,
+            cutforcesq, sigma6, epsilon, share)
+    if xc.device.type != "cuda":
+        raise ValueError(f"no force kernel for device {xc.device}")
+    ends, caps = _check_bucket_args(xc, yc, zc, bijlist, bcrows, binv, nji,
+                                    n_clusters_pad, buckets, share)
+    lib = _build.load()
+    f32 = xc.dtype == torch.float32
+    fn = lib.lj_cluster_ilist_buckets_f32 if f32 else lib.lj_cluster_ilist_buckets_f64
+    out = [torch.empty((n_clusters_pad, 8), dtype=xc.dtype, device=xc.device)
+           for _ in range(3)]
+    with torch.cuda.device(xc.device):
+        err = fn(
+            xc.data_ptr(), yc.data_ptr(), zc.data_ptr(), bijlist.data_ptr(),
+            bcrows.data_ptr(), nji.data_ptr(), *(o.data_ptr() for o in out),
+            bijlist.shape[0], bijlist.shape[1], nji.shape[0], share, len(ends),
+            ends.ctypes.data, caps.ctypes.data, float(cutforcesq), float(sigma6),
+            float(epsilon), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"lj_cluster_ilist_buckets launch failed: CUDA error {err}")
+    BUCKET_LAUNCHES += 1
     return tuple(out)
 
 

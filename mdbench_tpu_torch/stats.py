@@ -59,6 +59,7 @@ def compute_cluster_stats(
     cutforcesq: float,
     cutneighsq: float,
     chunk: int = 16,
+    buckets=None,  # the engine's capacity buckets (sizes, caps), if planned
 ) -> dict:
     """Exact cluster-scheme counters (reference clusterpair/stats.c:26-85):
     processed cluster pairs, real atom-pair interactions and clusters
@@ -68,10 +69,12 @@ def compute_cluster_stats(
     time. Returns Python integers: pairs_within_cutforce,
     pairs_within_cutneigh, clusters_within_cutoff, clusters_processed,
     tiles (8-row x 128-atom pair blocks) and padded_pairs (tiles * 1024:
-    the pairs the group-window kernel evaluates)."""
+    the pairs the group-window kernel evaluates; on the exact-list path
+    the capacity's pairs, per bucket with `buckets`)."""
     if pairs.ijlist is not None:
         return _compute_ilist_stats(
-            clusters, pairs, n_clusters_pad, cutforcesq, cutneighsq)
+            clusters, pairs, n_clusters_pad, cutforcesq, cutneighsq,
+            buckets=buckets)
     ng, L = pairs.jlist.shape
     dev = clusters.xc.device
     gm = group * 8
@@ -115,14 +118,15 @@ def compute_cluster_stats(
 
 def _compute_ilist_stats(
     clusters, pairs, n_clusters_pad: int,
-    cutforcesq: float, cutneighsq: float, chunk: int = 256,
+    cutforcesq: float, cutneighsq: float, chunk: int = 256, buckets=None,
 ) -> dict:
-    """Exact counters of the exact-list path, flat capacity: the kernel
-    processes every (i-unit row, listed j16) pair, so the counts come
-    from ijlist/nji directly (reference clusterpair/stats.c:26-85 at
-    unit granularity). padded_pairs is n_units * share*8 * icap*16; the
-    bucketed accounting of mdbench_tpu comes with the capacity buckets
-    (ROADMAP 1a)."""
+    """Exact counters of the exact-list path: the kernel processes every
+    (i-unit row, listed j16) pair, so the counts come from ijlist/nji
+    directly (reference clusterpair/stats.c:26-85 at unit granularity).
+    padded_pairs is the capacity's pair count, as mdbench_tpu counts it:
+    n_units * share*8 * icap*16 flat, and the sum over buckets of
+    n_k * share*8 * c_k*16 when `buckets` is given and the lists carry
+    the bucket maps."""
     ijl = pairs.ijlist.long()
     nji = pairs.nji.long()
     nu, icap = ijl.shape
@@ -143,7 +147,10 @@ def _compute_ilist_stats(
         pf += int(in_force.sum())
         pn += int((live & nonself & (rsq < cutneighsq)).sum())
         ci += int(in_force.reshape(c, su, icap, 16).any(3).any(1).sum())
-    padded = nu * su * icap * 16
+    if buckets is not None and pairs.bijlist is not None:
+        padded = sum(n_k * su * c_k * 16 for n_k, c_k in zip(*buckets))
+    else:
+        padded = nu * su * icap * 16
     return dict(
         pairs_within_cutforce=pf,
         pairs_within_cutneigh=pn,

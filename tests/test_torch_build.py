@@ -72,3 +72,17 @@ def test_build_raises_with_the_compiler_output(fake_toolkit):
         _build.build()
     assert not _build.library_path().exists()
     assert not list(_build.BUILD_DIR.glob("*.o"))
+
+
+def test_headers_are_hashed_not_compiled(fake_toolkit):
+    """csrc/*.cuh are headers the sources include: an edited header is
+    another library, and a build compiles the sources alone."""
+    src, calls = fake_toolkit
+    (src / "a.cu").write_text('#include "h.cuh"\n')
+    (src / "h.cuh").write_text("// h\n")
+    lib = _build.library_path()
+    (src / "h.cuh").write_text("// h, edited\n")
+    assert _build.library_path() != lib
+    _build.build()
+    compiles, link = calls.read_text().splitlines()
+    assert compiles.endswith("a.cu") and "-shared" in link

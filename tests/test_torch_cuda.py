@@ -1,7 +1,8 @@
 """The force kernels (the exact-list LJ kernel csrc/lj_cluster_ilist.cu,
 the two EAM passes of csrc/eam_cluster.cu and the group-window LJ kernel
-csrc/lj_cluster_stream.cu, the LJ kernels untyped and typed) against
-their plain torch versions, on a CUDA card. This file imports no jax, so
+csrc/lj_cluster_stream.cu, the LJ kernels untyped and typed, the
+exact-list kernels flat and over capacity buckets) against their plain
+torch versions, on a CUDA card. This file imports no jax, so
 it runs on a machine that has torch and a card but no jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -19,7 +20,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import LJ_COUNTS, random_group_lists, random_tables, write_standin_funcfl
+from chip_smoke import (
+    LJ_COUNTS,
+    hand_plan,
+    random_group_lists,
+    random_tables,
+    write_standin_funcfl,
+)
 from mdbench_tpu_torch.config import FF_EAM, Params
 from mdbench_tpu_torch.convert import clusters_from_numpy, pairs_from_numpy
 from mdbench_tpu_torch.engine_cluster import ClusterSimulation
@@ -29,6 +36,7 @@ from mdbench_tpu_torch.models.eam_tables import (
     load_eam,
 )
 from mdbench_tpu_torch.models.lattice import create_fcc_lattice
+from mdbench_tpu_torch.ops.cluster import attach_bucket_maps
 from mdbench_tpu_torch.ops import eam_cluster as tec
 from mdbench_tpu_torch.ops import lj_cluster as tlj
 from mdbench_tpu_torch.state import SENTINEL_COORD
@@ -169,7 +177,8 @@ def test_cuda_eam_kernels_match_plain(cuda, eam_file, share, tdtype):
     f_k = tec.eam_force_ilist(c.xc, c.yc, c.zc, fp, pr.ijlist, pr.nji, *args,
                               share=share)
     torch.cuda.synchronize()
-    assert tec.LAUNCHES == {k: n + 1 for k, n in before.items()}
+    flat = ("eam_rho_ilist", "eam_force_ilist")
+    assert tec.LAUNCHES == {k: n + (k in flat) for k, n in before.items()}
     rho_r = tec.eam_rho_ilist_ref(c.xc, c.yc, c.zc, pr.ijlist, *args, share=share)
     f_r = tec.eam_force_ilist_ref(c.xc, c.yc, c.zc, fp, pr.ijlist, *args,
                                   share=share)
@@ -357,3 +366,138 @@ def test_cuda_typed_engine_matches_cpu(cuda, extra):
         assert grew[typed] >= 1
     f_cpu = ClusterSimulation(p, device="cpu", **kw).first_force_atoms()
     assert np.abs(f_gpu - f_cpu).max() <= 1e-10 * np.abs(f_cpu).max()
+
+
+def _bucket_case(share, nu, tdtype, device, trunc=False, seed=None):
+    """synthetic_case's planes and lists on `device` with hand_plan's
+    capacity buckets (zero tier, dummy units; with `trunc` a tier whose
+    cap is below its longest list) and their maps."""
+    cl, pairs, npad, share = synthetic_case(seed=share if seed is None else seed,
+                                            nu=nu, share=share)
+    c = clusters_from_numpy(cl, device, tdtype)
+    plan = hand_plan(pairs["nji"], pairs["ijlist"].shape[1], trunc=trunc)
+    pr = attach_bucket_maps(pairs_from_numpy(pairs, device), npad, share,
+                            c.xc.shape[0], *plan)
+    assert bool(pr.iovf) == trunc
+    return c, pr, npad, share, plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trunc", [False, True])
+@pytest.mark.parametrize("share,nu", [(1, 128), (2, 64), (4, 32)])
+@pytest.mark.parametrize("tdtype", [torch.float32, torch.float64])
+def test_cuda_bucket_kernel_matches_plain(cuda, trunc, share, nu, tdtype):
+    """K1b against its plain bucketed twin; on untruncated buckets it is
+    K1 bit for bit (each unit sums the same list in the same order)."""
+    c, pr, npad, share, plan = _bucket_case(share, nu, tdtype, cuda, trunc)
+    args = (c.xc, c.yc, c.zc, pr.bijlist, pr.bcrows, pr.binv, pr.nji, npad, plan,
+            CUT2, SIG6, EPS)
+    before = {n: getattr(tlj, n) for n in LJ_COUNTS}
+    f_k = tlj.lj_cluster_force_buckets(*args, share=share)
+    torch.cuda.synchronize()
+    grew = {n: getattr(tlj, n) - before[n] for n in LJ_COUNTS}
+    assert grew == {n: int(n == "BUCKET_LAUNCHES") for n in LJ_COUNTS}
+    f_r = tlj.lj_cluster_force_buckets_ref(*args[:6], *args[7:], share=share)
+    assert _rel(f_k, f_r) <= TOL[tdtype]
+    for f in f_k:  # the all-padding units
+        assert (f[8:12] == 0).all()
+    if not trunc:
+        f_flat = tlj.lj_cluster_force_ilist(c.xc, c.yc, c.zc, pr.ijlist, pr.nji,
+                                            npad, CUT2, SIG6, EPS, share=share)
+        assert all(torch.equal(a, b) for a, b in zip(f_k, f_flat))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trunc", [False, True])
+@pytest.mark.parametrize("share", [1, 2, 4])
+@pytest.mark.parametrize("tdtype", [torch.float32, torch.float64])
+def test_cuda_bucket_eam_kernels_match_plain(cuda, eam_file, trunc, share, tdtype):
+    """K2b and K3b against their plain bucketed twins; on untruncated
+    buckets they are K2 and K3 bit for bit."""
+    cl, pairs, _, fp, npad, share = synthetic_eam_case(seed=share, share=share)
+    c = clusters_from_numpy(cl, cuda, tdtype)
+    plan = hand_plan(pairs["nji"], pairs["ijlist"].shape[1], trunc=trunc)
+    pr = attach_bucket_maps(pairs_from_numpy(pairs, cuda), npad, share,
+                            c.xc.shape[0], *plan)
+    fp = torch.tensor(fp, dtype=tdtype, device=cuda)
+    poly = fit_eam_poly(load_eam(eam_file))
+    lists = (pr.bijlist, pr.bcrows, pr.binv)
+    args = (npad, poly.cut**2, poly)
+    before = dict(tec.LAUNCHES)
+    rho_k = tec.eam_rho_buckets(c.xc, c.yc, c.zc, *lists, pr.nji, *args, plan,
+                                share=share)
+    f_k = tec.eam_force_buckets(c.xc, c.yc, c.zc, fp, *lists, pr.nji, *args, plan,
+                                share=share)
+    torch.cuda.synchronize()
+    bucketed = ("eam_rho_buckets", "eam_force_buckets")
+    assert tec.LAUNCHES == {k: n + (k in bucketed) for k, n in before.items()}
+    rho_r = tec.eam_rho_buckets_ref(c.xc, c.yc, c.zc, *lists, *args, plan, share)
+    f_r = tec.eam_force_buckets_ref(c.xc, c.yc, c.zc, fp, *lists, *args, plan,
+                                    share)
+    assert float(rho_r.abs().max()) > 0 and float(f_r[0].abs().max()) > 0
+    assert _rel((rho_k,), (rho_r,)) <= TOL[tdtype]
+    assert _rel(f_k, f_r) <= TOL[tdtype]
+    for t in (rho_k, *f_k):
+        assert (t[8:12] == 0).all()
+    if not trunc:
+        flat = (c.xc, c.yc, c.zc, pr.ijlist, pr.nji, *args)
+        assert torch.equal(rho_k, tec.eam_rho_ilist(*flat, share=share))
+        f_flat = tec.eam_force_ilist(c.xc, c.yc, c.zc, fp, pr.ijlist, pr.nji, *args,
+                                     share=share)
+        assert all(torch.equal(a, b) for a, b in zip(f_k, f_flat))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("force_field", ["lj", "eam"])
+def test_cuda_bucketed_engine_matches_cpu(cuda, eam_file, force_field):
+    """A jittered 6^3 DP box with a hand-set plan: the card's step-0
+    forces went through the bucketed kernels and equal the CPU's plain
+    bucketed path."""
+    kw = dict(nx=6, ny=6, nz=6, precision="dp", scheme="cluster")
+    if force_field == "eam":
+        kw.update(force_field=FF_EAM, eam_file=eam_file)
+    p = Params(**kw)
+    if force_field == "eam":
+        apply_eam_overrides(p, load_eam(eam_file))
+    x, v, _ = create_fcc_lattice(p)
+    x = x + np.random.default_rng(5).normal(0.0, 0.05, x.shape)
+
+    def forces(device):
+        sim = ClusterSimulation(Params(**kw), x=x, v=v, device=device)
+        sim.buckets = hand_plan(sim.initial_state().pairs.nji.cpu().numpy(), sim.icap)
+        return sim.first_force_atoms()
+
+    before = (tlj.BUCKET_LAUNCHES, dict(tec.LAUNCHES))
+    f_gpu = forces(cuda)
+    if force_field == "lj":
+        assert tlj.BUCKET_LAUNCHES > before[0]
+    else:
+        assert tec.LAUNCHES["eam_force_buckets"] > before[1]["eam_force_buckets"]
+    f_cpu = forces("cpu")
+    assert np.abs(f_gpu - f_cpu).max() <= 1e-10 * np.abs(f_cpu).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad,exc", [
+    (lambda a: {**a, "bijlist": a["bijlist"].long()}, TypeError),
+    (lambda a: {**a, "bcrows": a["bcrows"][:-1]}, ValueError),
+    (lambda a: {**a, "nji": a["nji"][:-1]}, ValueError),
+    (lambda a: {**a, "buckets": ((1,) * 33, (8,) * 33)}, ValueError),
+    (lambda a: {**a, "share": 3}, ValueError),
+    (lambda a: {**a, "binv": a["binv"].long()}, TypeError),
+])
+def test_cuda_bucket_wrappers_raise(cuda, bad, exc):
+    """The bucketed wrappers check their operands before a launch and
+    launch nothing when one is wrong."""
+    c, pr, npad, share, plan = _bucket_case(2, 64, torch.float32, cuda)
+    a = dict(xc=c.xc, yc=c.yc, zc=c.zc, bijlist=pr.bijlist, bcrows=pr.bcrows,
+             binv=pr.binv, nji=pr.nji, n_clusters_pad=npad, buckets=plan,
+             share=share)
+    b = bad(a)
+    before = tlj.BUCKET_LAUNCHES
+    with pytest.raises(exc):
+        tlj.lj_cluster_force_buckets(
+            b["xc"], b["yc"], b["zc"], b["bijlist"], b["bcrows"], b["binv"],
+            b["nji"], b["n_clusters_pad"], b["buckets"], CUT2, SIG6, EPS,
+            share=b["share"])
+    assert tlj.BUCKET_LAUNCHES == before
