@@ -19,7 +19,9 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      40-step temperature trace with both rebuild kinds, card against the
      CPU plain path;
   6. kernel at the main path's shapes: the run's final 131k planes and
-     lists, kernel against plain version (error, median times);
+     lists, kernel against plain version, exact and with the approximate
+     reciprocal that the main path takes (each within 1e-5 / 1e-12 of max
+     |f|; median times);
   7. EAM kernels: the two EAM passes (density, force) against their plain
      torch versions on the same random lists plus a random fp plane,
      float32 (<= 1e-5 of max |value|) and float64 (<= 1e-12), share 1,
@@ -82,8 +84,9 @@ Phases, each fatal (non-zero exit, no result line) on failure:
  19. K1t and K4t at the main path's shapes: phase 18's final SP states
      with their tables and phase 17's with the default ones (error
      against plain, against the untyped kernel with uniform tables;
-     median times beside the untyped kernel's on the same lists);
-     phases 12, 17 and 18 launch no K1b;
+     median times beside the untyped kernel's on the same lists); K1t
+     also with the approximate reciprocal, as phase 17 runs it, against
+     plain and timed on both states; phases 12, 17 and 18 launch no K1b;
  20. bucketed kernels: K1b, K2b and K3b against their plain bucketed
      twins on the random cases of phases 3 and 7 with hand-set plans (a
      zero tier, dummy units, and once a bucket whose cap is below its
@@ -98,16 +101,40 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      1e-9, both rebuild kinds), without and with the prune every 3 steps;
  22. K1b, K2b and K3b at the main paths' shapes: phases 4's and 8's final
      states beside K1, K2 and K3 on the same lists (bit-equal), error
-     against the plain twins, median times, bound, and the j16 slots the
-     blocks' tile loops run in unit order and in nji order;
+     against the plain twins (K1b also with approx_rcp, as the main path
+     runs it), median times, bound, and the j16 slots the blocks' tile
+     loops run in unit order and in nji order;
  23. measure_phases on phase 4's final state (FORCE and NEIGH ms), and
      run_chunked(10, 4) at 131k with a rebuild every 10 steps, whose
-     temperatures must equal run(ntimes=40)'s within rel 1e-6.
+     temperatures must equal run(ntimes=40)'s within rel 1e-6;
+ 24. the approximate reciprocal (Params.approx_rcp, which the main path
+     takes): K1, K1t and K1b with approx_rcp on the random cases of phases
+     3, 16 and 20, float32 within 1e-5 of max |f| of their plain twins
+     (which divide), K1b equal to K1 bit for bit on untruncated plans when
+     both take it; float64 bit-equal with the flag and without it;
+ 25. the bf16 probe (T2, probes/bf16.py): the bf16 kernel against its
+     plain twin on phase 3's random cases (share 1, 2, 4) and on phase 4's
+     final 131k flat lists, within BF16_TOL of max |f|; the probe's force
+     error against exact K1 and the device times (CUDA graph) of K1 exact,
+     K1 approximate and the bf16 kernel on those lists (the bf16 JSON
+     row's ms); the 131k/200 SP run with the bf16
+     force on flat lists (one run(), repeats 1, chain 1): the bf16 kernel
+     must cover every force evaluation, K1b and every other force kernel
+     must not launch, and the temperatures must be finite; the golden
+     gate's verdict is printed as the probe's finding (a FAIL is not
+     fatal);
+ 26. the row-fetch probe (T1, probes/dma.py): the four variants (cp.async
+     or TMA bulk, per row or per 8-row block) equal index_select bit for
+     bit, at the tool's shapes and on short id lists that end inside a
+     stage; ns per row and ms on the device alone (replayed from a CUDA
+     graph: the JSON rows' ms and library_ms) and back to back from the
+     host, each beside index_select's, and the bound.
 
 Every kernel count is set to 0 just before each main path (phases 4, 8,
-12 and both runs of 17) and read just after it. Then it prints a JSON
-line of the kernels, nvidia-smi's line, and {"ok": true, "device": {...}}
-as the last line; the script's wall time goes to standard error.
+12, both runs of 17, and the probes' runs in 25 and 26) and read just
+after it. Then it prints a JSON line of the kernels, nvidia-smi's line,
+and {"ok": true, "device": {...}} as the last line; the script's wall
+time goes to standard error.
 
 A kernel's bound (bound_ms) is the least time the card could take for
 the work the main path's inputs need: the larger of its operations over
@@ -117,8 +144,16 @@ each output written once. An LJ pair costs 8 operations for the distance
 test and 15 more inside the cutoff (the divide counted as one); an EAM
 pair 8, and inside the cutoff 6 + 2d (density) or 10 + 4d (force) for
 Horner polynomials of degree d. The pairs are those the kernel evaluates
-on these lists (stats.compute_cluster_stats). No single PyTorch call
-computes any of these functions, so library_ms is null.
+on these lists (stats.compute_cluster_stats). The bf16 kernel evaluates
+every listed pair without a branch: per pair 9 float32 operations
+(subtracts, cutoff test, reciprocal, sums) and 16 bfloat16 ones, the latter
+over 134 TFLOP/s (two per packed bf16x2 instruction at the float32 rate).
+A row fetch moves bytes only. No single PyTorch call computes a force
+kernel's function, so their library_ms is null; a row fetch's is
+index_select's, which is also its plain version. The rows of K1, K1t and
+K1b give the error and time of the form the main path launches, with the
+approximate reciprocal (Params.approx_rcp), and the exact form's time as
+exact_ms.
 """
 
 from __future__ import annotations
@@ -177,6 +212,14 @@ BUCKET_KERNELS = {
         "replaces": "mdbench_tpu/ops/pallas/eam_cluster.py:86",
     },
 }
+BF16_KERNEL = {
+    "name": "lj_cluster_ilist_bf16",
+    "route": "cuda",
+    "source": "mdbench_tpu_torch/csrc/lj_cluster_ilist.cu",
+    "replaces": "tools/r3_bf16.py:39",
+}
+# the row-fetch variants: per row (tools/r4_dma.py k1) and per 8-row block (k8)
+ROW_FETCH_REPLACES = {1: "tools/r4_dma.py:62", 8: "tools/r4_dma.py:91"}
 EAM_KERNELS = {
     "eam_rho_ilist": {
         "name": "eam_rho_ilist",
@@ -197,14 +240,22 @@ AB_REPEATS = 3  # phase 21: timed regions per run, each of one chained run
 EAM_SP_TOL = {20: 2e-3, 40: 1e-2, 60: 3e-2}
 # the LJ wrappers' launch counts
 LJ_COUNTS = ("LAUNCHES", "TYPED_LAUNCHES", "STREAM_LAUNCHES", "STREAM_TYPED_LAUNCHES",
-             "BUCKET_LAUNCHES")
+             "BUCKET_LAUNCHES", "BF16_LAUNCHES")
 # the non-uniform two-type tables of phase 18 (tests/test_cluster.py:65-68)
 NONUNIFORM_TABLES = (np.array([[1.0, 0.7], [0.7, 1.3]]),
                      np.array([[1.0, 0.95], [0.95, 1.05]]) ** 6,
                      np.full((2, 2), 2.5**2))
-# H100 SXM (NVIDIA's data sheet): non-tensor peaks, and HBM3's rate
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# H100 SXM (NVIDIA's data sheet): non-tensor peaks (bfloat16: packed
+# bf16x2, two operations per float32 slot), and HBM3's rate
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 134e12}
 HBM_BYTES_PER_S = 3.35e12
+# the bf16 kernel against its plain twin, relative to max |f|. The card's
+# approximate reciprocal could round sr2 to the neighbouring bfloat16 value
+# where the twin's exact one does not, moving that pair's term by 2^-8; on
+# the H100 the two agreed to 6.4e-08 at 131k and 2.1e-10 on phase 3's
+# cases (float32 summation order only), so the limit leaves room for such
+# flips on weak pairs and none for a change in the order of operations
+BF16_TOL = 1e-4
 
 
 def write_standin_funcfl(path) -> None:
@@ -302,11 +353,17 @@ def ilist_pairs(cs: dict, share: int) -> int:
     return cs["clusters_processed"] * 16 * share * 8
 
 
-def kernel_row(meta, launches, err, ms, plain_ms, bound) -> dict:
-    """A kernel's entry of the JSON line."""
-    return {**meta, "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": None}
+def kernel_row(meta, launches, err, ms, plain_ms, bound, library_ms=None,
+               exact_ms=None) -> dict:
+    """A kernel's entry of the JSON line. The exact-list kernels that the
+    main path runs with approx_rcp give that form's error and time, and
+    their exact form's time as `exact_ms`."""
+    row = {**meta, "launches": launches, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+           "library_ms": library_ms}
+    if exact_ms is not None:
+        row["exact_ms"] = exact_ms
+    return row
 
 
 def fail(msg: str):
@@ -329,23 +386,11 @@ def rel_err(torch, got, want):
 
 
 def median_ms(torch, fn, reps: int, batches: int = 5, warm: int = 3) -> float:
-    """Device time per call: CUDA events around `reps` back-to-back
-    calls (so the host's launch gaps hide behind queued work), median
-    over `batches`."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(batches):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    return float(np.median(times))
+    """Device time per call (probes.event_ms: CUDA events around `reps`
+    back-to-back calls, median over `batches`)."""
+    from mdbench_tpu_torch.probes import event_ms
+
+    return event_ms(fn, reps, batches, warm)
 
 
 def random_case(torch, seed, share, dtype, device, cjn=512, icap=24,
@@ -803,7 +848,7 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
     import tempfile
 
     from mdbench_tpu_torch import _build
-    from mdbench_tpu_torch.bench import load_check_golden, run_bench_file
+    from mdbench_tpu_torch.bench import root_bench, run_bench_file
     from mdbench_tpu_torch.config import Params
     from mdbench_tpu_torch.engine_cluster import GROUP, ClusterSimulation
     from mdbench_tpu_torch.models.lattice import create_fcc_lattice
@@ -877,7 +922,7 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
             print(f"uniform tables {str(dtype)[6:]} T {ntypes}: K1t vs K1 rel "
                   f"{rel_u:.3e}, K4t vs K4 rel {rel_u4:.3e}", flush=True)
 
-    check_golden = load_check_golden()
+    check_golden = root_bench().check_golden
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         path = f"{tmp}/lj_two_types_131k.dmp"
@@ -1003,9 +1048,8 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
         for dtype in (torch.float32, torch.float64):
             planes = [q.to(dtype) for q in (cl.xc, cl.yc, cl.zc)]
             typed = dict(tc=cl.tc, tables=tables_on(NONUNIFORM_TABLES, dtype))
-            out = run(planes, **typed)
-            err, rel = check(f"{meta['name']} at 131k", out, plain(planes, **typed),
-                             dtype)
+            out, want = run(planes, **typed), plain(planes, **typed)
+            err, rel = check(f"{meta['name']} at 131k", out, want, dtype)
             ms = median_ms(torch, lambda: run(planes, **typed), 50)
             ms_untyped = median_ms(torch, lambda: run(planes), 50)
             plain_ms = median_ms(torch, lambda: plain(planes, **typed), 5)
@@ -1013,12 +1057,22 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
                              nbytes_of(*planes, *lists, cl.tc, *typed["tables"], *out),
                              dtype)
             res[dtype] = (err, ms, plain_ms, bound)
+            approx = ""
+            if kernel == "auto":
+                # K1t as the main path runs it, with approx_rcp: the JSON row's
+                # error and time, the exact time beside them
+                err_a, rel_a = check(f"{meta['name']} with approx_rcp at 131k",
+                                     run(planes, approx_rcp=True, **typed), want, dtype)
+                ms_a = median_ms(torch, lambda: run(planes, approx_rcp=True, **typed), 50)
+                res[dtype] = (err_a, ms_a, plain_ms, bound, ms)
+                approx = (f"; with approx_rcp max abs err {err_a:.3e}, rel {rel_a:.3e}, "
+                          f"median {ms_a:.4f} ms")
             print(f"{meta['name']} at 131k ({str(dtype)[6:]}, phase 18's final state, "
                   f"{evaluated} pairs evaluated, {inside} inside the cutoff): max abs "
                   f"err {err:.3e}, rel {rel:.3e} (tol {tol_of(torch, dtype):.0e}); "
                   f"median kernel {ms:.4f} ms, untyped kernel on the same lists "
                   f"{ms_untyped:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{bound[0]:.4f} ms ({bound[1]}) on {smi}", flush=True)
+                  f"{bound[0]:.4f} ms ({bound[1]}){approx} on {smi}", flush=True)
         # phase 17's final state with the default (uniform) tables
         sim, st = states[kernel]
         cl, pr = st.clusters, st.pairs
@@ -1026,15 +1080,26 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
         npad = sim.n_clusters_pad
         planes = [cl.xc, cl.yc, cl.zc]
         typed = dict(tc=cl.tc, tables=sim.tables)
-        out = run(planes, **typed)
-        err, rel = check(f"{meta['name']} at 131k (uniform)", out,
-                         plain(planes, **typed), torch.float32)
+        out, want = run(planes, **typed), plain(planes, **typed)
+        err, rel = check(f"{meta['name']} at 131k (uniform)", out, want, torch.float32)
         _, rel_u = check(f"{meta['name']} with uniform tables against the untyped "
                          "kernel at 131k", out, run(planes), torch.float32)
+        approx = ""
+        if kernel == "auto":
+            # the lists and tables phase 17's K1t launches ran on, with approx_rcp
+            err_a, rel_a = check(f"{meta['name']} with approx_rcp at 131k (uniform)",
+                                 run(planes, approx_rcp=True, **typed), want,
+                                 torch.float32)
+            ms_e = median_ms(torch, lambda: run(planes, **typed), 50)
+            ms_a = median_ms(torch, lambda: run(planes, approx_rcp=True, **typed), 50)
+            approx = (f"; with approx_rcp max abs err {err_a:.3e}, rel {rel_a:.3e}; "
+                      f"median {ms_e:.4f} ms exact, {ms_a:.4f} ms with approx_rcp")
         print(f"{meta['name']} at 131k (float32, phase 17's final state, uniform "
               f"tables): max abs err {err:.3e}, rel {rel:.3e}; against the untyped "
-              f"kernel rel {rel_u:.3e} (tol 1e-05)", flush=True)
-        rows.append(kernel_row(meta, counts[kernel], *res[torch.float32]))
+              f"kernel rel {rel_u:.3e} (tol 1e-05){approx}", flush=True)
+        row = res[torch.float32]
+        rows.append(kernel_row(meta, counts[kernel], *row[:4],
+                               exact_ms=row[4] if len(row) > 4 else None))
     return rows
 
 
@@ -1065,18 +1130,6 @@ def slot_sums(torch, pairs, share: int, icap: int, buckets, per: int = 0) -> tup
         return int(n.reshape(-1, upb).amax(1).sum()) * upb
 
     return blocks(n_flat), blocks(n_sorted), int(n_flat.sum())
-
-
-def flat_simulation_class():
-    """ClusterSimulation that never plans capacity buckets: phase 21's
-    flat side, with no knob added to the package."""
-    from mdbench_tpu_torch.engine_cluster import ClusterSimulation
-
-    class FlatSimulation(ClusterSimulation):
-        def _plan_buckets(self, nji) -> bool:
-            return False
-
-    return FlatSimulation
 
 
 def run_bucket_kernel_phase(torch, dev, ec) -> None:
@@ -1154,9 +1207,9 @@ def run_bucket_phases(torch, dev, smi: str, ec, lj_main, eam_main) -> list:
     """Phases 20-23 (capacity buckets). `lj_main` is phase 4's (sim,
     final state, K1b launches), `eam_main` phase 8's (sim, final state,
     launches). Returns the K1b, K2b and K3b rows of the JSON line."""
-    from mdbench_tpu_torch.bench import load_check_golden
+    from mdbench_tpu_torch.bench import root_bench
     from mdbench_tpu_torch.config import Params
-    from mdbench_tpu_torch.engine_cluster import GROUP, ClusterSimulation
+    from mdbench_tpu_torch.engine_cluster import GROUP, ClusterSimulation, FlatSimulation
     from mdbench_tpu_torch.models.lattice import create_fcc_lattice
     from mdbench_tpu_torch.ops import lj_cluster as lj
     from mdbench_tpu_torch.ops.eam import EamDevice
@@ -1166,13 +1219,13 @@ def run_bucket_phases(torch, dev, smi: str, ec, lj_main, eam_main) -> list:
     run_bucket_kernel_phase(torch, dev, ec)
 
     # 21. the 131k LJ run, flat against bucketed, alternating
-    check_golden = load_check_golden()
-    flat_cls = flat_simulation_class()
+    check_golden = root_bench().check_golden
     totals = {"flat": [], "bucketed": []}
     for side in ("flat", "bucketed", "bucketed", "flat") * 2:
         params = Params(precision="sp", scheme="cluster", dense_thermo=False)
         before = lj.BUCKET_LAUNCHES
-        sim = (flat_cls if side == "flat" else ClusterSimulation)(params, device=dev)
+        sim = (FlatSimulation if side == "flat" else ClusterSimulation)(params,
+                                                                          device=dev)
         out = sim.run(repeats=AB_REPEATS, chain=1)
         check_golden(out.temps, params.reneigh_every)
         if (sim.buckets is None) != (side == "flat") or (
@@ -1248,23 +1301,34 @@ def run_bucket_phases(torch, dev, smi: str, ec, lj_main, eam_main) -> list:
             return lj.lj_cluster_force_buckets_ref(*planes, *maps, npad, buckets, *cut,
                                                    share=share)
 
-        out = kern()
-        err, rel = rel_err(torch, out, plain())
+        def kern_approx():
+            return lj.lj_cluster_force_buckets(*planes, *maps, pr.nji, npad, buckets,
+                                               *cut, share=share, approx_rcp=True)
+
+        out, want = kern(), plain()
+        err, rel = rel_err(torch, out, want)
+        err_a, rel_a = rel_err(torch, kern_approx(), want)
         same = all(torch.equal(a, b) for a, b in zip(out, flat()))
         ms, ms_flat = median_ms(torch, kern, 50), median_ms(torch, flat, 50)
+        ms_approx = median_ms(torch, kern_approx, 50)
         plain_ms = median_ms(torch, plain, 5)
         bound = bound_of(lj_ops(evaluated, inside),
                          nbytes_of(*planes, *maps[:2], pr.nji, *out), dtype)
-        res[dtype] = (err, ms, plain_ms, bound)
+        # the main path's form (approx_rcp) for the JSON row, the exact time beside
+        res[dtype] = (err_a, ms_approx, plain_ms, bound, ms)
         print(f"K1b at 131k ({str(dtype)[6:]}): max abs err {err:.3e}, rel {rel:.3e} "
-              f"(tol {tol_of(torch, dtype):.0e}); equal to K1: {same}; median K1b "
-              f"{ms:.4f} ms, K1 on the same lists {ms_flat:.4f} ms (K1b / K1 "
+              f"(tol {tol_of(torch, dtype):.0e}); equal to K1: {same}; with "
+              f"approx_rcp (the main path's form) max abs err {err_a:.3e}, rel "
+              f"{rel_a:.3e}; median K1b {ms:.4f} ms exact, {ms_approx:.4f} ms with "
+              f"approx_rcp, K1 on the same lists {ms_flat:.4f} ms (K1b / K1 "
               f"{ms / ms_flat:.4f}), plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
               f"({bound[1]}) on {smi}", flush=True)
         if not rel <= tol_of(torch, dtype) or not same:
             fail(f"K1b at 131k disagrees with its plain twin or with K1 ({dtype})")
+        if not rel_a <= tol_of(torch, dtype):
+            fail(f"K1b with approx_rcp disagrees with its plain twin at 131k ({dtype})")
     rows.append(kernel_row(BUCKET_KERNELS["lj_cluster_ilist_buckets"], b_launches,
-                           *res[torch.float32]))
+                           *res[torch.float32][:4], exact_ms=res[torch.float32][4]))
 
     sim_e, st_e, launches_e = eam_main
     cl, pr = st_e.clusters, st_e.pairs
@@ -1350,6 +1414,175 @@ def run_bucket_phases(torch, dev, smi: str, ec, lj_main, eam_main) -> list:
     if steps != [0, 10, 20, 30, 40] or not rel <= 1e-6 or n < 40:
         fail("run_chunked at 131k departs from run()")
     return rows
+
+
+def run_approx_phase(torch, dev) -> None:
+    """Phase 24: K1, K1t and K1b with approx_rcp on the random cases of
+    phases 3, 16 and 20."""
+    from mdbench_tpu_torch.ops import lj_cluster as lj
+    from mdbench_tpu_torch.ops.cluster import bucket_maps_core
+
+    for dtype in (torch.float32, torch.float64):
+        tol = tol_of(torch, dtype)
+        for share in (1, 2, 4):
+            args = (2.5**2, 1.0, 1.0)
+            # phase 3's case: K1, and K1b on phase 20's hand-set plans
+            xc, yc, zc, ijl, nji, npad = random_case(torch, share, share, dtype, dev)
+            cases = {"K1": (
+                lambda a: lj.lj_cluster_force_ilist(xc, yc, zc, ijl, nji, npad, *args,
+                                                    share=share, approx_rcp=a),
+                lj.lj_cluster_force_ilist_ref(xc, yc, zc, ijl, npad, *args,
+                                              share=share))}
+            for trunc in (False, True):
+                plan = hand_plan(nji.cpu().numpy(), ijl.shape[1], trunc=trunc)
+                maps = bucket_maps_core(ijl, nji, npad, share, xc.shape[0], *plan)[:3]
+                cases[f"K1b trunc {trunc}"] = (
+                    lambda a, maps=maps, plan=plan: lj.lj_cluster_force_buckets(
+                        xc, yc, zc, *maps, nji, npad, plan, *args, share=share,
+                        approx_rcp=a),
+                    lj.lj_cluster_force_buckets_ref(xc, yc, zc, *maps, npad, plan,
+                                                    *args, share=share))
+            # phase 16's case: K1t with two random types
+            txc, tyc, tzc, tijl, tnji, tnpad = random_case(torch, 20 + share, share,
+                                                           dtype, dev)
+            tc = torch.tensor(np.random.default_rng(30 + share).integers(
+                0, 2, tuple(txc.shape)), dtype=torch.int32, device=dev)
+            tabs = tuple(torch.tensor(t, dtype=dtype, device=dev)
+                         for t in random_tables(2 + share, 2))
+            cases["K1t"] = (
+                lambda a: lj.lj_cluster_force_ilist(txc, tyc, tzc, tijl, tnji, tnpad,
+                                                    *args, share=share, tc=tc,
+                                                    tables=tabs, approx_rcp=a),
+                lj.lj_cluster_force_ilist_ref(txc, tyc, tzc, tijl, tnpad, *args,
+                                              share=share, tc=tc, tables=tabs))
+            got = {name: (run(True), run(False)) for name, (run, _) in cases.items()}
+            torch.cuda.synchronize()
+            for name, (approx, exact) in got.items():
+                err, rel = rel_err(torch, approx, cases[name][1])
+                same = all(torch.equal(a, b) for a, b in zip(approx, exact))
+                print(f"{name} approx_rcp {str(dtype)[6:]} share {share}: max abs err "
+                      f"{err:.3e}, rel {rel:.3e} (tol {tol:.0e}); equal to the exact "
+                      f"kernel: {same}", flush=True)
+                if not rel <= tol:
+                    fail(f"{name} with approx_rcp disagrees with its plain twin ({dtype})")
+                if dtype == torch.float64 and not same:
+                    fail(f"{name} in float64 changed with approx_rcp")
+            if not all(torch.equal(a, b) for a, b in
+                       zip(got["K1b trunc False"][0], got["K1"][0])):
+                fail(f"K1b with approx_rcp is not K1 with it bit for bit ({dtype})")
+
+
+def run_bf16_phase(torch, dev, smi: str, ec, lj_main) -> dict:
+    """Phase 25: the bf16 probe (T2). `lj_main` is phase 4's (sim, final
+    state, K1b launches). Returns the bf16 kernel's JSON row."""
+    from mdbench_tpu_torch.engine_cluster import GROUP
+    from mdbench_tpu_torch.ops import lj_cluster as lj
+    from mdbench_tpu_torch.probes import bf16 as probe
+    from mdbench_tpu_torch.stats import compute_cluster_stats
+
+    for share in (1, 2, 4):
+        xc, yc, zc, ijl, nji, npad = random_case(torch, share, share, torch.float32,
+                                                 dev)
+        args = (npad, 2.5**2, 1.0, 1.0)
+        got = lj.lj_cluster_force_ilist_bf16(xc, yc, zc, ijl, nji, *args, share=share)
+        torch.cuda.synchronize()
+        err, rel = rel_err(torch, got, lj.lj_cluster_force_ilist_bf16_ref(
+            xc, yc, zc, ijl, *args, share=share))
+        print(f"bf16 kernel random share {share}: max abs err {err:.3e}, rel "
+              f"{rel:.3e} (tol {BF16_TOL:.0e})", flush=True)
+        if not rel <= BF16_TOL or any(bool((f[8:12] != 0).any()) for f in got):
+            fail(f"the bf16 kernel disagrees with its plain twin (share {share})")
+
+    sim, st, _ = lj_main
+    cl, pr, p = st.clusters, st.pairs, sim.params
+    npad, share = sim.n_clusters_pad, sim.ishare
+    planes = (cl.xc, cl.yc, cl.zc)
+    cut = (p.cutforce**2, p.sigma6, p.epsilon)
+
+    def kern():
+        return lj.lj_cluster_force_ilist_bf16(*planes, pr.ijlist, pr.nji, npad, *cut,
+                                              share=share)
+
+    def plain():
+        return lj.lj_cluster_force_ilist_bf16_ref(*planes, pr.ijlist, npad, *cut,
+                                                  share=share)
+
+    out = kern()
+    err, rel = rel_err(torch, out, plain())
+    plain_ms = median_ms(torch, plain, 5)
+    mx, mean = probe.force_error(sim, st)
+    t = probe.kernel_times(sim, st)
+    cs = compute_cluster_stats(cl, pr, npad, GROUP, p.cutforce**2, p.cutneigh**2)
+    pairs = ilist_pairs(cs, share)
+    t_ops = 9 * pairs / PEAK_FLOPS["float32"] + 16 * pairs / PEAK_FLOPS["bfloat16"]
+    t_mem = nbytes_of(*planes, pr.ijlist, pr.nji, *out) / HBM_BYTES_PER_S
+    bound = (max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem else "bytes")
+    print(f"bf16 kernel at 131k (phase 4's final flat lists, {pairs} pairs): max abs "
+          f"err {err:.3e}, rel {rel:.3e} (tol {BF16_TOL:.0e}) against its plain twin")
+    print(f"bf16 force err: max/typ {mx:.3e}  mean/typ {mean:.3e} (against exact K1)")
+    print(f"force K1 exact: {t['k1_exact']:.4f} ms   K1 approx-rcp: "
+          f"{t['k1_approx']:.4f} ms   bf16: {t['bf16']:.4f} ms (bf16 / exact "
+          f"{t['bf16'] / t['k1_exact']:.4f}, approx / exact "
+          f"{t['k1_approx'] / t['k1_exact']:.4f}); bf16 plain {plain_ms:.4f} ms, "
+          f"bound {bound[0]:.4f} ms ({bound[1]}) on {smi}", flush=True)
+    if not rel <= BF16_TOL:
+        fail("the bf16 kernel disagrees with its plain twin at 131k")
+
+    # the probe's golden run: the bf16 force on flat lists
+    reset_counts(lj, ec)
+    gsim, gout, _passed, verdict = probe.golden_run(dev)
+    torch.cuda.synchronize()
+    launches = lj.BF16_LAUNCHES
+    others = {name: getattr(lj, name) for name in LJ_COUNTS if name != "BF16_LAUNCHES"}
+    need = 2 * (gsim.params.ntimes + 1)  # the checked run and the timed one
+    for line in probe.golden_lines(gsim, gout, verdict):
+        print(line)
+    print(f"bf16 golden run: buckets {gsim.buckets}, grows {gsim.grows or 'none'}; "
+          f"bf16 launches {launches} (>= {need} force evaluations); other LJ "
+          f"kernels {others}; EAM {dict(ec.LAUNCHES)}; the gate's verdict is the "
+          f"probe's finding", flush=True)
+    if launches < need:
+        fail(f"the bf16 run launched the bf16 kernel {launches} times, fewer than "
+             f"its {need} force evaluations")
+    if gsim.buckets is not None or any(others.values()) or any(ec.LAUNCHES.values()):
+        fail("the bf16 run planned buckets or launched another force kernel")
+    if not np.isfinite(gout.temps).all():
+        fail("the bf16 run's temperatures are not finite")
+    return kernel_row(BF16_KERNEL, launches, err, t["bf16"], plain_ms, bound)
+
+
+def run_fetch_phase(torch, dev, smi: str) -> list:
+    """Phase 26: the row-fetch probe (T1). Returns the four variants' JSON
+    rows."""
+    from mdbench_tpu_torch.ops import row_fetch as rf
+    from mdbench_tpu_torch.probes import dma
+
+    table, idx, idx8 = dma.make_inputs(dev)
+    for mode in rf.MODES:  # id lists that end inside a stage
+        for rows_per_id, ids in ((1, idx[:37]), (8, idx8[:5])):
+            got = rf.row_fetch(table, ids, rows_per_id, mode)
+            if not torch.equal(got, rf.row_fetch_ref(table, ids, rows_per_id)):
+                fail(f"{rf.variant(mode, rows_per_id)} on {ids.numel()} ids differs "
+                     "from index_select")
+    equal = dma.equal_to_index_select(table, idx, idx8)
+    if not all(equal.values()):
+        fail(f"a row-fetch variant differs from index_select: {equal}")
+    for name in rf.LAUNCHES:
+        rf.LAUNCHES[name] = 0
+    rows = dma.measure(table, idx, idx8)
+    torch.cuda.synchronize()
+    for line in dma.report(rows, equal, smi):
+        print(line)
+    out = []
+    for r in rows:
+        meta = {"name": r["name"], "route": "cuda",
+                "source": "mdbench_tpu_torch/csrc/row_fetch.cu",
+                "replaces": ROW_FETCH_REPLACES[r["rows_per_id"]]}
+        out.append(kernel_row(meta, rf.LAUNCHES[r["name"]], 0.0, r["ms"],
+                              r["library_ms"], (r["bound_ms"], "bytes"),
+                              library_ms=r["library_ms"]))
+    print(f"row fetch launches {dict(rf.LAUNCHES)}", flush=True)
+    return out
 
 
 def main() -> int:
@@ -1483,21 +1716,33 @@ def main() -> int:
             return lj.lj_cluster_force_ilist_ref(
                 *planes, pr.ijlist, npad, *cut, share=sim.ishare)
 
-        out = kern()
-        err, rel = rel_err(torch, out, plain())
+        def kern_approx():
+            return lj.lj_cluster_force_ilist(
+                *planes, pr.ijlist, pr.nji, npad, *cut, share=sim.ishare,
+                approx_rcp=True)
+
+        out, want = kern(), plain()
+        err, rel = rel_err(torch, out, want)
+        err_a, rel_a = rel_err(torch, kern_approx(), want)
         ms = median_ms(torch, kern, 50)
+        ms_approx = median_ms(torch, kern_approx, 50)
         plain_ms = median_ms(torch, plain, 5)
         bound = bound_of(lj_ops(evaluated, inside),
                          nbytes_of(*planes, pr.ijlist, pr.nji, *out), dtype)
-        res[dtype] = (err, ms, plain_ms, bound)
+        # the main path's form (approx_rcp) for the JSON row, the exact time beside
+        res[dtype] = (err_a, ms_approx, plain_ms, bound, ms)
         padded = npad * 8 * pr.ijlist.shape[1] * 16
         print(f"kernel at 131k ({str(dtype)[6:]}, {pr.ijlist.shape[0]} units x icap "
               f"{pr.ijlist.shape[1]}, share {sim.ishare}, {padded} padded pairs = "
               f"{padded / (ms * 1e-3):.4e} pairs/s, {evaluated} evaluated, {inside} "
               f"inside the cutoff): max abs err {err:.3e}, rel {rel:.3e} (tol "
-              f"{tol_of(torch, dtype):.0e}); median kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) on {smi}",
-              flush=True)
+              f"{tol_of(torch, dtype):.0e}); median kernel {ms:.4f} ms exact, "
+              f"{ms_approx:.4f} ms with approx_rcp (approx / exact "
+              f"{ms_approx / ms:.4f}, max abs err {err_a:.3e}, rel {rel_a:.3e}), "
+              f"plain {plain_ms:.4f} ms, "
+              f"bound {bound[0]:.4f} ms ({bound[1]}) on {smi}", flush=True)
+        if not rel_a <= tol_of(torch, dtype):
+            fail(f"K1 with approx_rcp disagrees with its plain version at 131k ({dtype})")
         if not rel <= tol_of(torch, dtype):
             fail(f"kernel disagrees with its plain version at 131k ({dtype})")
 
@@ -1514,9 +1759,18 @@ def main() -> int:
     bucket_rows = run_bucket_phases(torch, dev, smi, ec, (sim, st, b_launches),
                                     eam_main)
 
+    # 24. the approximate reciprocal in K1, K1t and K1b
+    run_approx_phase(torch, dev)
+
+    # 25. the bf16 probe (T2); 26. the row-fetch probe (T1)
+    bf16_row = run_bf16_phase(torch, dev, smi, ec, (sim, st, b_launches))
+    fetch_rows = run_fetch_phase(torch, dev, smi)
+
     print(json.dumps({"kernels": [
-        kernel_row(KERNEL, launches, *res[torch.float32]), *eam_rows, stream_row,
-        *typed_rows, *bucket_rows,
+        kernel_row(KERNEL, launches, *res[torch.float32][:4],
+                   exact_ms=res[torch.float32][4]),
+        *eam_rows, stream_row,
+        *typed_rows, *bucket_rows, bf16_row, *fetch_rows,
     ]}))
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(smi)

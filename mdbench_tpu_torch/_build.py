@@ -33,10 +33,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> (argtypes, restype)
 _SIGNATURES = {
+    # (xc, yc, zc, ijlist, nji, fx, fy, fz, n_units, icap, share,
+    #  cutforcesq, sigma6, epsilon, approx_rcp, stream)
     "lj_cluster_ilist_f32": (
-        [_P] * 8 + [_I] * 3 + [ctypes.c_float] * 3 + [_P], ctypes.c_int),
+        [_P] * 8 + [_I] * 3 + [ctypes.c_float] * 3 + [_I, _P], ctypes.c_int),
     "lj_cluster_ilist_f64": (
-        [_P] * 8 + [_I] * 3 + [ctypes.c_double] * 3 + [_P], ctypes.c_int),
+        [_P] * 8 + [_I] * 3 + [ctypes.c_double] * 3 + [_I, _P], ctypes.c_int),
     # (xc, yc, zc, jlist, ranges, fx, fy, fz, ng, L, cutforcesq, sigma6,
     #  epsilon, stream)
     "lj_cluster_stream_f32": (
@@ -44,10 +46,10 @@ _SIGNATURES = {
     "lj_cluster_stream_f64": (
         [_P] * 8 + [_I] * 2 + [ctypes.c_double] * 3 + [_P], ctypes.c_int),
     # typed forms: (xc, yc, zc, tc, ijlist, nji, eps, sig6, cutsq, fx, fy,
-    #  fz, n_units, icap, share, ntypes, stream) and (xc, yc, zc, tc, jlist,
-    #  ranges, eps, sig6, cutsq, fx, fy, fz, ng, L, ntypes, stream)
-    "lj_cluster_ilist_typed_f32": ([_P] * 12 + [_I] * 4 + [_P], ctypes.c_int),
-    "lj_cluster_ilist_typed_f64": ([_P] * 12 + [_I] * 4 + [_P], ctypes.c_int),
+    #  fz, n_units, icap, share, ntypes, approx_rcp, stream) and (xc, yc, zc,
+    #  tc, jlist, ranges, eps, sig6, cutsq, fx, fy, fz, ng, L, ntypes, stream)
+    "lj_cluster_ilist_typed_f32": ([_P] * 12 + [_I] * 5 + [_P], ctypes.c_int),
+    "lj_cluster_ilist_typed_f64": ([_P] * 12 + [_I] * 5 + [_P], ctypes.c_int),
     "lj_cluster_stream_typed_f32": ([_P] * 12 + [_I] * 3 + [_P], ctypes.c_int),
     "lj_cluster_stream_typed_f64": ([_P] * 12 + [_I] * 3 + [_P], ctypes.c_int),
     # (xc, yc, zc, ijlist, nji, rho, n_units, icap, share, coefs, stream)
@@ -59,11 +61,13 @@ _SIGNATURES = {
     "eam_force_ilist_f64": ([_P] * 9 + [_I] * 3 + [_P] * 2, ctypes.c_int),
     # bucketed forms: (xc, yc, zc, bijlist, bcrows, nji, fx, fy, fz, n_rows,
     #  icap, n_units, share, nbuckets, ends, caps, cutforcesq, sigma6,
-    #  epsilon, stream)
+    #  epsilon, approx_rcp, stream)
     "lj_cluster_ilist_buckets_f32": (
-        [_P] * 9 + [_I] * 5 + [_P] * 2 + [ctypes.c_float] * 3 + [_P], ctypes.c_int),
+        [_P] * 9 + [_I] * 5 + [_P] * 2 + [ctypes.c_float] * 3 + [_I, _P],
+        ctypes.c_int),
     "lj_cluster_ilist_buckets_f64": (
-        [_P] * 9 + [_I] * 5 + [_P] * 2 + [ctypes.c_double] * 3 + [_P], ctypes.c_int),
+        [_P] * 9 + [_I] * 5 + [_P] * 2 + [ctypes.c_double] * 3 + [_I, _P],
+        ctypes.c_int),
     # (xc, yc, zc, bijlist, bcrows, nji, rho, n_rows, icap, n_units, share,
     #  nbuckets, ends, caps, coefs, stream)
     "eam_rho_buckets_f32": ([_P] * 7 + [_I] * 5 + [_P] * 4, ctypes.c_int),
@@ -72,6 +76,14 @@ _SIGNATURES = {
     #  n_units, share, nbuckets, ends, caps, coefs, stream)
     "eam_force_buckets_f32": ([_P] * 10 + [_I] * 5 + [_P] * 4, ctypes.c_int),
     "eam_force_buckets_f64": ([_P] * 10 + [_I] * 5 + [_P] * 4, ctypes.c_int),
+    # the bf16 probe (T2): (xc, yc, zc, ijlist, nji, fx, fy, fz, n_units,
+    #  icap, share, cutforcesq, sigma6 and 48*epsilon rounded to bfloat16,
+    #  stream)
+    "lj_cluster_ilist_bf16": (
+        [_P] * 8 + [_I] * 3 + [ctypes.c_float] * 3 + [_P], ctypes.c_int),
+    # the row-fetch probe (T1): (table, ids, out, n_ids, n_table_rows,
+    #  rows_per_id, mode, stream)
+    "row_fetch_f32": ([_P] * 3 + [_I] * 4 + [_P], ctypes.c_int),
 }
 
 _lib = None  # the loaded library, once per process

@@ -30,14 +30,14 @@ import sys
 from pathlib import Path
 
 
-def load_check_golden():
-    """check_golden from the repository's root bench.py (loaded by path;
-    that module imports nothing of jax at module level)."""
+def root_bench():
+    """The repository's root bench.py, loaded by path (that module imports
+    nothing of jax at module level): check_golden and GOLDEN_TEMP_131K."""
     path = Path(__file__).resolve().parent.parent / "bench.py"
     spec = importlib.util.spec_from_file_location("_mdbench_root_bench", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.check_golden
+    return mod
 
 
 def run_bench(repeats: int = 3, chain: int = 3, kernel: str = "auto"):
@@ -48,7 +48,7 @@ def run_bench(repeats: int = 3, chain: int = 3, kernel: str = "auto"):
     from mdbench_tpu_torch.config import Params
     from mdbench_tpu_torch.engine_cluster import ClusterSimulation
 
-    check_golden = load_check_golden()
+    check_golden = root_bench().check_golden
     params = Params(precision="sp", scheme="cluster", kernel=kernel,
                     dense_thermo=False)
     sim = ClusterSimulation(params, device="cuda")

@@ -116,8 +116,10 @@ class Params:
     timers: str = "est"
     # i-clusters sharing one exact list: 0 = auto (2)
     ishare: int = 0
-    # approximate reciprocal in the TPU force kernel. Accepted and has
-    # NO effect in the port: the CUDA kernel always divides (IEEE)
+    # approximate reciprocal (one Newton step) in the exact-list force
+    # kernels K1, K1t and K1b, float32 on the card only, as in
+    # mdbench_tpu; the group-window kernels, float64 and the plain
+    # versions always divide
     approx_rcp: bool = True
     # EAM per-pair evaluation ("auto" | "spline" | "poly"); the port's
     # cluster EAM evaluates polynomials ("auto" or "poly") and refuses

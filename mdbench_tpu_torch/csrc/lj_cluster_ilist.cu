@@ -39,7 +39,7 @@
 // The TPU kernel's T^2 trace-time selects per tile are not needed; T is a
 // runtime value up to 32 (24 KB of tables in float64).
 //
-// What bounds it on the card: the pair arithmetic (one divide and ~20
+// What bounds it on the card: the pair arithmetic (one reciprocal and ~20
 // flops per pair, over nji*16 pairs per i-atom), not memory — each
 // staged coordinate is reused by share*8 threads; the typed form adds the
 // table reads (one per pair, three inside the cutoff). The tile loop runs
@@ -74,10 +74,42 @@
 // mask (inf * 0 = NaN). rsq is computed with explicitly rounded
 // operations, in the plain version's order, so the kernel keeps exactly
 // the plain version's pair set even where the compiler would contract
-// it into fused multiply-adds. The reciprocal is an IEEE divide.
+// it into fused multiply-adds. The reciprocal is an IEEE divide, or, in
+// float32 when the caller asks for it (Params.approx_rcp, as the TPU
+// kernel's approx_rcp), rcp.approx.ftz.f32 and one Newton step,
+// r (2 - rsq r): the counterpart of pl.reciprocal(approx=True) and its
+// step. Float64 ignores the flag, as the TPU kernel does. Only pairs
+// inside the cutoff reach the reciprocal.
+//
+// The bf16 form (T2, the probe of tools/r3_bf16.py: force_bf16 -> _kernel,
+// the TPU kernel that runs K1's pair tile in bfloat16) is a third form of
+// the pair math in the same kernel: untyped, flat lists, float32 planes,
+// the TPU kernel's order of operations (r3_bf16.py:59-88), one rounding
+// per operation:
+//   dx, dy, dz   subtracted in float32, rounded to bfloat16
+//   rsq          (dx*dx + dy*dy) + dz*dz in bfloat16
+//   mask         0 < rsq < cutforcesq, on rsq's float32 value
+//   sr2          the approximate float32 reciprocal (rcp.approx, the
+//                counterpart of pl.reciprocal(approx=True); no Newton
+//                step) of rsq, or of 1 outside the mask, rounded to bf16
+//   sr6          ((sr2*sr2)*sr2)*sigma6 in bfloat16
+//   gf           ((48eps*sr6)*(sr6 - 1/2))*sr2 in bfloat16, 0 outside the
+//                mask (selected, never multiplied by a 0/1 mask)
+//   f_i          sum of float32(d*gf) (the product in bfloat16) in float32,
+//                in list order
+// sigma6 and 48*eps arrive already rounded to bfloat16 (the wrapper rounds
+// them as the TPU kernel's b(sigma6), b(48 eps) do). Each thread takes two
+// staged j atoms at a time as one __nv_bfloat162 lane pair, so every
+// bfloat16 operation above is one packed instruction for two pairs; the
+// _rn intrinsics keep each product and sum apart (no fused multiply-adds
+// the TPU kernel does not have). A unit's staged atom count is a multiple
+// of 16, so the lane pairs never straddle a unit.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "unit_map.cuh"
 
@@ -98,6 +130,62 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
+// the pair math: an IEEE divide, the approximate reciprocal with one
+// Newton step (float32 only), or the bf16 form (float32, untyped)
+enum class PairMath { kIeee, kRcpNewton, kBf16x2 };
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// 1/x from the approximate reciprocal and one Newton step (float32 only)
+__device__ __forceinline__ float rcp_newton(float x) {
+  const float r = rcp_approx(x);
+  return __fmul_rn(r, __fmaf_rn(-x, r, 2.0f));
+}
+
+// the bf16 form's two pairs: this thread's i-atom against staged atoms e
+// and e+1; sig6_bf and eps48_bf are sigma6 and 48 eps rounded to bfloat16
+__device__ __forceinline__ void bf16_pairs(const float* sx, const float* sy,
+                                           const float* sz, int e, float xi,
+                                           float yi, float zi, float cutforcesq,
+                                           float sig6_bf, float eps48_bf,
+                                           float& ax, float& ay, float& az) {
+  const __nv_bfloat162 sig6 = __float2bfloat162_rn(sig6_bf);
+  const __nv_bfloat162 e48 = __float2bfloat162_rn(eps48_bf);
+  const __nv_bfloat162 half = __float2bfloat162_rn(0.5f);
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+  const float2 xj = *reinterpret_cast<const float2*>(sx + e);
+  const float2 yj = *reinterpret_cast<const float2*>(sy + e);
+  const float2 zj = *reinterpret_cast<const float2*>(sz + e);
+  const __nv_bfloat162 dx = __floats2bfloat162_rn(xi - xj.x, xi - xj.y);
+  const __nv_bfloat162 dy = __floats2bfloat162_rn(yi - yj.x, yi - yj.y);
+  const __nv_bfloat162 dz = __floats2bfloat162_rn(zi - zj.x, zi - zj.y);
+  const __nv_bfloat162 rsq = __hadd2_rn(
+      __hadd2_rn(__hmul2_rn(dx, dx), __hmul2_rn(dy, dy)), __hmul2_rn(dz, dz));
+  const float2 rs = __bfloat1622float2(rsq);
+  const bool in0 = rs.x < cutforcesq && rs.x > 0.0f;
+  const bool in1 = rs.y < cutforcesq && rs.y > 0.0f;
+  const __nv_bfloat162 sr2 = __floats2bfloat162_rn(rcp_approx(in0 ? rs.x : 1.0f),
+                                                   rcp_approx(in1 ? rs.y : 1.0f));
+  const __nv_bfloat162 sr6 = __hmul2_rn(__hmul2_rn(__hmul2_rn(sr2, sr2), sr2), sig6);
+  const __nv_bfloat162 g = __hmul2_rn(
+      __hmul2_rn(__hmul2_rn(e48, sr6), __hsub2_rn(sr6, half)), sr2);
+  const __nv_bfloat162 gf = __halves2bfloat162(in0 ? __low2bfloat16(g) : zero,
+                                               in1 ? __high2bfloat16(g) : zero);
+  const float2 px = __bfloat1622float2(__hmul2_rn(dx, gf));
+  const float2 py = __bfloat1622float2(__hmul2_rn(dy, gf));
+  const float2 pz = __bfloat1622float2(__hmul2_rn(dz, gf));
+  ax += px.x;
+  ax += px.y;
+  ay += py.x;
+  ay += py.y;
+  az += pz.x;
+  az += pz.y;
+}
 
 // A staged j atom of the typed form: x, y, z and the type's bits, moved
 // to and from shared memory as 16-byte vectors.
@@ -124,7 +212,7 @@ template <> struct Packed<double> {
   }
 };
 
-template <typename T, bool kTyped>
+template <typename T, bool kTyped, PairMath kMath>
 __global__ void __launch_bounds__(kThreads)
 lj_cluster_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
                         const T* __restrict__ zc,
@@ -205,34 +293,46 @@ lj_cluster_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
       }
     }
     __syncthreads();
-    for (int e = 0; e < m; ++e) {
-      T xj, yj, zj;
-      int tj = 0;
-      if constexpr (kTyped) {
-        sp[e].get(xj, yj, zj, tj);
-      } else {
-        xj = sx[e];
-        yj = sy[e];
-        zj = sz[e];
-      }
-      const T dx = xi - xj;
-      const T dy = yi - yj;
-      const T dz = zi - zj;
-      const T rsq = add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)), mul_rn(dz, dz));
-      T cut = cutforcesq;
-      if constexpr (kTyped) cut = cutsq_i[tj];
-      if (rsq < cut && rsq > T(0)) {
-        T s6 = sigma6, ep = epsilon;
+    if constexpr (kMath == PairMath::kBf16x2) {
+      static_assert(std::is_same_v<T, float> && !kTyped, "bf16: float32, untyped");
+      // the bf16 form: epsilon holds 48 eps, both it and sigma6 in bf16
+      for (int e = 0; e < m; e += 2)
+        bf16_pairs(sx, sy, sz, e, xi, yi, zi, cutforcesq, sigma6, epsilon, ax, ay, az);
+    } else {
+      for (int e = 0; e < m; ++e) {
+        T xj, yj, zj;
+        int tj = 0;
         if constexpr (kTyped) {
-          s6 = sig6_i[tj];
-          ep = eps_i[tj];
+          sp[e].get(xj, yj, zj, tj);
+        } else {
+          xj = sx[e];
+          yj = sy[e];
+          zj = sz[e];
         }
-        const T sr2 = T(1) / rsq;
-        const T sr6 = sr2 * sr2 * sr2 * s6;
-        const T gf = T(48) * ep * sr6 * (sr6 - T(0.5)) * sr2;
-        ax += dx * gf;
-        ay += dy * gf;
-        az += dz * gf;
+        const T dx = xi - xj;
+        const T dy = yi - yj;
+        const T dz = zi - zj;
+        const T rsq = add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)), mul_rn(dz, dz));
+        T cut = cutforcesq;
+        if constexpr (kTyped) cut = cutsq_i[tj];
+        if (rsq < cut && rsq > T(0)) {
+          T s6 = sigma6, ep = epsilon;
+          if constexpr (kTyped) {
+            s6 = sig6_i[tj];
+            ep = eps_i[tj];
+          }
+          T sr2;
+          if constexpr (kMath == PairMath::kRcpNewton) {
+            sr2 = rcp_newton(rsq);
+          } else {
+            sr2 = T(1) / rsq;
+          }
+          const T sr6 = sr2 * sr2 * sr2 * s6;
+          const T gf = T(48) * ep * sr6 * (sr6 - T(0.5)) * sr2;
+          ax += dx * gf;
+          ay += dy * gf;
+          az += dz * gf;
+        }
       }
     }
     __syncthreads();
@@ -249,7 +349,8 @@ int launch(const T* xc, const T* yc, const T* zc, const int32_t* tc,
            const int32_t* ijlist, const int32_t* nji, const int32_t* bcrows,
            const T* eps_t, const T* sig6_t, const T* cutsq_t, T* fx, T* fy,
            T* fz, int n_rows, int n_units, int icap, int share, int ntypes,
-           const Buckets& bk, T cutforcesq, T sigma6, T epsilon, void* stream) {
+           const Buckets& bk, T cutforcesq, T sigma6, T epsilon, PairMath math,
+           void* stream) {
   if (share != 1 && share != 2 && share != 4) return cudaErrorInvalidValue;
   if (n_rows <= 0 || n_units <= 0 || icap <= 0) return cudaErrorInvalidValue;
   if (kTyped && (ntypes < 1 || ntypes > kMaxTypes)) return cudaErrorInvalidValue;
@@ -260,7 +361,15 @@ int launch(const T* xc, const T* yc, const T* zc, const int32_t* tc,
   if (tile_j < 1) tile_j = 1;
   const size_t tables = kTyped ? 3 * sizeof(T) * ntypes * ntypes : 0;
   const size_t smem = tables + static_cast<size_t>(upb) * tile_j * kJ16 * per_atom;
-  auto* kernel = lj_cluster_ilist_kernel<T, kTyped>;
+  auto* kernel = lj_cluster_ilist_kernel<T, kTyped, PairMath::kIeee>;
+  if constexpr (std::is_same_v<T, float>) {  // float64 ignores approx_rcp
+    if (math == PairMath::kRcpNewton)
+      kernel = lj_cluster_ilist_kernel<T, kTyped, PairMath::kRcpNewton>;
+    if constexpr (!kTyped) {
+      if (math == PairMath::kBf16x2)
+        kernel = lj_cluster_ilist_kernel<T, kTyped, PairMath::kBf16x2>;
+    }
+  }
   if (smem > kDefaultSmem) {  // beyond the default limit: opt in
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -280,11 +389,12 @@ int launch_flat(const T* xc, const T* yc, const T* zc, const int32_t* tc,
                 const int32_t* ijlist, const int32_t* nji, const T* eps_t,
                 const T* sig6_t, const T* cutsq_t, T* fx, T* fy, T* fz,
                 int n_units, int icap, int share, int ntypes, T cutforcesq,
-                T sigma6, T epsilon, void* stream) {
+                T sigma6, T epsilon, PairMath math, void* stream) {
   const Buckets flat{};  // n = 0: no map
   return launch<T, kTyped>(xc, yc, zc, tc, ijlist, nji, nullptr, eps_t, sig6_t,
                            cutsq_t, fx, fy, fz, n_units, n_units, icap, share,
-                           ntypes, flat, cutforcesq, sigma6, epsilon, stream);
+                           ntypes, flat, cutforcesq, sigma6, epsilon, math,
+                           stream);
 }
 
 // the bucketed form (untyped): nbuckets position ranges ending at ends[k]
@@ -294,26 +404,35 @@ int launch_buckets(const T* xc, const T* yc, const T* zc, const int32_t* bijlist
                    const int32_t* bcrows, const int32_t* nji, T* fx, T* fy,
                    T* fz, int n_rows, int icap, int n_units, int share,
                    int nbuckets, const int* ends, const int* caps, T cutforcesq,
-                   T sigma6, T epsilon, void* stream) {
+                   T sigma6, T epsilon, PairMath math, void* stream) {
   Buckets bk{};
   if (bcrows == nullptr || !unit_map::make_buckets(nbuckets, ends, caps, n_rows, bk))
     return cudaErrorInvalidValue;
   return launch<T, false>(xc, yc, zc, nullptr, bijlist, nji, bcrows, nullptr,
                           nullptr, nullptr, fx, fy, fz, n_rows, n_units, icap,
-                          share, 0, bk, cutforcesq, sigma6, epsilon, stream);
+                          share, 0, bk, cutforcesq, sigma6, epsilon, math,
+                          stream);
+}
+
+// approx_rcp of the entry points: non-zero takes the approximate reciprocal
+PairMath math_of(int approx_rcp) {
+  return approx_rcp ? PairMath::kRcpNewton : PairMath::kIeee;
 }
 
 }  // namespace
 
+// Every entry point takes approx_rcp (non-zero: the approximate reciprocal
+// with one Newton step) just before the stream; the float64 ones ignore it.
 extern "C" int lj_cluster_ilist_f32(const float* xc, const float* yc,
                                     const float* zc, const int32_t* ijlist,
                                     const int32_t* nji, float* fx, float* fy,
                                     float* fz, int n_units, int icap,
                                     int share, float cutforcesq, float sigma6,
-                                    float epsilon, void* stream) {
+                                    float epsilon, int approx_rcp, void* stream) {
   return launch_flat<float, false>(xc, yc, zc, nullptr, ijlist, nji, nullptr,
                                    nullptr, nullptr, fx, fy, fz, n_units, icap,
-                                   share, 0, cutforcesq, sigma6, epsilon, stream);
+                                   share, 0, cutforcesq, sigma6, epsilon,
+                                   math_of(approx_rcp), stream);
 }
 
 extern "C" int lj_cluster_ilist_f64(const double* xc, const double* yc,
@@ -322,10 +441,11 @@ extern "C" int lj_cluster_ilist_f64(const double* xc, const double* yc,
                                     double* fz, int n_units, int icap,
                                     int share, double cutforcesq,
                                     double sigma6, double epsilon,
-                                    void* stream) {
+                                    int approx_rcp, void* stream) {
   return launch_flat<double, false>(xc, yc, zc, nullptr, ijlist, nji, nullptr,
                                     nullptr, nullptr, fx, fy, fz, n_units, icap,
-                                    share, 0, cutforcesq, sigma6, epsilon, stream);
+                                    share, 0, cutforcesq, sigma6, epsilon,
+                                    math_of(approx_rcp), stream);
 }
 
 // the typed form: tables eps, sig6, cutsq are (ntypes, ntypes) on the card
@@ -333,33 +453,36 @@ extern "C" int lj_cluster_ilist_typed_f32(
     const float* xc, const float* yc, const float* zc, const int32_t* tc,
     const int32_t* ijlist, const int32_t* nji, const float* eps,
     const float* sig6, const float* cutsq, float* fx, float* fy, float* fz,
-    int n_units, int icap, int share, int ntypes, void* stream) {
+    int n_units, int icap, int share, int ntypes, int approx_rcp, void* stream) {
   return launch_flat<float, true>(xc, yc, zc, tc, ijlist, nji, eps, sig6, cutsq,
                                   fx, fy, fz, n_units, icap, share, ntypes, 0.0f,
-                                  0.0f, 0.0f, stream);
+                                  0.0f, 0.0f, math_of(approx_rcp), stream);
 }
 
 extern "C" int lj_cluster_ilist_typed_f64(
     const double* xc, const double* yc, const double* zc, const int32_t* tc,
     const int32_t* ijlist, const int32_t* nji, const double* eps,
     const double* sig6, const double* cutsq, double* fx, double* fy,
-    double* fz, int n_units, int icap, int share, int ntypes, void* stream) {
+    double* fz, int n_units, int icap, int share, int ntypes, int approx_rcp,
+    void* stream) {
   return launch_flat<double, true>(xc, yc, zc, tc, ijlist, nji, eps, sig6, cutsq,
                                    fx, fy, fz, n_units, icap, share, ntypes, 0.0,
-                                   0.0, 0.0, stream);
+                                   0.0, 0.0, math_of(approx_rcp), stream);
 }
 
 // the bucketed form (K1b): (xc, yc, zc, bijlist, bcrows, nji, fx, fy, fz,
 // n_rows, icap, n_units, share, nbuckets, ends, caps, cutforcesq, sigma6,
-// epsilon, stream); fx, fy, fz are (n_units*share, 8)
+// epsilon, approx_rcp, stream); fx, fy, fz are (n_units*share, 8)
 extern "C" int lj_cluster_ilist_buckets_f32(
     const float* xc, const float* yc, const float* zc, const int32_t* bijlist,
     const int32_t* bcrows, const int32_t* nji, float* fx, float* fy, float* fz,
     int n_rows, int icap, int n_units, int share, int nbuckets, const int* ends,
-    const int* caps, float cutforcesq, float sigma6, float epsilon, void* stream) {
+    const int* caps, float cutforcesq, float sigma6, float epsilon, int approx_rcp,
+    void* stream) {
   return launch_buckets<float>(xc, yc, zc, bijlist, bcrows, nji, fx, fy, fz,
                                n_rows, icap, n_units, share, nbuckets, ends, caps,
-                               cutforcesq, sigma6, epsilon, stream);
+                               cutforcesq, sigma6, epsilon, math_of(approx_rcp),
+                               stream);
 }
 
 extern "C" int lj_cluster_ilist_buckets_f64(
@@ -367,8 +490,23 @@ extern "C" int lj_cluster_ilist_buckets_f64(
     const int32_t* bcrows, const int32_t* nji, double* fx, double* fy, double* fz,
     int n_rows, int icap, int n_units, int share, int nbuckets, const int* ends,
     const int* caps, double cutforcesq, double sigma6, double epsilon,
-    void* stream) {
+    int approx_rcp, void* stream) {
   return launch_buckets<double>(xc, yc, zc, bijlist, bcrows, nji, fx, fy, fz,
                                 n_rows, icap, n_units, share, nbuckets, ends, caps,
-                                cutforcesq, sigma6, epsilon, stream);
+                                cutforcesq, sigma6, epsilon, math_of(approx_rcp),
+                               stream);
+}
+
+// the bf16 form (T2): (xc, yc, zc, ijlist, nji, fx, fy, fz, n_units, icap,
+// share, cutforcesq, sigma6 and 48*epsilon rounded to bfloat16, stream)
+extern "C" int lj_cluster_ilist_bf16(const float* xc, const float* yc,
+                                     const float* zc, const int32_t* ijlist,
+                                     const int32_t* nji, float* fx, float* fy,
+                                     float* fz, int n_units, int icap, int share,
+                                     float cutforcesq, float sigma6_bf,
+                                     float eps48_bf, void* stream) {
+  return launch_flat<float, false>(xc, yc, zc, nullptr, ijlist, nji, nullptr,
+                                   nullptr, nullptr, fx, fy, fz, n_units, icap,
+                                   share, 0, cutforcesq, sigma6_bf, eps48_bf,
+                                   PairMath::kBf16x2, stream);
 }

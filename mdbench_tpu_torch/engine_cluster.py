@@ -458,13 +458,15 @@ class ClusterSimulation:
             return lj_cluster_force_half_ref(*planes, pairs.jlist, npad, *lj,
                                              **typed)
         if self._kmode == "ilist_pl":
+            # the exact-list kernels take approx_rcp (mdbench_tpu
+            # engine_cluster.py:446/452/520); the group-window kernel does not
             if bucketed and clusters.tc is None:
                 return lj_cluster_force_buckets(
                     *planes, *bpairs, pairs.nji, npad, self.buckets, *lj,
-                    share=self.ishare)
+                    share=self.ishare, approx_rcp=p.approx_rcp)
             return lj_cluster_force_ilist(
                 *planes, pairs.ijlist, pairs.nji, npad, *lj, share=self.ishare,
-                **typed)
+                approx_rcp=p.approx_rcp, **typed)
         if self._kmode == "ilist":
             return lj_cluster_force_ilist_ref(
                 *planes, pairs.ijlist, npad, *lj, share=self.ishare, **typed)
@@ -886,3 +888,12 @@ class ClusterSimulation:
         m = aid >= 0
         out[aid[m]] = f[m]
         return out
+
+
+class FlatSimulation(ClusterSimulation):
+    """ClusterSimulation that never plans capacity buckets: every exact-list
+    force runs on the flat lists (the flat side of a flat-against-bucketed
+    comparison, and the bf16 probe's run)."""
+
+    def _plan_buckets(self, nji) -> bool:
+        return False

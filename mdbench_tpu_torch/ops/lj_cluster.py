@@ -16,6 +16,18 @@ Three kernel wrappers, each beside its plain torch version:
   ``csrc/lj_cluster_stream.cu`` (the port of ``_kernel_stream``), on a
   CPU tensor it runs `lj_cluster_force_group_ref` with the windows.
 
+The exact-list wrappers take `approx_rcp`, as mdbench_tpu's exact-list
+kernel does: in float32 on the card the kernel then takes the approximate
+reciprocal with one Newton step instead of a divide. Float64 and the plain
+versions ignore it, as the TPU kernel does in float64 and in interpret
+mode.
+
+`lj_cluster_force_ilist_bf16` is the probe of tools/r3_bf16.py: the flat
+untyped exact-list force with its pair math in bfloat16
+(the bf16 form of ``csrc/lj_cluster_ilist.cu`` on a CUDA tensor,
+`lj_cluster_force_ilist_bf16_ref` on a CPU tensor). No engine path runs
+it; ``mdbench_tpu_torch/probes/bf16.py`` measures it.
+
 Each force also takes a typed form (reference EXPLICIT_TYPES,
 clusterpair/atom.c:78-92): `tc`, the int32 (C_total, 8) type plane of
 the clusters, and `tables`, three (T, T) tensors (epsilon, sigma^6,
@@ -50,6 +62,8 @@ TYPED_LAUNCHES = 0
 STREAM_TYPED_LAUNCHES = 0
 # the same for lj_cluster_force_buckets (the bucketed exact-list form)
 BUCKET_LAUNCHES = 0
+# the same for lj_cluster_force_ilist_bf16 (the bf16 probe)
+BF16_LAUNCHES = 0
 
 GROUP = 16  # i-clusters per group list (the stream kernel's block)
 TILE_ATOMS = 128  # j atoms per window tile (8 j16)
@@ -191,6 +205,7 @@ def lj_cluster_force_ilist(
     share: int = 2,
     tc=None,  # (C_total, 8) int32 types, typed runs only
     tables=None,  # (eps, sig6, cutsq), each (T, T), typed runs only
+    approx_rcp: bool = False,
 ):
     """Exact-list LJ force, (fx, fy, fz) each (n_clusters_pad, 8).
 
@@ -199,7 +214,8 @@ def lj_cluster_force_ilist(
     typed instantiation when `tc` and `tables` are given: the operands
     are checked first and a launch error raises. Entries of a unit's list
     past nji[u] are not read on the card; the list must hold the sentinel
-    j16 id there, as derive_ilists writes it."""
+    j16 id there, as derive_ilists writes it. `approx_rcp` takes the
+    approximate reciprocal in float32 on the card (module docstring)."""
     global LAUNCHES, TYPED_LAUNCHES
     _check_typed_pair(tc, tables)
     if xc.device.type == "cpu":
@@ -222,7 +238,8 @@ def lj_cluster_force_ilist(
                 xc.data_ptr(), yc.data_ptr(), zc.data_ptr(), tc.data_ptr(),
                 ijlist.data_ptr(), nji.data_ptr(), *(t.data_ptr() for t in tabs),
                 *(o.data_ptr() for o in out), ijlist.shape[0], ijlist.shape[1],
-                share, nt, torch.cuda.current_stream().cuda_stream,
+                share, nt, int(bool(approx_rcp)),
+                torch.cuda.current_stream().cuda_stream,
             )
         if err != 0:
             raise RuntimeError(f"lj_cluster_ilist_typed launch failed: CUDA error {err}")
@@ -235,11 +252,104 @@ def lj_cluster_force_ilist(
             xc.data_ptr(), yc.data_ptr(), zc.data_ptr(), ijlist.data_ptr(),
             nji.data_ptr(), *(o.data_ptr() for o in out),
             ijlist.shape[0], ijlist.shape[1], share,
-            float(cutforcesq), float(sigma6), float(epsilon), stream,
+            float(cutforcesq), float(sigma6), float(epsilon),
+            int(bool(approx_rcp)), stream,
         )
     if err != 0:
         raise RuntimeError(f"lj_cluster_ilist launch failed: CUDA error {err}")
     LAUNCHES += 1
+    return tuple(out)
+
+
+def _bf16_scalar(v: float) -> torch.Tensor:
+    """v rounded to bfloat16, as a 0-dim bfloat16 tensor (the TPU probe's
+    b(v))."""
+    return torch.tensor(float(v), dtype=torch.float32).to(torch.bfloat16)
+
+
+def lj_cluster_force_ilist_bf16_ref(
+    xc, yc, zc,  # (C_total, 8) float32 coordinate planes
+    ijlist,  # (n_units, icap) int exact per-i-unit j16 ids
+    n_clusters_pad: int,
+    cutforcesq: float, sigma6: float, epsilon: float,
+    share: int = 2,
+):
+    """Plain torch version of the bf16 probe (tools/r3_bf16.py `_kernel`),
+    one rounding per operation, in its order: the distances subtracted in
+    float32 and rounded to bfloat16; rsq, sr6 and gf in bfloat16; the
+    cutoff mask on rsq's float32 value; sr2 the float32 reciprocal of rsq
+    (1 outside the mask) rounded to bfloat16, exact, as the TPU kernel's
+    approximate reciprocal is in interpret mode; the products d*gf in
+    bfloat16, summed in float32. Returns (fx, fy, fz), each
+    (n_clusters_pad, 8) float32."""
+    if xc.dtype != torch.float32:
+        raise TypeError(f"the bf16 force takes float32 planes, got {xc.dtype}")
+    nu, icap = ijlist.shape
+    if nu * share != n_clusters_pad:
+        raise ValueError("ijlist rows * share must equal n_clusters_pad")
+    bf = torch.bfloat16
+    cjn = xc.shape[0] // 2
+    jl = ijlist.long()
+
+    def delta(p):
+        pj = p.reshape(cjn, 16)[jl].reshape(nu, 1, icap * 16)
+        return (p[:n_clusters_pad].reshape(nu, share * 8, 1) - pj).to(bf)
+
+    dx, dy, dz = (delta(p) for p in (xc, yc, zc))
+    sig_b, e48 = _bf16_scalar(sigma6), _bf16_scalar(48.0 * epsilon)
+    half, zero = _bf16_scalar(0.5), _bf16_scalar(0.0)
+    rsq = dx * dx + dy * dy + dz * dz
+    rs32 = rsq.float()
+    mask = (rs32 < cutforcesq) & (rs32 > 0.0)
+    sr2 = (1.0 / torch.where(mask, rs32, 1.0)).to(bf)
+    sr6 = sr2 * sr2 * sr2 * sig_b
+    gf = torch.where(mask, e48 * sr6 * (sr6 - half) * sr2, zero)
+    return tuple(
+        (d * gf).float().sum(2).reshape(n_clusters_pad, 8) for d in (dx, dy, dz)
+    )
+
+
+def lj_cluster_force_ilist_bf16(
+    xc, yc, zc,  # (C_total, 8) float32 coordinate planes
+    ijlist,  # (n_units, icap) int32 exact per-i-unit j16 ids
+    nji,  # (n_units,) int32 list lengths
+    n_clusters_pad: int,
+    cutforcesq: float, sigma6: float, epsilon: float,
+    share: int = 2,
+):
+    """The exact-list LJ force with bfloat16 pair math (the T2 probe),
+    (fx, fy, fz) each (n_clusters_pad, 8) float32; untyped, flat lists.
+
+    CPU tensors take `lj_cluster_force_ilist_bf16_ref`. CUDA tensors
+    launch the bf16 form of ``csrc/lj_cluster_ilist.cu`` on the current
+    stream after the operands are checked (float32 planes only); a launch
+    error raises.
+    The kernel stops at nji, as K1 does, and takes the approximate float32
+    reciprocal, so it may round sr2 to another bfloat16 value than the
+    plain version's exact one."""
+    global BF16_LAUNCHES
+    if xc.device.type == "cpu":
+        return lj_cluster_force_ilist_bf16_ref(
+            xc, yc, zc, ijlist, n_clusters_pad, cutforcesq, sigma6, epsilon, share)
+    if xc.device.type != "cuda":
+        raise ValueError(f"no force kernel for device {xc.device}")
+    if xc.dtype != torch.float32:
+        raise TypeError(f"the bf16 force takes float32 planes, got {xc.dtype}")
+    _check_cuda_args(xc, yc, zc, ijlist, nji, n_clusters_pad, share)
+    lib = _build.load()
+    out = [torch.empty((n_clusters_pad, 8), dtype=xc.dtype, device=xc.device)
+           for _ in range(3)]
+    with torch.cuda.device(xc.device):
+        err = lib.lj_cluster_ilist_bf16(
+            xc.data_ptr(), yc.data_ptr(), zc.data_ptr(), ijlist.data_ptr(),
+            nji.data_ptr(), *(o.data_ptr() for o in out),
+            ijlist.shape[0], ijlist.shape[1], share, float(cutforcesq),
+            float(_bf16_scalar(sigma6)), float(_bf16_scalar(48.0 * epsilon)),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"lj_cluster_ilist_bf16 launch failed: CUDA error {err}")
+    BF16_LAUNCHES += 1
     return tuple(out)
 
 
@@ -345,6 +455,7 @@ def lj_cluster_force_buckets(
     buckets,  # (sizes, caps)
     cutforcesq: float, sigma6: float, epsilon: float,
     share: int = 2,
+    approx_rcp: bool = False,
 ):
     """Capacity-bucketed exact-list LJ force (K1b), (fx, fy, fz) each
     (n_clusters_pad, 8), from the bucket maps of ops/cluster.py.
@@ -355,7 +466,7 @@ def lj_cluster_force_buckets(
     raises. The kernel writes each unit's rows straight from its position
     (binv is not read there): bcrows must hold every unit's rows once, as
     bucket_maps_core builds it. A unit reads min(nji, its bucket's cap)
-    entries of its list."""
+    entries of its list. `approx_rcp` as in `lj_cluster_force_ilist`."""
     global BUCKET_LAUNCHES
     if xc.device.type == "cpu":
         return lj_cluster_force_buckets_ref(
@@ -376,7 +487,8 @@ def lj_cluster_force_buckets(
             bcrows.data_ptr(), nji.data_ptr(), *(o.data_ptr() for o in out),
             bijlist.shape[0], bijlist.shape[1], nji.shape[0], share, len(ends),
             ends.ctypes.data, caps.ctypes.data, float(cutforcesq), float(sigma6),
-            float(epsilon), torch.cuda.current_stream().cuda_stream,
+            float(epsilon), int(bool(approx_rcp)),
+            torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"lj_cluster_ilist_buckets launch failed: CUDA error {err}")

@@ -1,9 +1,12 @@
 """The kernel build of mdbench_tpu_torch/_build.py with a stand-in nvcc (a
 shell script): one compile per csrc/*.cu source, then one link of the
 objects into the library; the compilers' output kept beside the
-library; the objects removed; a failed compile raising with its output.
+library; the objects removed; a failed compile raising with its output;
+and the C entry points of csrc/*.cu against their ctypes signatures.
 The real nvcc runs only on a machine with the CUDA toolkit."""
 
+import ctypes
+import re
 import stat
 
 import pytest
@@ -49,7 +52,8 @@ def test_build_compiles_each_source_then_links(fake_toolkit):
     assert lib == _build.library_path() and lib.exists()
     lines = calls.read_text().splitlines()
     assert len(lines) == 3
-    compiles, link = lines[:2], lines[2]
+    # the compiles run in parallel and log in the order they finish
+    compiles, link = sorted(lines[:2], key=lambda line: line.split()[-1]), lines[2]
     for line, name in zip(compiles, ("a.cu", "b.cu")):
         assert " -c " in f" {line} " and line.endswith(name)
         assert "arch=compute_90a,code=sm_90a" in line
@@ -86,3 +90,28 @@ def test_headers_are_hashed_not_compiled(fake_toolkit):
     _build.build()
     compiles, link = calls.read_text().splitlines()
     assert compiles.endswith("a.cu") and "-shared" in link
+
+
+def _c_argtype(decl: str):
+    """The ctypes type of one C parameter declaration of an entry point."""
+    decl = decl.strip()
+    if "*" in decl:
+        return ctypes.c_void_p
+    kind = decl.split()[-2]
+    return {"int": ctypes.c_int, "float": ctypes.c_float,
+            "double": ctypes.c_double}[kind]
+
+
+def test_signatures_match_the_sources():
+    """Every extern "C" entry point of csrc/*.cu has its ctypes signature in
+    _build._SIGNATURES, argument by argument (a pointer, int, float or
+    double each), and every signature there names an entry point: a
+    mismatch would pass arguments the kernel reads as something else."""
+    found = {}
+    for src in _build.sources():
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            found[m.group(1)] = [_c_argtype(a) for a in m.group(2).split(",")]
+    assert {"lj_cluster_ilist_bf16", "row_fetch_f32"} <= set(found)
+    assert set(found) == set(_build._SIGNATURES)
+    for name, args in found.items():
+        assert _build._SIGNATURES[name] == (args, ctypes.c_int), name

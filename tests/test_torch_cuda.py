@@ -1,8 +1,10 @@
 """The force kernels (the exact-list LJ kernel csrc/lj_cluster_ilist.cu,
 the two EAM passes of csrc/eam_cluster.cu and the group-window LJ kernel
 csrc/lj_cluster_stream.cu, the LJ kernels untyped and typed, the
-exact-list kernels flat and over capacity buckets) against their plain
-torch versions, on a CUDA card. This file imports no jax, so
+exact-list kernels flat and over capacity buckets, exact and with the
+approximate reciprocal) and the probes' kernels (the bf16 form of
+csrc/lj_cluster_ilist.cu, the row fetch of csrc/row_fetch.cu)
+against their plain torch versions, on a CUDA card. This file imports no jax, so
 it runs on a machine that has torch and a card but no jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -21,6 +23,7 @@ import pytest
 import torch
 
 from chip_smoke import (
+    BF16_TOL,
     LJ_COUNTS,
     hand_plan,
     random_group_lists,
@@ -39,6 +42,7 @@ from mdbench_tpu_torch.models.lattice import create_fcc_lattice
 from mdbench_tpu_torch.ops.cluster import attach_bucket_maps
 from mdbench_tpu_torch.ops import eam_cluster as tec
 from mdbench_tpu_torch.ops import lj_cluster as tlj
+from mdbench_tpu_torch.ops import row_fetch as trf
 from mdbench_tpu_torch.state import SENTINEL_COORD
 
 torch.set_num_threads(1)
@@ -501,3 +505,107 @@ def test_cuda_bucket_wrappers_raise(cuda, bad, exc):
             b["nji"], b["n_clusters_pad"], b["buckets"], CUT2, SIG6, EPS,
             share=b["share"])
     assert tlj.BUCKET_LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share,nu", [(1, 128), (2, 64), (4, 32)])
+@pytest.mark.parametrize("tdtype", [torch.float32, torch.float64])
+def test_cuda_approx_rcp_kernels(cuda, share, nu, tdtype):
+    """K1, K1t and K1b with approx_rcp: in float32 within the kernels'
+    tolerance of their plain twins (which divide), K1b still K1 bit for
+    bit; in float64 bit-equal to the kernels without the flag."""
+    c, pr, npad, share, plan = _bucket_case(share, nu, tdtype, cuda)
+    tc, tabs = _types_and_tables(share, tuple(c.xc.shape), 2, tdtype, cuda)
+    lists = (c.xc, c.yc, c.zc, pr.ijlist, pr.nji, npad, CUT2, SIG6, EPS)
+    maps = (c.xc, c.yc, c.zc, pr.bijlist, pr.bcrows, pr.binv, pr.nji, npad, plan,
+            CUT2, SIG6, EPS)
+    calls = {
+        "K1": (lambda a: tlj.lj_cluster_force_ilist(*lists, share=share, approx_rcp=a),
+               tlj.lj_cluster_force_ilist_ref(c.xc, c.yc, c.zc, pr.ijlist, npad, CUT2,
+                                              SIG6, EPS, share=share)),
+        "K1t": (lambda a: tlj.lj_cluster_force_ilist(*lists, share=share, tc=tc,
+                                                     tables=tabs, approx_rcp=a),
+                tlj.lj_cluster_force_ilist_ref(c.xc, c.yc, c.zc, pr.ijlist, npad, CUT2,
+                                               SIG6, EPS, share=share, tc=tc,
+                                               tables=tabs)),
+        "K1b": (lambda a: tlj.lj_cluster_force_buckets(*maps, share=share,
+                                                       approx_rcp=a),
+                tlj.lj_cluster_force_buckets_ref(*maps[:6], *maps[7:], share=share)),
+    }
+    got = {}
+    for name, (run, plain) in calls.items():
+        approx, exact = run(True), run(False)
+        torch.cuda.synchronize()
+        assert _rel(approx, plain) <= TOL[tdtype], name
+        if tdtype == torch.float64:
+            assert all(torch.equal(a, b) for a, b in zip(approx, exact)), name
+        got[name] = approx
+    assert all(torch.equal(a, b) for a, b in zip(got["K1b"], got["K1"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share,nu", [(1, 128), (2, 64), (4, 32)])
+def test_cuda_bf16_kernel_matches_plain(cuda, share, nu):
+    """The bf16 kernel against its plain twin within BF16_TOL of max |f|
+    (the card's approximate reciprocal may round sr2 to the neighbouring
+    bfloat16 value); the all-padding units get exactly 0."""
+    cl, pairs, npad, share = synthetic_case(seed=share, nu=nu, share=share)
+    c = clusters_from_numpy(cl, cuda, torch.float32)
+    pr = pairs_from_numpy(pairs, cuda)
+    before = {n: getattr(tlj, n) for n in LJ_COUNTS}
+    f_k = tlj.lj_cluster_force_ilist_bf16(c.xc, c.yc, c.zc, pr.ijlist, pr.nji, npad,
+                                          CUT2, SIG6, EPS, share=share)
+    torch.cuda.synchronize()
+    grew = {n: getattr(tlj, n) - before[n] for n in before}
+    assert grew == {n: int(n == "BF16_LAUNCHES") for n in before}
+    f_r = tlj.lj_cluster_force_ilist_bf16_ref(c.xc, c.yc, c.zc, pr.ijlist, npad,
+                                              CUT2, SIG6, EPS, share=share)
+    assert float(f_r[0].abs().max()) > 1.0
+    assert _rel(f_k, f_r) <= BF16_TOL
+    for f in f_k:
+        assert (f[8:12] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_kernel_on_engine_lists(cuda):
+    """The bf16 kernel on the lists of a jittered 6^3 SP box against its
+    plain twin; float64 planes are refused."""
+    p = Params(nx=6, ny=6, nz=6, precision="sp", scheme="cluster")
+    x, v, _ = create_fcc_lattice(p)
+    x = x + np.random.default_rng(5).normal(0.0, 0.05, x.shape)
+    sim = ClusterSimulation(p, x=x, v=v, device=cuda)
+    st = sim.initial_state()
+    cl, pr = st.clusters, st.pairs
+    args = (sim.n_clusters_pad, CUT2, SIG6, EPS)
+    f_k = tlj.lj_cluster_force_ilist_bf16(cl.xc, cl.yc, cl.zc, pr.ijlist, pr.nji,
+                                          *args, share=sim.ishare)
+    f_r = tlj.lj_cluster_force_ilist_bf16_ref(cl.xc, cl.yc, cl.zc, pr.ijlist, *args,
+                                              share=sim.ishare)
+    assert _rel(f_k, f_r) <= BF16_TOL
+    with pytest.raises(TypeError):
+        tlj.lj_cluster_force_ilist_bf16(cl.xc.double(), cl.yc.double(),
+                                        cl.zc.double(), pr.ijlist, pr.nji, *args,
+                                        share=sim.ishare)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_ids", [1, 37, 4096])
+@pytest.mark.parametrize("rows_per_id", [1, 8])
+@pytest.mark.parametrize("mode", ["cp_async", "tma"])
+def test_cuda_row_fetch_matches_index_select(cuda, mode, rows_per_id, n_ids):
+    """Each row-fetch variant equals index_select bit for bit, on id lists
+    that fill whole stages or end inside one, ids 0 and the last
+    included."""
+    rng = np.random.default_rng(n_ids)
+    table = torch.tensor(rng.standard_normal((1024, 128)), dtype=torch.float32,
+                         device=cuda)
+    hi = 1024 // rows_per_id
+    ids = rng.integers(0, hi, n_ids)
+    ids[0], ids[-1] = 0, hi - 1
+    ids = torch.tensor(ids, dtype=torch.int32, device=cuda)
+    name = trf.variant(mode, rows_per_id)
+    before = dict(trf.LAUNCHES)
+    got = trf.row_fetch(table, ids, rows_per_id, mode)
+    torch.cuda.synchronize()
+    assert trf.LAUNCHES == {k: n + (k == name) for k, n in before.items()}
+    assert torch.equal(got, trf.row_fetch_ref(table, ids, rows_per_id))

@@ -78,7 +78,7 @@ def test_cpu_path_imports_no_jax():
         "from mdbench_tpu_torch import convert, bench, stats, stub\n"
         "p = Params(nx=4, ny=4, nz=4, ntimes=4, reneigh_every=2, scheme='cluster')\n"
         "out = ClusterSimulation(p, device='cpu').run()\n"
-        "bench.load_check_golden()\n"
+        "bench.root_bench().check_golden\n"
         "assert out.temps.shape == (4,)\n"
         "p = Params(nx=4, ny=4, nz=4, ntimes=4, reneigh_every=4, prune_every=1,\n"
         "           scheme='cluster', kernel='pallas')\n"
