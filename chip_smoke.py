@@ -42,12 +42,18 @@ Phases, each fatal (non-zero exit, no result line) on failure:
  11. group-window kernel: against its plain torch version on random group
      lists (windows inside the list, empty and past njg; sentinel ids and
      real ids past nj; an all-padding group, whose rows must be exactly
-     0), float32 (<= 1e-5 of max |f|) and float64 (<= 1e-12);
+     0) and on the box cull's edge cases (boundary_group_lists: pairs
+     exactly at the cutoff and one ulp inside it, touching boxes,
+     padding, NaN rows, one-j16 windows; rows without a pair exactly 0),
+     float32 (<= 1e-5 of max |f|) and float64 (<= 1e-12);
  12. group-window main path: run_bench(kernel="pallas"), the 131,072-atom
      200-step SP run on group lists with tile windows, gated on the C
      reference's temperature trace; the group-window kernel's launches
      must cover every force evaluation and the exact-list kernel must not
-     launch; the final state's window counters (stats.py);
+     launch; the final state's window counters (stats.py); then one
+     torch.profiler pass over a _run_steps(200) of that run (after the
+     counts are read): K4's summed device ms and the device busy share
+     (kernel, memcpy and memset spans only);
  13. group-window small input: a jittered 8^3 box in float64, card
      against the CPU plain path (step-0 forces <= 1e-10, 40-step
      temperatures <= 1e-9, both rebuild kinds) for kernel="pallas", for
@@ -55,7 +61,11 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      half lists (half_neigh=1, whose index_add_ sums with atomics on the
      card: ~1e-16 relative per sum in float64, so the same limits hold);
  14. group-window kernel at the main path's shapes: phase 12's final
-     planes, lists and windows (error, median times, window pairs);
+     planes, lists and windows (error, median times back to back and on
+     the device alone, the ratio to phase 6's K1 exact time, window pairs
+     and the pairs the kernel evaluates; its work counts: member tiles,
+     the lock-step design's lane-pairs, window and kept j-clusters,
+     lane-pairs; its -Xptxas -v lines);
  15. the cluster stub (run_cluster_stub: 65,536 atoms, 76 j16 per group
      list, 200 steps) for seq, fix and rand: the kernel launches every
      step; its first force against the plain version (float32: the
@@ -65,7 +75,8 @@ Phases, each fatal (non-zero exit, no result line) on failure:
  16. typed kernels: the typed exact-list kernel (K1t) and the typed
      group-window kernel (K4t) against their typed plain versions on the
      random lists and windows of phases 3 and 11, with random types for
-     T = 2 and 3 and non-uniform tables, float32 (<= 1e-5 of max |f|) and
+     T = 2 and 3 and non-uniform tables, and K4t on phase 11's edge
+     cases, float32 (<= 1e-5 of max |f|) and
      float64 (<= 1e-12); all-padding units and groups get exactly 0; with
      uniform tables each equals its untyped kernel within the same limits;
  17. the typed main path from a file: a 131,072-atom two-type LAMMPS dump
@@ -86,7 +97,10 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      against plain, against the untyped kernel with uniform tables;
      median times beside the untyped kernel's on the same lists); K1t
      also with the approximate reciprocal, as phase 17 runs it, against
-     plain and timed on both states; phases 12, 17 and 18 launch no K1b;
+     plain and timed on both states; K4t also on the device alone, its
+     ratio to K1t exact, its work counts (culled against the tables'
+     largest cutsq) and -Xptxas -v lines; phases 12, 17 and 18 launch no
+     K1b;
  20. bucketed kernels: K1b, K2b and K3b against their plain bucketed
      twins on the random cases of phases 3 and 7 with hand-set plans (a
      zero tier, dummy units, and once a bucket whose cap is below its
@@ -143,8 +157,11 @@ SXM data sheet) and its bytes over 3.35 TB/s, each input read once and
 each output written once. An LJ pair costs 8 operations for the distance
 test and 15 more inside the cutoff (the divide counted as one); an EAM
 pair 8, and inside the cutoff 6 + 2d (density) or 10 + 4d (force) for
-Horner polynomials of degree d. The pairs are those the kernel evaluates
-on these lists (stats.compute_cluster_stats). The bf16 kernel evaluates
+Horner polynomials of degree d. The pairs are the kernel's work on these
+lists (stats.compute_cluster_stats): the exact-list kernels' listed
+pairs, and for the group-window kernels the window pairs that their
+contract asks for, whatever they cull (the pairs the kernel evaluates
+are printed beside). The bf16 kernel evaluates
 every listed pair without a branch: per pair 9 float32 operations
 (subtracts, cutoff test, reciprocal, sums) and 16 bfloat16 ones, the latter
 over 134 TFLOP/s (two per packed bf16x2 instruction at the float32 rate).
@@ -494,6 +511,161 @@ def random_group_lists(seed, ng=8, L=32, ghost_rows=64, spacing=1.1):
     return planes, jl, ranges, npad
 
 
+def boundary_group_lists(np_dtype, nan: bool = True):
+    """A numpy case for the group-window force at the edges of the stream
+    kernel's box cull: (planes, jlist, ranges, n_clusters_pad), planes
+    three (68, 8) arrays of `np_dtype`, jlist (3, 24) and ranges (3, 33)
+    int32, for cutforcesq = 6.25. Group 0's members are unit cubes 6 apart
+    along y (member m: x, z in {0, 1}, y in {6m, 6m + 1}); group 1 is all
+    padding; group 2's members sit near y = 200. Against member 0's box,
+    rows of the ghost j16 24-27: row 48 at box distance exactly 2.5 (every
+    pair's rsq >= 6.25, four exactly at it), row 49 one ulp of `np_dtype`
+    closer (four pairs just inside), row 50 touching the box along x (gap
+    0) and 1.5 away along y, row 51 a near neighbour, row 52 all padding,
+    row 53 half padding, row 54 all NaN and row 55 half NaN (with
+    nan=False those NaN are padding too). Rows 56-63 neighbour members 2
+    and 3, rows 64-65 group 2's member 0, rows 66-67 the all-padding
+    sentinel j16. Windows: group 0 reads its own j16 (tile 0) and the
+    ghosts (tile 1), njg 2, with member 1's window empty, member 2's
+    [1, 3) past njg and a tile past njg that would change its force if it
+    were read; group 2 has one real j16 (nj 1, njg 1) and every member's
+    window is that tile."""
+    from mdbench_tpu_torch.state import SENTINEL_COORD
+
+    nrows, npad = 68, 48
+    slot = np.arange(8)
+    bx, by, bz = slot & 1, (slot >> 1) & 1, (slot >> 2) & 1
+    xyz = np.zeros((3, nrows, 8))
+    rank = np.arange(nrows * 8, dtype=np.float64).reshape(nrows, 8)
+    pad = np.zeros((nrows, 8), bool)
+    nanm = np.zeros((nrows, 8), bool)
+
+    def put(row, x, y, z):
+        xyz[:, row] = np.broadcast_to(x, 8), np.broadcast_to(y, 8), np.broadcast_to(z, 8)
+
+    for m in range(16):
+        put(m, bx, 6.0 * m + by, bz)
+        put(32 + m, bx, 200.0 + 6.0 * m + by, bz)
+    pad[16:32] = True
+    below = float(np.nextafter(np_dtype(3.5), np_dtype(0.0)))
+    put(48, 3.5 + 0.5 * bx, by, bz)
+    put(49, below + 0.5 * bx, by, bz)
+    put(50, 1.0 + 0.8 * bx, 2.5 + 0.5 * by, bz)
+    put(51, -1.2 - 0.8 * bx, by, bz)
+    pad[52] = True
+    put(53, 2.0 + 0.6 * bx, by, 1.0)
+    pad[53, :4] = True
+    put(54, 0.5, 0.5, 0.5)
+    (nanm if nan else pad)[54] = True
+    put(55, -1.4 - 0.7 * bx, by, 0.5)
+    (nanm if nan else pad)[55, :4] = True
+    for k in range(4):
+        put(56 + k, 2.0 + 0.7 * bx + 0.1 * k, 12.0 + by + 0.1 * k, bz + 0.05 * k)
+        put(60 + k, -1.8 - 0.6 * bx - 0.1 * k, 18.0 + by + 0.1 * k, bz - 0.05 * k)
+    for k in range(2):
+        put(64 + k, 2.0 + 0.6 * bx + 0.2 * k, 200.0 + by + 0.1 * k, bz + 0.2 * k)
+    pad[66:] = True
+    planes = []
+    for c in range(3):
+        pl = np.where(pad, SENTINEL_COORD * (1.0 + rank * 1e-6), xyz[c])
+        planes.append(np.where(nanm, np.nan, pl).astype(np_dtype))
+    sentinel16 = nrows // 2 - 1
+    jl = np.full((3, 24), sentinel16, np.int32)
+    jl[0, :8] = np.arange(8)  # group 0's own j16
+    jl[0, 8:16] = np.arange(24, 32)  # the ghost rows 48-63
+    jl[0, 16:20] = 28  # past njg: member 2's neighbours again
+    jl[1, :8] = np.arange(24, 32)
+    jl[2, 0] = 32
+    jl[2, 8:16] = 32  # past njg
+    ranges = np.zeros((3, 33), np.int32)
+    ranges[0, :16], ranges[0, 16:32], ranges[0, 32] = 0, 2, 2
+    ranges[0, [1, 2, 4]] = 1, 1, 1
+    ranges[0, [16 + 1, 16 + 2, 16 + 5]] = 1, 3, 1
+    ranges[1, 16:32], ranges[1, 32] = 1, 1
+    ranges[2, 16:32], ranges[2, 32] = 1, 1
+    return planes, jl, ranges, npad
+
+
+def lockstep_lane_pairs(torch, ranges) -> int:
+    """Lane-pairs of the group-window kernel's lock-step design (one
+    128-thread block per group walking every tile below njg, a warp of 4
+    members running a tile's 128 j atoms when the window of any of them
+    holds it): warp tiles x 128 x 32, on these windows."""
+    rg = ranges.long()
+    njg = rg[:, 32]
+    s = torch.arange(max(int(njg.max()), 1), device=rg.device)
+    inwin = ((s >= rg[:, :16, None]) & (s < rg[:, 16:32, None])
+             & (s < njg[:, None, None]))
+    warp_tiles = int(inwin.reshape(rg.shape[0], 4, 4, -1).any(2).sum())
+    return warp_tiles * 128 * 32
+
+
+def stream_work_line(torch, lj, planes, pr, cutsq: float, cs: dict) -> tuple:
+    """(pairs the group-window kernel evaluates, a line of its work counts
+    on these lists: member tiles, the lock-step design's lane-pairs, the
+    window and kept j-clusters and the lane-pairs it runs)."""
+    w = {k: int(v.sum()) for k, v in lj.stream_work_counts(
+        *planes, pr.jlist, pr.ranges, cutsq).items()}
+    old = lockstep_lane_pairs(torch, pr.ranges)
+    return w["lane_pairs"], (
+        f"member tiles {w['tiles']} (stats {cs['tiles']}), window pairs "
+        f"{cs['padded_pairs']}, {cs['pairs_within_cutforce']} inside the cutoff; "
+        f"lock-step lane-pairs {old}; window j-clusters {w['window_clusters']}, "
+        f"kept {w['kept_clusters']} ({w['kept_clusters'] / max(w['window_clusters'], 1):.4f}), "
+        f"lane-pairs {w['lane_pairs']} ({old / max(w['lane_pairs'], 1):.3f}x fewer)")
+
+
+def stream_ptxas_lines(typed: bool) -> list:
+    """The -Xptxas -v lines (registers, shared memory, spills) of the
+    group-window kernel's typed or untyped instantiations, from the
+    build's log, each tagged with its own."""
+    import re
+
+    from mdbench_tpu_torch import _build
+
+    log = _build.library_path().with_suffix(".log")
+    out, tag = [], None
+    for line in log.read_text().splitlines() if log.exists() else ():
+        if "Compiling entry" in line:
+            m = re.search(r"lj_cluster_stream_kernelI([fd])Lb([01])E", line)
+            tag = m and m[2] == str(int(typed)) and (
+                ("f32" if m[1] == "f" else "f64") + (" typed" if typed else " untyped"))
+        elif tag and ("Used" in line or "spill" in line):
+            out.append(f"lj_cluster_stream_kernel {tag}: {line.strip()}")
+    return out
+
+
+def device_profile(torch, fn) -> dict:
+    """One torch.profiler pass over fn(), synchronised before and after:
+    wall_s (host clock, profiler overhead included), busy (the union of
+    the device's kernel, memcpy and memset spans over wall_s;
+    record_function ranges, which also show on the device, left out),
+    spans (their count) and ms (device ms summed by kernel name)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, ms = [], {}
+    for e in prof.profiler.kineto_results.events():
+        annotation = getattr(e, "is_user_annotation", None)  # newer torch only
+        if e.device_type() != DeviceType.CUDA or (annotation and annotation()):
+            continue
+        spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        ms[e.name()] = ms.get(e.name(), 0.0) + e.duration_ns() * 1e-6
+    busy, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    return dict(wall_s=wall, busy=busy * 1e-9 / wall, spans=len(spans), ms=ms)
+
+
 def reset_counts(lj, ec) -> None:
     """Every kernel's launch count to 0."""
     for name in LJ_COUNTS:
@@ -685,14 +857,15 @@ def stub_force_err(torch, got, want):
     return err, err / float(b[fin].abs().max()), float(fin.double().mean())
 
 
-def run_group_phases(torch, dev, smi: str, ec) -> dict:
-    """Phases 11-15 (the group-window path). Returns the kernel's JSON
-    row."""
+def run_group_phases(torch, dev, smi: str, ec, k1_exact: dict) -> dict:
+    """Phases 11-15 (the group-window path). `k1_exact` holds phase 6's
+    K1 exact ms by dtype. Returns the kernel's JSON row."""
     from mdbench_tpu_torch.bench import run_bench
     from mdbench_tpu_torch.config import Params
     from mdbench_tpu_torch.engine_cluster import GROUP, ClusterSimulation
     from mdbench_tpu_torch.models.lattice import create_fcc_lattice
     from mdbench_tpu_torch.ops import lj_cluster as lj
+    from mdbench_tpu_torch.probes import graph_ms
     from mdbench_tpu_torch.stats import compute_cluster_stats
     from mdbench_tpu_torch.stub import (
         create_cluster_pair_list,
@@ -718,6 +891,28 @@ def run_group_phases(torch, dev, smi: str, ec) -> dict:
                   flush=True)
             if not rel <= tol_of(torch, dtype):
                 fail(f"group kernel disagrees with its plain version ({dtype})")
+        # the box cull's edge cases; NaN atoms take no pair, so the kernel
+        # on the NaN rows must give the plain force with padding there
+        np_dtype = np.float32 if dtype == torch.float32 else np.float64
+        for nan in (False, True):
+            planes, jl, rg, npad = boundary_group_lists(np_dtype, nan=nan)
+            ref_planes = boundary_group_lists(np_dtype, nan=False)[0]
+            jl, rg = torch.tensor(jl, device=dev), torch.tensor(rg, device=dev)
+            args = (npad, 2.5**2, 1.0, 1.0)
+            got = lj.lj_cluster_force_stream(
+                *(torch.tensor(q, device=dev) for q in planes), jl, rg, *args)
+            want = lj.lj_cluster_force_group_ref(
+                *(torch.tensor(q, device=dev) for q in ref_planes), jl, *args, ranges=rg)
+            err, rel = rel_err(torch, got, want)
+            zero = [1, *range(16, 32), *range(33, 48)]  # empty or fully culled
+            if any(bool((f[zero] != 0).any()) for f in got):
+                fail(f"group kernel edge cases: a row without pairs got a force ({dtype})")
+            print(f"group kernel edge cases {str(dtype)[6:]} (NaN rows {nan}): max abs "
+                  f"err {err:.3e}, rel {rel:.3e} (tol {tol_of(torch, dtype):.0e})",
+                  flush=True)
+            if not rel <= tol_of(torch, dtype):
+                fail(f"group kernel disagrees with its plain version on the edge cases "
+                     f"({dtype}, NaN rows {nan})")
 
     # 12. the group-window main path; count the kernels' launches in it
     reset_counts(lj, ec)
@@ -754,6 +949,20 @@ def run_group_phases(torch, dev, smi: str, ec) -> dict:
     print("group main path temps:", " ".join(
         f"{s}:{temps[s - 1]:.6e}" for s in range(p.reneigh_every, p.ntimes + 1,
                                                     p.reneigh_every)))
+    # one profiled run of the timed region's kind, after the counts were read
+    s0 = sim.initial_state()
+    prof = device_profile(torch, lambda: sim._run_steps(s0, p.ntimes))
+    k4_ms = sum(v for k, v in prof["ms"].items() if "lj_cluster_stream_kernel" in k)
+    dev_ms = sum(prof["ms"].values())
+    print(f"group main path profile (torch.profiler, one _run_steps({p.ntimes})): "
+          f"wall {prof['wall_s']:.6f} s profiled, {prof['spans']} device spans, busy "
+          f"{prof['busy']:.4f} of it; K4 {k4_ms:.4f} ms summed on the device, all "
+          f"kernels and copies {dev_ms:.4f} ms; against the unprofiled TOTAL "
+          f"{out.total_time:.6f} s: K4 {k4_ms * 1e-3 / out.total_time:.4f}, device "
+          f"{dev_ms * 1e-3 / out.total_time:.4f}; on {smi}", flush=True)
+    if prof["spans"] == 0:
+        print("group main path profile: the profiler saw no device span "
+              "(busy share not measured)", flush=True)
 
     # 13. small input: card against the CPU plain path, float64
     base = dict(nx=8, ny=8, nz=8, ntimes=40, reneigh_every=10, resort_every=20,
@@ -793,18 +1002,26 @@ def run_group_phases(torch, dev, smi: str, ec) -> dict:
         out = kern()
         err, rel = rel_err(torch, out, plain())
         ms = median_ms(torch, kern, 50)
+        ms_dev = graph_ms(kern, 50)
         plain_ms = median_ms(torch, plain, 5)
         bound = bound_of(lj_ops(cs["padded_pairs"], cs["pairs_within_cutforce"]),
                          nbytes_of(*planes, pr.jlist, pr.ranges, *out), dtype)
         res[dtype] = (err, ms, plain_ms, bound)
+        evaluated, work = stream_work_line(torch, lj, planes, pr, cut[0], cs)
         print(f"group kernel at 131k ({str(dtype)[6:]}, {pr.jlist.shape[0]} groups x "
               f"L {pr.jlist.shape[1]}, {cs['padded_pairs']} window pairs = "
               f"{cs['padded_pairs'] / (ms * 1e-3):.4e} pairs/s): max abs err "
               f"{err:.3e}, rel {rel:.3e} (tol {tol_of(torch, dtype):.0e}); median "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
-              f"({bound[1]}) on {smi}", flush=True)
+              f"kernel {ms:.4f} ms back to back, {ms_dev:.4f} ms on the device (CUDA "
+              f"graph); K1 exact on phase 4's lists {k1_exact[dtype]:.4f} ms, K4 / K1 "
+              f"exact {ms / k1_exact[dtype]:.4f}; plain {plain_ms:.4f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}; window pairs), {evaluated} pairs "
+              f"evaluated on {smi}", flush=True)
+        print(f"group kernel work at 131k ({str(dtype)[6:]}): {work}", flush=True)
         if not rel <= tol_of(torch, dtype):
             fail(f"group kernel disagrees with its plain version at 131k ({dtype})")
+    for line in stream_ptxas_lines(typed=False):
+        print("  " + line)
 
     # 15. the cluster stub on the card
     for pattern in ("seq", "fix", "rand"):
@@ -853,6 +1070,7 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
     from mdbench_tpu_torch.engine_cluster import GROUP, ClusterSimulation
     from mdbench_tpu_torch.models.lattice import create_fcc_lattice
     from mdbench_tpu_torch.ops import lj_cluster as lj
+    from mdbench_tpu_torch.probes import graph_ms
     from mdbench_tpu_torch.stats import compute_cluster_stats
 
     def tables_on(tabs, dtype):
@@ -919,6 +1137,23 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
                                              tables=tables_on(uniform2, dtype))
             want = lj.lj_cluster_force_stream(xc, yc, zc, jl, rg, *args)
             _, rel_u4 = check("K4t with uniform tables against K4", got, want, dtype)
+            # the box cull's edge cases (phase 11's), culled against the
+            # tables' largest cutsq
+            np_dtype = np.float32 if dtype == torch.float32 else np.float64
+            planes, jl, rg, npad = boundary_group_lists(np_dtype, nan=True)
+            ref = boundary_group_lists(np_dtype, nan=False)[0]
+            jl, rg = torch.tensor(jl, device=dev), torch.tensor(rg, device=dev)
+            tc = torch.tensor(np.random.default_rng(50).integers(0, ntypes, planes[0].shape),
+                              dtype=torch.int32, device=dev)
+            tabs = tables_on(random_tables(ntypes + 20, ntypes), dtype)
+            got = lj.lj_cluster_force_stream(
+                *(torch.tensor(q, device=dev) for q in planes), jl, rg, npad, 2.5**2,
+                1.0, 1.0, tc=tc, tables=tabs)
+            err, rel = check(f"K4t edge cases T {ntypes}", got, lj.lj_cluster_force_group_ref(
+                *(torch.tensor(q, device=dev) for q in ref), jl, npad, 2.5**2, 1.0, 1.0,
+                ranges=rg, tc=tc, tables=tabs), dtype)
+            print(f"K4t edge cases {str(dtype)[6:]} T {ntypes}: max abs err {err:.3e}, "
+                  f"rel {rel:.3e} (tol {tol_of(torch, dtype):.0e})", flush=True)
             print(f"uniform tables {str(dtype)[6:]} T {ntypes}: K1t vs K1 rel "
                   f"{rel_u:.3e}, K4t vs K4 rel {rel_u4:.3e}", flush=True)
 
@@ -1016,6 +1251,7 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
 
     # 19. K1t and K4t at the main path's shapes
     rows = []
+    k1t_exact = {}  # K1t's exact ms by dtype, for K4t's ratio
     for kernel, meta in (("auto", TYPED_KERNEL), ("pallas", STREAM_TYPED_KERNEL)):
         sim, st = states18[kernel]
         cl, pr = st.clusters, st.pairs
@@ -1051,6 +1287,18 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
             out, want = run(planes, **typed), plain(planes, **typed)
             err, rel = check(f"{meta['name']} at 131k", out, want, dtype)
             ms = median_ms(torch, lambda: run(planes, **typed), 50)
+            if kernel == "auto":
+                k1t_exact[dtype] = ms
+            else:
+                ms_dev = graph_ms(lambda: run(planes, **typed), 50)
+                cull = float(typed["tables"][2].max())
+                lane_pairs, work = stream_work_line(torch, lj, planes, pr, cull, cs)
+                print(f"{meta['name']} at 131k ({str(dtype)[6:]}, phase 18's final "
+                      f"state): median {ms:.4f} ms back to back, {ms_dev:.4f} ms on the "
+                      f"device (CUDA graph); K1t exact on phase 18's auto state "
+                      f"{k1t_exact[dtype]:.4f} ms, K4t / K1t exact "
+                      f"{ms / k1t_exact[dtype]:.4f}; {lane_pairs} pairs evaluated; "
+                      f"work: {work}", flush=True)
             ms_untyped = median_ms(torch, lambda: run(planes), 50)
             plain_ms = median_ms(torch, lambda: plain(planes, **typed), 5)
             bound = bound_of(lj_ops(evaluated, inside),
@@ -1100,6 +1348,8 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
         row = res[torch.float32]
         rows.append(kernel_row(meta, counts[kernel], *row[:4],
                                exact_ms=row[4] if len(row) > 4 else None))
+    for line in stream_ptxas_lines(typed=True):
+        print("  " + line)
     return rows
 
 
@@ -1750,7 +2000,8 @@ def main() -> int:
     eam_rows, eam_main = run_eam_phases(torch, dev, smi, ec)
 
     # 11-15. the group-window path
-    stream_row = run_group_phases(torch, dev, smi, ec)
+    stream_row = run_group_phases(torch, dev, smi, ec,
+                                  {dt: r[4] for dt, r in res.items()})
 
     # 16-19. the typed path from an atom file
     typed_rows = run_typed_phases(torch, dev, smi, ec)

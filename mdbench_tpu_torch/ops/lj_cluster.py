@@ -15,6 +15,8 @@ Three kernel wrappers, each beside its plain torch version:
   j16 lists and per-member tile windows: on a CUDA tensor it launches
   ``csrc/lj_cluster_stream.cu`` (the port of ``_kernel_stream``), on a
   CPU tensor it runs `lj_cluster_force_group_ref` with the windows.
+  `stream_cull` and `stream_work_counts` mirror that kernel's box cull
+  and count its work; only tests and chip_smoke.py call them.
 
 The exact-list wrappers take `approx_rcp`, as mdbench_tpu's exact-list
 kernel does: in float32 on the card the kernel then takes the approximate
@@ -635,8 +637,95 @@ def lj_cluster_force_half_ref(
     )
 
 
+# the stream kernel's warp step: 8 i-atoms x 8 j-atoms of one kept
+# 8-atom j-cluster (32 lanes, 2 j-atoms each)
+WARP_STEP_PAIRS = 64
+
+
+def cluster_boxes(xc, yc, zc):
+    """(lo, hi), each (C_total, 3): the bounds of each 8-atom row of the
+    planes as the stream kernel forms them, NaN-ignoring (fminf/fmaxf: a
+    bound is NaN only where the row's 8 values all are)."""
+    lo, hi = [], []
+    for p in (xc, yc, zc):
+        a = b = p[:, 0]
+        for c in range(1, 8):
+            a, b = torch.fmin(a, p[:, c]), torch.fmax(b, p[:, c])
+        lo.append(a)
+        hi.append(b)
+    return torch.stack(lo, 1), torch.stack(hi, 1)
+
+
+def box_gap_sq(lo_a, hi_a, lo_b, hi_b):
+    """The stream kernel's box distance between boxes (..., 3): per axis
+    the gap max(lo_a - hi_b, lo_b - hi_a, 0) (NaN-ignoring max), then
+    (gx*gx + gy*gy) + gz*gz, each operation rounded in the planes' dtype:
+    the order of a pair's rsq, so it never exceeds the rsq of a pair of
+    atoms inside the two boxes."""
+    zero = torch.zeros((), dtype=lo_a.dtype, device=lo_a.device)
+    g = torch.fmax(torch.fmax(lo_a - hi_b, lo_b - hi_a), zero)
+    sq = g * g
+    return (sq[..., 0] + sq[..., 1]) + sq[..., 2]
+
+
+def stream_window(jlist, ranges):
+    """The stream kernel's window j-clusters: (inwin, jrows), inwin
+    (NG*16, 2L) bool, whether slot k (entry k // 2 of the group's list
+    row, 8-atom row half k % 2) lies in member m's window, i.e. its tile
+    k // 16 satisfies max(start, 0) <= tile < min(end, njg); jrows (NG,
+    2L) int64, each slot's 8-atom row of the planes."""
+    ng, L = jlist.shape
+    dev = jlist.device
+    rg = ranges.long()
+    njg = rg[:, 2 * GROUP].clamp(0, L // 8)
+    start = rg[:, :GROUP].clamp(min=0)
+    end = torch.minimum(rg[:, GROUP:2 * GROUP], njg[:, None])
+    tile = torch.arange(2 * L, device=dev) // 16
+    inwin = (tile >= start[:, :, None]) & (tile < end[:, :, None])
+    half = torch.arange(2 * L, device=dev) % 2
+    jrows = 2 * jlist.long().repeat_interleave(2, dim=1) + half
+    return inwin.reshape(ng * GROUP, 2 * L), jrows
+
+
+def stream_cull(xc, yc, zc, jlist, ranges, cutsq: float,
+                max_elems: int = 1 << 24):
+    """Plain mirror of the stream kernel's cull (tests and chip_smoke.py
+    only; the force never calls it): (inwin, kept), each (NG*16, 2L) bool
+    as `stream_window`'s; kept holds the window j-clusters whose box
+    distance to the member's box (`cluster_boxes`, `box_gap_sq`, current
+    coordinates) is not >= cutsq, so a NaN distance keeps. cutsq is the
+    force cutoff squared (typed: the tables' largest), in the planes'
+    dtype as the kernel takes it."""
+    lo, hi = cluster_boxes(xc, yc, zc)
+    inwin, jrows = stream_window(jlist, ranges)
+    ng, width = jrows.shape
+    cut = torch.tensor(cutsq, dtype=xc.dtype, device=xc.device)
+    kept = torch.zeros_like(inwin)
+    for sl in _group_chunks(ng, GROUP, width, max_elems):
+        ir = torch.arange(sl.start * GROUP, sl.stop * GROUP, device=xc.device)
+        jr = jrows[sl].repeat_interleave(GROUP, dim=0)
+        d2 = box_gap_sq(lo[ir][:, None], hi[ir][:, None], lo[jr], hi[jr])
+        kept[ir] = ~(d2 >= cut)
+    return inwin, inwin & kept
+
+
+def stream_work_counts(xc, yc, zc, jlist, ranges, cutsq: float) -> dict:
+    """Per member, (NG*16,) int64 counts of the stream kernel's work on
+    these lists: window tiles, window j-clusters (16 a tile), kept
+    j-clusters (`stream_cull`) and the lane-pairs its warp runs
+    (WARP_STEP_PAIRS per kept j-cluster: every one a real pair that takes
+    the distance test)."""
+    inwin, kept = stream_cull(xc, yc, zc, jlist, ranges, cutsq)
+    nwin, nkept = inwin.sum(1), kept.sum(1)
+    return dict(tiles=nwin // 16, window_clusters=nwin, kept_clusters=nkept,
+                lane_pairs=nkept * WARP_STEP_PAIRS)
+
+
 def _check_stream_args(xc, yc, zc, jlist, ranges, n_clusters_pad):
     _check_planes(xc, yc, zc, jlist, ranges)
+    if any(p.data_ptr() % 16 for p in (xc, yc, zc)):
+        raise ValueError("the stream kernel reads the planes as 16-byte vectors: "
+                         "they must start on a 16-byte boundary")
     if jlist.dtype != torch.int32 or ranges.dtype != torch.int32:
         raise TypeError("jlist and ranges must be int32")
     if not (jlist.is_contiguous() and ranges.is_contiguous()):
@@ -664,9 +753,12 @@ def lj_cluster_force_stream(
     the windows). CUDA tensors launch the CUDA kernel on the current
     stream (built from csrc/ at first use), its typed instantiation when
     `tc` and `tables` are given, after the operands are checked; a launch
-    error raises. Every j16 id of a tile below njg is read, entries past
-    nj included: they must be valid rows (a real j16, more than cutneigh
-    from the whole group, or the sentinel j16)."""
+    error raises. Every j16 id of a tile below njg may be read, entries
+    past nj included: they must be valid rows (a real j16, more than
+    cutneigh from the whole group, or the sentinel j16). The kernel
+    culls the j-clusters whose box lies beyond the cutoff
+    (`stream_cull` mirrors the test; it drops no pair the plain version
+    keeps) and sums the rest in another order than the plain version."""
     global STREAM_LAUNCHES, STREAM_TYPED_LAUNCHES
     _check_typed_pair(tc, tables)
     if xc.device.type == "cpu":
@@ -683,6 +775,9 @@ def lj_cluster_force_stream(
            for _ in range(3)]
     if tables is not None:
         nt, *tabs = _typed_operands(xc, tc, tables)
+        if tc.data_ptr() % 8:
+            raise ValueError("the stream kernel reads tc as 8-byte vectors: it "
+                             "must start on an 8-byte boundary")
         fn = lib.lj_cluster_stream_typed_f32 if f32 else lib.lj_cluster_stream_typed_f64
         with torch.cuda.device(xc.device):
             err = fn(

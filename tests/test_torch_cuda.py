@@ -25,6 +25,7 @@ import torch
 from chip_smoke import (
     BF16_TOL,
     LJ_COUNTS,
+    boundary_group_lists,
     hand_plan,
     random_group_lists,
     random_tables,
@@ -346,6 +347,36 @@ def test_cuda_typed_stream_kernel_matches_plain(cuda, ntypes, tdtype):
     f_u = tlj.lj_cluster_force_stream(*args, tc=tc % 2,
                                       tables=tuple(torch.tensor(t) for t in UNIFORM))
     assert _rel(f_u, tlj.lj_cluster_force_stream(*args)) <= TOL[tdtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("tdtype", [torch.float32, torch.float64])
+def test_cuda_stream_kernels_on_cull_edge_cases(cuda, nan, tdtype):
+    """K4 and K4t on chip_smoke.boundary_group_lists: pairs exactly at the
+    cutoff and one ulp inside it, boxes touching along one axis, padding,
+    NaN rows, an empty window, a window past njg, one-j16 windows and an
+    all-padding group. NaN atoms take no pair, so with NaN rows the kernels
+    must give the plain force of the same rows as padding. Rows without a
+    pair get exactly 0, and two launches give the same bits."""
+    np_dtype = np.float32 if tdtype == torch.float32 else np.float64
+    planes, jl, rg, npad = boundary_group_lists(np_dtype, nan=nan)
+    ref = boundary_group_lists(np_dtype, nan=False)[0]
+    p_k = [torch.tensor(q, device=cuda) for q in planes]
+    p_r = [torch.tensor(q, device=cuda) for q in ref]
+    jl, rg = torch.tensor(jl, device=cuda), torch.tensor(rg, device=cuda)
+    zero = [1, *range(16, 32), *range(33, 48)]
+    tc, tabs = _types_and_tables(4, tuple(p_k[0].shape), 2, tdtype, cuda)
+    for typed in ({}, {"tc": tc, "tables": tabs}):
+        f_k = tlj.lj_cluster_force_stream(*p_k, jl, rg, npad, CUT2, SIG6, EPS, **typed)
+        again = tlj.lj_cluster_force_stream(*p_k, jl, rg, npad, CUT2, SIG6, EPS, **typed)
+        torch.cuda.synchronize()
+        f_r = tlj.lj_cluster_force_group_ref(*p_r, jl, npad, CUT2, SIG6, EPS,
+                                             ranges=rg, **typed)
+        assert float(f_r[0].abs().max()) > 1.0
+        assert _rel(f_k, f_r) <= TOL[tdtype]
+        for f, g in zip(f_k, again):
+            assert (f[zero] == 0).all() and torch.equal(f, g)
 
 
 @pytest.mark.cuda
