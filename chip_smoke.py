@@ -9,6 +9,13 @@ Phases, each fatal (non-zero exit, no result line) on failure:
   3. kernel: the exact-list LJ kernel against its plain torch version on
      random planes and lists holding sentinel ids and all-padding units,
      float32 (<= 1e-5 of max |f|) and float64 (<= 1e-12), share 1, 2, 4;
+     then K1 and K1t on the distance sweep's edge cases
+     (boundary_ilist_case: pairs exactly at the cutoff and one ulp inside
+     it, padding, coinciding padding, NaN rows, an empty list, units
+     without a pair inside, a tile with every pair inside, a unit whose
+     pairs inside lie in one chunk): rows without a pair exactly 0, two
+     launches the same bits, approx_rcp within the tolerance (float32) or
+     bit-equal (float64);
   4. main path: the benchmark run of `python -m mdbench_tpu_torch.bench`
      (131,072 atoms, 200 SP steps, cluster scheme), gated on the C
      reference's temperature trace; it must plan capacity buckets, the
@@ -21,11 +28,15 @@ Phases, each fatal (non-zero exit, no result line) on failure:
   6. kernel at the main path's shapes: the run's final 131k planes and
      lists, kernel against plain version, exact and with the approximate
      reciprocal that the main path takes (each within 1e-5 / 1e-12 of max
-     |f|; median times);
+     |f|; median times back to back and on the device alone); the sweep
+     counts of those lists (ops/lj_cluster.ilist_sweep_counts: listed and
+     inside pairs, the sweeps' warp steps, sweep B's efficiency) and the
+     kernel's -Xptxas -v lines;
   7. EAM kernels: the two EAM passes (density, force) against their plain
      torch versions on the same random lists plus a random fp plane,
      float32 (<= 1e-5 of max |value|) and float64 (<= 1e-12), share 1,
-     2, 4; all-padding units get exactly zero density and force;
+     2, 4; all-padding units get exactly zero density and force; then
+     both on phase 3's edge cases;
   8. EAM main path: the cluster EAM run of run_bench_eam (131,072 atoms,
      60 SP steps) on the stand-in potential below; it must plan capacity
      buckets, the flat passes (K2, K3) launch for the set-up forces before
@@ -38,7 +49,8 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      40-step temperature trace with both rebuild kinds, card against the
      CPU plain path;
  10. EAM kernels at the main path's shapes: the EAM run's final planes,
-     lists and fp plane (error, median times);
+     lists and fp plane (error, median times back to back and on the
+     device alone, the sweep counts, -Xptxas -v lines);
  11. group-window kernel: against its plain torch version on random group
      lists (windows inside the list, empty and past njg; sentinel ids and
      real ids past nj; an all-padding group, whose rows must be exactly
@@ -65,7 +77,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      the device alone, the ratio to phase 6's K1 exact time, window pairs
      and the pairs the kernel evaluates; its work counts: member tiles,
      the lock-step design's lane-pairs, window and kept j-clusters,
-     lane-pairs; its -Xptxas -v lines);
+     lane-pairs; the -Xptxas -v lines of its instantiations, typed too);
  15. the cluster stub (run_cluster_stub: 65,536 atoms, 76 j16 per group
      list, 200 steps) for seq, fix and rand: the kernel launches every
      step; its first force against the plain version (float32: the
@@ -97,15 +109,17 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      against plain, against the untyped kernel with uniform tables;
      median times beside the untyped kernel's on the same lists); K1t
      also with the approximate reciprocal, as phase 17 runs it, against
-     plain and timed on both states; K4t also on the device alone, its
-     ratio to K1t exact, its work counts (culled against the tables'
-     largest cutsq) and -Xptxas -v lines; phases 12, 17 and 18 launch no
-     K1b;
+     plain and timed on both states (also on the device alone), with the
+     sweep counts of phase 18's lists and tables; K4t also on the device
+     alone, its ratio to K1t exact and its work counts (culled against the
+     tables' largest cutsq); phases 12, 17 and 18 launch no K1b;
  20. bucketed kernels: K1b, K2b and K3b against their plain bucketed
      twins on the random cases of phases 3 and 7 with hand-set plans (a
      zero tier, dummy units, and once a bucket whose cap is below its
      longest list), float32 (<= 1e-5) and float64 (<= 1e-12), share 1, 2,
-     4; on untruncated plans equal to K1, K2 and K3 bit for bit;
+     4; on untruncated plans equal to K1, K2 and K3 bit for bit; then all
+     of them on phase 3's edge cases, bucketed over a hand plan with a
+     zero tier and dummy units and over one with a truncating bucket;
  21. flat against bucketed: the 131k/200 SP run alternately without
      buckets (a subclass whose _plan_buckets returns False) and with them,
      F B B F F B B F, each golden-gated, AB_REPEATS timed regions of one
@@ -116,8 +130,9 @@ Phases, each fatal (non-zero exit, no result line) on failure:
  22. K1b, K2b and K3b at the main paths' shapes: phases 4's and 8's final
      states beside K1, K2 and K3 on the same lists (bit-equal), error
      against the plain twins (K1b also with approx_rcp, as the main path
-     runs it), median times, bound, and the j16 slots the blocks' tile
-     loops run in unit order and in nji order;
+     runs it), median times back to back and on the device alone, bound,
+     the j16 slots the blocks' tile loops run in unit order and in nji
+     order, and the sweep counts of the bucketed lists;
  23. measure_phases on phase 4's final state (FORCE and NEIGH ms), and
      run_chunked(10, 4) at 131k with a rebuild every 10 steps, whose
      temperatures must equal run(ntimes=40)'s within rel 1e-6;
@@ -371,15 +386,18 @@ def ilist_pairs(cs: dict, share: int) -> int:
 
 
 def kernel_row(meta, launches, err, ms, plain_ms, bound, library_ms=None,
-               exact_ms=None) -> dict:
+               exact_ms=None, device_ms=None) -> dict:
     """A kernel's entry of the JSON line. The exact-list kernels that the
     main path runs with approx_rcp give that form's error and time, and
-    their exact form's time as `exact_ms`."""
+    their exact form's time as `exact_ms`; `device_ms` is the time of the
+    row's form on the device alone (probes.graph_ms)."""
     row = {**meta, "launches": launches, "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
            "library_ms": library_ms}
     if exact_ms is not None:
         row["exact_ms"] = exact_ms
+    if device_ms is not None:
+        row["device_ms"] = device_ms
     return row
 
 
@@ -586,6 +604,223 @@ def boundary_group_lists(np_dtype, nan: bool = True):
     return planes, jl, ranges, npad
 
 
+def boundary_ilist_case(np_dtype, share: int = 2, nan: bool = True):
+    """A numpy case for the exact-list kernels at the edges of their
+    distance sweep: (planes, ijlist, nji, n_clusters_pad), planes three
+    (82, 8) arrays of `np_dtype`, for cutforcesq = 6.25, with 8 i-rows.
+    Row 0 is a unit cube at the origin, row 1 the same cube 6 away along
+    y, rows 2-3 and the 32 j16 4-35 points of one grid (spacing 0.175)
+    in a cube of side 1.4 at y = 40 (every pair among them inside the
+    cutoff, none at rsq 0), rows 4-6 far from everything and row 7 all
+    padding. Against row 0: j16 36's row 72 sits exactly at the cutoff
+    (four pairs at rsq = 6.25) and row 73 one ulp of `np_dtype` closer
+    (four pairs just inside); j16 37 is one row of padding and one half
+    padding; j16 38 one row of NaN and one half NaN (with nan=False that
+    NaN is padding too); j16 39 repeats row 7's padding coordinates
+    (rsq exactly 0 against it); j16 40 is the all-padding sentinel. Every
+    unit lists j16 4-39 in that order, then the sentinel, except the last
+    unit, whose list is empty (nji 0, only sentinel ids). So the unit of
+    rows 2-3 (share 2) has a first tile with every pair inside, the unit
+    of rows 0-1 has its inside pairs in one chunk (of 64 or 128 atoms),
+    and the units of rows 4-7 none."""
+    from mdbench_tpu_torch.state import SENTINEL_COORD
+
+    nrows, npad = 82, 8
+    slot = np.arange(8)
+    bx, by, bz = slot & 1, (slot >> 1) & 1, (slot >> 2) & 1
+    xyz = np.zeros((3, nrows, 8))
+    rank = np.arange(nrows * 8, dtype=np.float64).reshape(nrows, 8)
+    pad = np.zeros((nrows, 8), bool)
+    nanm = np.zeros((nrows, 8), bool)
+
+    def put(row, x, y, z):
+        xyz[:, row] = np.broadcast_to(x, 8), np.broadcast_to(y, 8), np.broadcast_to(z, 8)
+
+    put(0, bx, by, bz)
+    put(1, bx, 6.0 + by, bz)
+    g = np.stack(np.meshgrid(*[np.arange(9)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    pts = g[np.random.default_rng(8).permutation(729)[: 66 * 8]] * 0.175
+    dense = [2, 3, *range(8, 72)]
+    for k, row in enumerate(dense):
+        put(row, *(pts[8 * k : 8 * k + 8].T + np.array([[0.0], [40.0], [0.0]])))
+    for k, row in enumerate((4, 5, 6)):
+        put(row, bx + 3.0 * k, 500.0 + by, bz)
+    pad[7] = True
+    below = float(np.nextafter(np_dtype(3.5), np_dtype(0.0)))
+    put(72, 3.5 + 0.5 * bx, by, bz)
+    put(73, below + 0.5 * bx, by, bz)
+    pad[74] = True
+    put(75, 2.0 + 0.6 * bx, by, 1.0)
+    pad[75, :4] = True
+    put(76, 0.5, 0.5, 0.5)
+    (nanm if nan else pad)[76] = True
+    put(77, -1.4 - 0.7 * bx, by, 0.5)
+    (nanm if nan else pad)[77, :4] = True
+    pad[80:] = True
+    planes = []
+    for c in range(3):
+        pl = np.where(pad, SENTINEL_COORD * (1.0 + rank * 1e-6), xyz[c])
+        pl[78:80] = pl[7]  # j16 39: row 7's padding coordinates again
+        planes.append(np.where(nanm, np.nan, pl).astype(np_dtype))
+    nu = npad // share
+    ijl = np.full((nu, 40), nrows // 2 - 1, np.int32)
+    ijl[:, :36] = np.arange(4, 40)
+    nji = np.full(nu, 36, np.int32)
+    ijl[-1], nji[-1] = nrows // 2 - 1, 0
+    return planes, ijl, nji, npad
+
+
+def sweep_edge_calls(torch, dev, np_dtype, share: int, nan: bool, poly) -> tuple:
+    """The exact-list kernels and their plain versions on
+    boundary_ilist_case(np_dtype, share, nan): (calls, planes, plain
+    planes, n_clusters_pad). calls maps a name to (kernel, plain), each
+    taking the coordinate planes: K1 and K1t (two random types, random
+    tables; both also take approx_rcp), K2 and K3 (cutoff 2.5 A, the EAM
+    polynomials `poly`, a random fp plane), and K1b, K2b and K3b over a
+    hand plan with a zero tier and dummy units, K1bt, K2bt and K3bt over
+    one with a truncating bucket. The plain versions take the planes with
+    the NaN rows as padding."""
+    from mdbench_tpu_torch.ops import eam_cluster as ec
+    from mdbench_tpu_torch.ops import lj_cluster as lj
+    from mdbench_tpu_torch.ops.cluster import bucket_maps_core
+
+    dtype = torch.float32 if np_dtype == np.float32 else torch.float64
+    planes, ijl, nji, npad = boundary_ilist_case(np_dtype, share, nan)
+    p_k = [torch.tensor(q, device=dev) for q in planes]
+    p_r = [torch.tensor(q, device=dev)
+           for q in boundary_ilist_case(np_dtype, share, False)[0]]
+    rng = np.random.default_rng(share)
+    tc = torch.tensor(rng.integers(0, 2, planes[0].shape), dtype=torch.int32, device=dev)
+    tabs = tuple(torch.tensor(t, dtype=dtype, device=dev) for t in random_tables(share, 2))
+    fp = torch.tensor(rng.normal(-10.0, 3.0, planes[0].shape), dtype=dtype, device=dev)
+    cut2 = 2.5**2
+    eam = (npad, cut2, poly)
+    ljs = (npad, cut2, 1.0, 1.0)
+    icap = ijl.shape[1]
+    ijl, nji = torch.tensor(ijl, device=dev), torch.tensor(nji, device=dev)
+    calls = {
+        "K1": (lambda p, **k: lj.lj_cluster_force_ilist(*p, ijl, nji, *ljs, share=share,
+                                                        **k),
+               lambda p: lj.lj_cluster_force_ilist_ref(*p, ijl, *ljs, share=share)),
+        "K1t": (lambda p, **k: lj.lj_cluster_force_ilist(*p, ijl, nji, *ljs, share=share,
+                                                         tc=tc, tables=tabs, **k),
+                lambda p: lj.lj_cluster_force_ilist_ref(*p, ijl, *ljs, share=share, tc=tc,
+                                                        tables=tabs)),
+        "K2": (lambda p: (ec.eam_rho_ilist(*p, ijl, nji, *eam, share=share),),
+               lambda p: (ec.eam_rho_ilist_ref(*p, ijl, *eam, share=share),)),
+        "K3": (lambda p: ec.eam_force_ilist(*p, fp, ijl, nji, *eam, share=share),
+               lambda p: ec.eam_force_ilist_ref(*p, fp, ijl, *eam, share=share)),
+    }
+    for tag, trunc in (("", False), ("t", True)):
+        plan = hand_plan(nji.cpu().numpy(), icap, trunc=trunc)
+        bij, bcr, binv, _ = bucket_maps_core(ijl, nji, npad, share, p_k[0].shape[0], *plan)
+        maps = (bij, bcr, binv)
+        calls["K1b" + tag] = (
+            lambda p, m=maps, plan=plan, **k: lj.lj_cluster_force_buckets(
+                *p, *m, nji, npad, plan, *ljs[1:], share=share, **k),
+            lambda p, m=maps, plan=plan: lj.lj_cluster_force_buckets_ref(
+                *p, *m, npad, plan, *ljs[1:], share=share))
+        calls["K2b" + tag] = (
+            lambda p, m=maps, plan=plan: (ec.eam_rho_buckets(*p, *m, nji, *eam, plan,
+                                                             share=share),),
+            lambda p, m=maps, plan=plan: (ec.eam_rho_buckets_ref(*p, *m, *eam, plan,
+                                                                 share),))
+        calls["K3b" + tag] = (
+            lambda p, m=maps, plan=plan: ec.eam_force_buckets(*p, fp, *m, nji, *eam, plan,
+                                                              share=share),
+            lambda p, m=maps, plan=plan: ec.eam_force_buckets_ref(*p, fp, *m, *eam, plan,
+                                                                  share))
+    return calls, p_k, p_r, npad
+
+
+def check_sweep_edges(torch, dev, names, poly) -> None:
+    """Phases 3, 7 and 20's edge cases: the kernels `names` of
+    sweep_edge_calls, float32 and float64, share 1, 2, 4, with NaN rows,
+    against their plain versions (rows 0-1 also on their own: their forces
+    are small beside the dense rows'), within 1e-5 / 1e-12 of max |value|;
+    rows 4-7 (no pair inside, or no list) exactly 0; two launches the same
+    bits; K1b, K2b and K3b equal to K1, K2 and K3 bit for bit; the LJ
+    kernels with approx_rcp within the tolerance in float32 and bit-equal
+    in float64."""
+    for np_dtype in (np.float32, np.float64):
+        dtype = torch.float32 if np_dtype == np.float32 else torch.float64
+        tol = tol_of(torch, dtype)
+        for share in (1, 2, 4):
+            calls, p_k, p_r, npad = sweep_edge_calls(torch, dev, np_dtype, share, True,
+                                                     poly)
+            worst = 0.0
+            got = {}
+            for name in names:
+                kern, plain = calls[name]
+                out, again = kern(p_k), kern(p_k)
+                torch.cuda.synchronize()
+                want = plain(p_r)
+                for rows in (slice(0, 2), slice(0, npad)):
+                    a, b = [t[rows] for t in out], [t[rows] for t in want]
+                    if not any(bool(t.any()) for t in b):
+                        if any(bool(t.any()) for t in a):
+                            fail(f"{name} edge case: rows without a pair got a value")
+                        continue
+                    rel = rel_err(torch, a, b)[1]
+                    worst = max(worst, rel)
+                    if not rel <= tol:
+                        fail(f"{name} edge case disagrees with its plain version "
+                             f"({dtype}, share {share}): rel {rel:.3e}")
+                if not all(torch.equal(a, b) and not bool(a[4:].any())
+                           for a, b in zip(out, again)):
+                    fail(f"{name} edge case: rows 4-7 not 0, or two launches differ")
+                if name.startswith("K1"):
+                    approx = kern(p_k, approx_rcp=True)
+                    if dtype == torch.float64:
+                        ok = all(torch.equal(a, b) for a, b in zip(approx, out))
+                    else:
+                        ok = rel_err(torch, approx, want)[1] <= tol
+                    if not ok:
+                        fail(f"{name} edge case with approx_rcp ({dtype}, share {share})")
+                got[name] = out
+            for name in got:
+                if name.endswith("b") and name[:2] in got and not all(
+                        torch.equal(a, b) for a, b in zip(got[name], got[name[:2]])):
+                    fail(f"{name} edge case is not {name[:2]} bit for bit")
+            print(f"edge cases {'/'.join(names)} {str(dtype)[6:]} share {share}: "
+                  f"max rel err {worst:.3e} (tol {tol:.0e}); rows without a pair 0, "
+                  f"repeat launches equal", flush=True)
+
+
+def sweep_line(torch, lj, planes, lists, nji, share: int, cutsq, **kw) -> str:
+    """A line of the exact-list kernels' work on these lists
+    (ops/lj_cluster.ilist_sweep_counts; `kw`: buckets, tc, tables):
+    listed and inside pairs, the warp steps of sweep A, sweep B's warp
+    iterations and the staged atoms at which the earlier design's branch
+    around the pair math was taken, and sweep B's efficiency."""
+    c = lj.ilist_sweep_counts(*planes, lists, nji, share, cutsq, **kw)
+    listed, inside = int(c["listed"].sum()), int(c["inside"].sum())
+    return (f"sweep counts (chunk {lj.SWEEP_CHUNK}): listed {listed}, inside {inside} "
+            f"({inside / max(listed, 1):.4f}); warp steps: sweep A {c['warp_sweep_a']}, "
+            f"sweep B {c['warp_sweep_b']}, the earlier branch {c['warp_branch']}; "
+            f"sweep B efficiency {c['efficiency']:.4f}")
+
+
+def kernel_ptxas_lines(kernel: str, src_dir=None) -> list:
+    """The -Xptxas -v lines (registers, shared memory, spills) of every
+    instantiation of `kernel`, from the build's log (of the library built
+    from `src_dir`, the package's csrc/ by default), each tagged with its
+    mangled template arguments."""
+    import re
+
+    from mdbench_tpu_torch import _build
+
+    log = _build.library_path(src_dir).with_suffix(".log")
+    out, tag = [], None
+    for line in log.read_text().splitlines() if log.exists() else ():
+        if "Compiling entry" in line:
+            m = re.search(kernel + r"I(\w+?)Ev", line)
+            tag = m and f"{kernel}<{m[1]}>"
+        elif tag and ("Used" in line or "spill" in line):
+            out.append(f"{tag}: {line.strip()}")
+    return out
+
+
 def lockstep_lane_pairs(torch, ranges) -> int:
     """Lane-pairs of the group-window kernel's lock-step design (one
     128-thread block per group walking every tile below njg, a warp of 4
@@ -613,26 +848,6 @@ def stream_work_line(torch, lj, planes, pr, cutsq: float, cs: dict) -> tuple:
         f"lock-step lane-pairs {old}; window j-clusters {w['window_clusters']}, "
         f"kept {w['kept_clusters']} ({w['kept_clusters'] / max(w['window_clusters'], 1):.4f}), "
         f"lane-pairs {w['lane_pairs']} ({old / max(w['lane_pairs'], 1):.3f}x fewer)")
-
-
-def stream_ptxas_lines(typed: bool) -> list:
-    """The -Xptxas -v lines (registers, shared memory, spills) of the
-    group-window kernel's typed or untyped instantiations, from the
-    build's log, each tagged with its own."""
-    import re
-
-    from mdbench_tpu_torch import _build
-
-    log = _build.library_path().with_suffix(".log")
-    out, tag = [], None
-    for line in log.read_text().splitlines() if log.exists() else ():
-        if "Compiling entry" in line:
-            m = re.search(r"lj_cluster_stream_kernelI([fd])Lb([01])E", line)
-            tag = m and m[2] == str(int(typed)) and (
-                ("f32" if m[1] == "f" else "f64") + (" typed" if typed else " untyped"))
-        elif tag and ("Used" in line or "spill" in line):
-            out.append(f"lj_cluster_stream_kernel {tag}: {line.strip()}")
-    return out
 
 
 def device_profile(torch, fn) -> dict:
@@ -688,6 +903,7 @@ def run_eam_phases(torch, dev, smi: str, ec) -> list:
     from mdbench_tpu_torch.models.lattice import create_fcc_lattice
     from mdbench_tpu_torch.ops import lj_cluster as lj
     from mdbench_tpu_torch.ops.eam import EamDevice
+    from mdbench_tpu_torch.probes import graph_ms
     from mdbench_tpu_torch.stats import compute_cluster_stats
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -730,6 +946,7 @@ def run_eam_phases(torch, dev, smi: str, ec) -> list:
             print(f"EAM kernels random {str(dtype)[6:]} share {share}: rho max abs "
                   f"err {e2:.3e} rel {r2:.3e}; force max abs err {e3:.3e} rel "
                   f"{r3:.3e} (tol {tol_of(torch, dtype):.0e})", flush=True)
+    check_sweep_edges(torch, dev, ("K2", "K3"), poly)
 
     # 8. EAM main path at full width; count the kernels' launches in it:
     # K2 and K3 for the set-up forces before the bucket plan, K2b and K3b
@@ -802,7 +1019,9 @@ def run_eam_phases(torch, dev, smi: str, ec) -> list:
     ops = {"eam_rho_ilist": 8 * evaluated + (6 + 2 * deg["dens"]) * inside,
            "eam_force_ilist": 8 * evaluated + (10 + 2 * (deg["g1"] + deg["g2"])) * inside}
     print(f"EAM kernels at 131k: {evaluated} pairs evaluated, {inside} inside the "
-          f"cutoff; Horner degrees {deg}", flush=True)
+          f"cutoff; Horner degrees {deg}; " + sweep_line(
+              torch, lj, (cl.xc, cl.yc, cl.zc), pr.ijlist, pr.nji, share, cut2),
+          flush=True)
     rows = {}
     for dtype in (torch.float32, torch.float64):
         planes = [q.to(dtype) for q in (cl.xc, cl.yc, cl.zc)]
@@ -825,7 +1044,7 @@ def run_eam_phases(torch, dev, smi: str, ec) -> list:
         for name, (kern, plain) in calls.items():
             out = kern()
             err, rel = check(f"{name} at 131k", out, plain(), dtype)
-            ms = median_ms(torch, kern, 50)
+            ms, dev_ms = median_ms(torch, kern, 50), graph_ms(kern, 50)
             plain_ms = median_ms(torch, plain, 5)
             moved = nbytes_of(*planes, pr.ijlist, pr.nji, *out) + (
                 nbytes_of(fp) if name == "eam_force_ilist" else 0)
@@ -833,11 +1052,14 @@ def run_eam_phases(torch, dev, smi: str, ec) -> list:
             print(f"{name} at 131k ({str(dtype)[6:]}, {pr.ijlist.shape[0]} units x "
                   f"icap {pr.ijlist.shape[1]}, share {share}): max abs err {err:.3e}, "
                   f"rel {rel:.3e} (tol {tol_of(torch, dtype):.0e}); median kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+                  f"{ms:.4f} ms back to back, {dev_ms:.4f} ms on the device (CUDA "
+                  f"graph), plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
                   f"({bound[1]}) on {smi}", flush=True)
             if dtype == torch.float32:
                 rows[name] = kernel_row(EAM_KERNELS[name], launches[name], err, ms,
-                                        plain_ms, bound)
+                                        plain_ms, bound, device_ms=dev_ms)
+    for line in kernel_ptxas_lines("eam_ilist_kernel"):
+        print("  " + line)
     return [rows[name] for name in EAM_KERNELS], (sim, st, launches)
 
 
@@ -1020,7 +1242,7 @@ def run_group_phases(torch, dev, smi: str, ec, k1_exact: dict) -> dict:
         print(f"group kernel work at 131k ({str(dtype)[6:]}): {work}", flush=True)
         if not rel <= tol_of(torch, dtype):
             fail(f"group kernel disagrees with its plain version at 131k ({dtype})")
-    for line in stream_ptxas_lines(typed=False):
+    for line in kernel_ptxas_lines("lj_cluster_stream_kernel"):
         print("  " + line)
 
     # 15. the cluster stub on the card
@@ -1289,6 +1511,10 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
             ms = median_ms(torch, lambda: run(planes, **typed), 50)
             if kernel == "auto":
                 k1t_exact[dtype] = ms
+                if dtype == torch.float32:
+                    print(f"{meta['name']} at 131k (phase 18's final state): " + sweep_line(
+                        torch, lj, planes, pr.ijlist, pr.nji, sim.ishare, p.cutforce**2,
+                        **typed), flush=True)
             else:
                 ms_dev = graph_ms(lambda: run(planes, **typed), 50)
                 cull = float(typed["tables"][2].max())
@@ -1312,9 +1538,11 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
                 err_a, rel_a = check(f"{meta['name']} with approx_rcp at 131k",
                                      run(planes, approx_rcp=True, **typed), want, dtype)
                 ms_a = median_ms(torch, lambda: run(planes, approx_rcp=True, **typed), 50)
-                res[dtype] = (err_a, ms_a, plain_ms, bound, ms)
+                dev_a = graph_ms(lambda: run(planes, approx_rcp=True, **typed), 50)
+                res[dtype] = (err_a, ms_a, plain_ms, bound, ms, dev_a)
                 approx = (f"; with approx_rcp max abs err {err_a:.3e}, rel {rel_a:.3e}, "
-                          f"median {ms_a:.4f} ms")
+                          f"median {ms_a:.4f} ms back to back, {dev_a:.4f} ms on the "
+                          f"device (CUDA graph)")
             print(f"{meta['name']} at 131k ({str(dtype)[6:]}, phase 18's final state, "
                   f"{evaluated} pairs evaluated, {inside} inside the cutoff): max abs "
                   f"err {err:.3e}, rel {rel:.3e} (tol {tol_of(torch, dtype):.0e}); "
@@ -1347,33 +1575,26 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
               f"kernel rel {rel_u:.3e} (tol 1e-05){approx}", flush=True)
         row = res[torch.float32]
         rows.append(kernel_row(meta, counts[kernel], *row[:4],
-                               exact_ms=row[4] if len(row) > 4 else None))
-    for line in stream_ptxas_lines(typed=True):
-        print("  " + line)
+                               exact_ms=row[4] if len(row) > 4 else None,
+                               device_ms=row[5] if len(row) > 5 else None))
     return rows
 
 
-def slot_sums(torch, pairs, share: int, icap: int, buckets, per: int = 0) -> tuple:
+def slot_sums(torch, pairs, share: int, buckets, per: int = 0) -> tuple:
     """(flat, sorted, listed) j16 slots of the exact-list kernels on these
     lists: a block holds upb = 16 / share units and its tile loop runs to
-    its longest list, so it costs upb * max(n) slots; flat, a unit's n is
-    min(nji, icap) in unit order; sorted (K1b), min(nji, its bucket's cap)
-    in nji order, 0 for dummy units. listed is the sum of the flat n.
-    With `per`, groups of `per` units take the place of blocks (per = 32 /
-    (8 * share): the units of one warp, which is what idles when its own
-    units' lists are done)."""
-    from mdbench_tpu_torch.ops.lj_cluster import bucket_table
+    its longest list, so it costs upb * max(n) slots; n is what each list
+    row's unit reads (ops/lj_cluster.ilist_rows): flat, min(nji, icap) in
+    unit order; sorted (K1b), min(nji, its bucket's cap) in nji order, 0
+    for dummy units. listed is the sum of the flat n. With `per`, groups
+    of `per` units take the place of blocks (per = 32 / (8 * share): the
+    units of one warp, which is what idles when its own units' lists are
+    done)."""
+    from mdbench_tpu_torch.ops.lj_cluster import ilist_rows
 
     upb = per or 128 // (8 * share)
-    nji = pairs.nji.long()
-    nu = nji.shape[0]
-    n_flat = nji.clamp(max=icap)
-    units = pairs.bcrows.long()[::share] // share
-    ends, caps = (torch.as_tensor(a, dtype=torch.int64, device=nji.device)
-                  for a in bucket_table(buckets))
-    pos = torch.arange(units.shape[0], device=nji.device)
-    cap = caps[torch.searchsorted(ends, pos, right=True)].clamp(max=icap)
-    n_sorted = torch.where(units < nu, torch.minimum(nji[units.clamp(max=nu - 1)], cap), 0)
+    _, n_flat = ilist_rows(pairs.ijlist, pairs.nji, share)
+    _, n_sorted = ilist_rows(pairs.bijlist, pairs.nji, share, (buckets, pairs.bcrows))
 
     def blocks(n):
         n = torch.nn.functional.pad(n, (0, -n.shape[0] % upb))
@@ -1451,6 +1672,8 @@ def run_bucket_kernel_phase(torch, dev, ec) -> None:
                         print(f"{name} random {str(dtype)[6:]} share {share} plan {plan}: "
                               f"max abs err {err:.3e}, rel {rel:.3e} (tol {tol:.0e}); "
                               f"equal to the flat kernel: {same}", flush=True)
+    check_sweep_edges(torch, dev, ("K1", "K2", "K3", "K1b", "K2b", "K3b", "K1bt", "K2bt",
+                                   "K3bt"), poly)
 
 
 def run_bucket_phases(torch, dev, smi: str, ec, lj_main, eam_main) -> list:
@@ -1463,6 +1686,7 @@ def run_bucket_phases(torch, dev, smi: str, ec, lj_main, eam_main) -> list:
     from mdbench_tpu_torch.models.lattice import create_fcc_lattice
     from mdbench_tpu_torch.ops import lj_cluster as lj
     from mdbench_tpu_torch.ops.eam import EamDevice
+    from mdbench_tpu_torch.probes import graph_ms
     from mdbench_tpu_torch.stats import compute_cluster_stats
 
     # 20. the bucketed kernels on random cases
@@ -1528,13 +1752,15 @@ def run_bucket_phases(torch, dev, smi: str, ec, lj_main, eam_main) -> list:
     cs = compute_cluster_stats(cl, pr, npad, GROUP, p.cutforce**2, p.cutneigh**2,
                                buckets=buckets)
     evaluated, inside = ilist_pairs(cs, share), cs["pairs_within_cutforce"]
-    slots = slot_sums(torch, pr, share, pr.ijlist.shape[1], buckets)
-    warps = slot_sums(torch, pr, share, pr.ijlist.shape[1], buckets, per=4 // share or 1)
+    slots = slot_sums(torch, pr, share, buckets)
+    warps = slot_sums(torch, pr, share, buckets, per=4 // share or 1)
     print(f"K1b at 131k: phase 4's final lists, buckets {buckets}; j16 slots by block "
           f"flat {slots[0]}, nji-sorted {slots[1]} (sorted / flat "
           f"{slots[1] / slots[0]:.4f}), by warp flat {warps[0]}, nji-sorted {warps[1]} "
           f"({warps[1] / warps[0]:.4f}), listed {slots[2]}; bucketed padded pairs "
-          f"{cs['padded_pairs']}", flush=True)
+          f"{cs['padded_pairs']}; " + sweep_line(
+              torch, lj, (cl.xc, cl.yc, cl.zc), pr.bijlist, pr.nji, share,
+              p.cutforce**2, buckets=(buckets, pr.bcrows)), flush=True)
     res = {}
     for dtype in (torch.float32, torch.float64):
         planes = [q.to(dtype) for q in (cl.xc, cl.yc, cl.zc)]
@@ -1561,24 +1787,27 @@ def run_bucket_phases(torch, dev, smi: str, ec, lj_main, eam_main) -> list:
         same = all(torch.equal(a, b) for a, b in zip(out, flat()))
         ms, ms_flat = median_ms(torch, kern, 50), median_ms(torch, flat, 50)
         ms_approx = median_ms(torch, kern_approx, 50)
+        dev_ms, dev_approx = graph_ms(kern, 50), graph_ms(kern_approx, 50)
         plain_ms = median_ms(torch, plain, 5)
         bound = bound_of(lj_ops(evaluated, inside),
                          nbytes_of(*planes, *maps[:2], pr.nji, *out), dtype)
         # the main path's form (approx_rcp) for the JSON row, the exact time beside
-        res[dtype] = (err_a, ms_approx, plain_ms, bound, ms)
+        res[dtype] = (err_a, ms_approx, plain_ms, bound, ms, dev_approx)
         print(f"K1b at 131k ({str(dtype)[6:]}): max abs err {err:.3e}, rel {rel:.3e} "
               f"(tol {tol_of(torch, dtype):.0e}); equal to K1: {same}; with "
               f"approx_rcp (the main path's form) max abs err {err_a:.3e}, rel "
               f"{rel_a:.3e}; median K1b {ms:.4f} ms exact, {ms_approx:.4f} ms with "
               f"approx_rcp, K1 on the same lists {ms_flat:.4f} ms (K1b / K1 "
-              f"{ms / ms_flat:.4f}), plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
-              f"({bound[1]}) on {smi}", flush=True)
+              f"{ms / ms_flat:.4f}); on the device (CUDA graph) {dev_ms:.4f} ms exact, "
+              f"{dev_approx:.4f} ms with approx_rcp; plain {plain_ms:.4f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}) on {smi}", flush=True)
         if not rel <= tol_of(torch, dtype) or not same:
             fail(f"K1b at 131k disagrees with its plain twin or with K1 ({dtype})")
         if not rel_a <= tol_of(torch, dtype):
             fail(f"K1b with approx_rcp disagrees with its plain twin at 131k ({dtype})")
     rows.append(kernel_row(BUCKET_KERNELS["lj_cluster_ilist_buckets"], b_launches,
-                           *res[torch.float32][:4], exact_ms=res[torch.float32][4]))
+                           *res[torch.float32][:4], exact_ms=res[torch.float32][4],
+                           device_ms=res[torch.float32][5]))
 
     sim_e, st_e, launches_e = eam_main
     cl, pr = st_e.clusters, st_e.pairs
@@ -1591,12 +1820,14 @@ def run_bucket_phases(torch, dev, smi: str, ec, lj_main, eam_main) -> list:
     deg = {k: len(getattr(sim_e.eam_poly, k)) - 1 for k in ("dens", "g1", "g2")}
     ops = {"eam_rho_buckets": 8 * evaluated + (6 + 2 * deg["dens"]) * inside,
            "eam_force_buckets": 8 * evaluated + (10 + 2 * (deg["g1"] + deg["g2"])) * inside}
-    slots = slot_sums(torch, pr, share, pr.ijlist.shape[1], buckets)
-    warps = slot_sums(torch, pr, share, pr.ijlist.shape[1], buckets, per=4 // share or 1)
+    slots = slot_sums(torch, pr, share, buckets)
+    warps = slot_sums(torch, pr, share, buckets, per=4 // share or 1)
     print(f"K2b/K3b at 131k: phase 8's final lists, buckets {buckets}; j16 slots by "
           f"block flat {slots[0]}, nji-sorted {slots[1]} (sorted / flat "
           f"{slots[1] / slots[0]:.4f}), by warp flat {warps[0]}, nji-sorted {warps[1]} "
-          f"({warps[1] / warps[0]:.4f}), listed {slots[2]}", flush=True)
+          f"({warps[1] / warps[0]:.4f}), listed {slots[2]}; " + sweep_line(
+              torch, lj, (cl.xc, cl.yc, cl.zc), pr.bijlist, pr.nji, share,
+              sim_e.params.cutforce**2, buckets=(buckets, pr.bcrows)), flush=True)
     res = {}
     for dtype in (torch.float32, torch.float64):
         planes = [q.to(dtype) for q in (cl.xc, cl.yc, cl.zc)]
@@ -1625,13 +1856,15 @@ def run_bucket_phases(torch, dev, smi: str, ec, lj_main, eam_main) -> list:
             err, rel = rel_err(torch, out, plain())
             same = all(torch.equal(a, b) for a, b in zip(out, flat()))
             ms, ms_flat = median_ms(torch, kern, 50), median_ms(torch, flat, 50)
+            dev_ms = graph_ms(kern, 50)
             plain_ms = median_ms(torch, plain, 5)
             moved = nbytes_of(*planes, *maps[:2], pr.nji, *out) + (
                 nbytes_of(fp) if name == "eam_force_buckets" else 0)
             bound = bound_of(ops[name], moved, dtype)
             print(f"{name} at 131k ({str(dtype)[6:]}): max abs err {err:.3e}, rel "
                   f"{rel:.3e} (tol {tol_of(torch, dtype):.0e}); equal to the flat "
-                  f"kernel: {same}; median {ms:.4f} ms, flat kernel on the same lists "
+                  f"kernel: {same}; median {ms:.4f} ms back to back, {dev_ms:.4f} ms on "
+                  f"the device (CUDA graph), flat kernel on the same lists "
                   f"{ms_flat:.4f} ms (ratio {ms / ms_flat:.4f}), plain {plain_ms:.4f} "
                   f"ms, bound {bound[0]:.4f} ms ({bound[1]}) on {smi}", flush=True)
             if not rel <= tol_of(torch, dtype) or not same:
@@ -1639,7 +1872,7 @@ def run_bucket_phases(torch, dev, smi: str, ec, lj_main, eam_main) -> list:
                      f"kernel ({dtype})")
             if dtype == torch.float32:
                 res[name] = kernel_row(BUCKET_KERNELS[name], launches_e[name], err, ms,
-                                       plain_ms, bound)
+                                       plain_ms, bound, device_ms=dev_ms)
     rows += [res["eam_rho_buckets"], res["eam_force_buckets"]]
 
     # 23. measure_phases on phase 4's final state; run_chunked at 131k
@@ -1859,6 +2092,7 @@ def main() -> int:
     from mdbench_tpu_torch.models.lattice import create_fcc_lattice
     from mdbench_tpu_torch.ops import eam_cluster as ec
     from mdbench_tpu_torch.ops import lj_cluster as lj
+    from mdbench_tpu_torch.probes import graph_ms
     from mdbench_tpu_torch.stats import compute_cluster_stats
 
     dev = torch.device("cuda", 0)
@@ -1890,6 +2124,7 @@ def main() -> int:
                   f"rel {rel:.3e} (tol {tol_of(torch, dtype):.0e})", flush=True)
             if not rel <= tol_of(torch, dtype):
                 fail(f"kernel disagrees with its plain version ({dtype}, share {share})")
+    check_sweep_edges(torch, dev, ("K1", "K1t"), None)
 
     # 4. main path: the benchmark run; count the kernels' launches in it:
     # the set-up forces before the bucket plan launch K1, every force
@@ -1954,6 +2189,9 @@ def main() -> int:
     cut = (p.cutforce**2, p.sigma6, p.epsilon)
     cs = compute_cluster_stats(cl, pr, npad, GROUP, p.cutforce**2, p.cutneigh**2)
     evaluated, inside = ilist_pairs(cs, sim.ishare), cs["pairs_within_cutforce"]
+    print("K1 at 131k (phase 4's final flat lists): " + sweep_line(
+        torch, lj, (cl.xc, cl.yc, cl.zc), pr.ijlist, pr.nji, sim.ishare,
+        p.cutforce**2), flush=True)
     res = {}
     for dtype in (torch.float32, torch.float64):
         planes = [q.to(dtype) for q in (cl.xc, cl.yc, cl.zc)]
@@ -1976,11 +2214,12 @@ def main() -> int:
         err_a, rel_a = rel_err(torch, kern_approx(), want)
         ms = median_ms(torch, kern, 50)
         ms_approx = median_ms(torch, kern_approx, 50)
+        dev_ms, dev_approx = graph_ms(kern, 50), graph_ms(kern_approx, 50)
         plain_ms = median_ms(torch, plain, 5)
         bound = bound_of(lj_ops(evaluated, inside),
                          nbytes_of(*planes, pr.ijlist, pr.nji, *out), dtype)
         # the main path's form (approx_rcp) for the JSON row, the exact time beside
-        res[dtype] = (err_a, ms_approx, plain_ms, bound, ms)
+        res[dtype] = (err_a, ms_approx, plain_ms, bound, ms, dev_approx)
         padded = npad * 8 * pr.ijlist.shape[1] * 16
         print(f"kernel at 131k ({str(dtype)[6:]}, {pr.ijlist.shape[0]} units x icap "
               f"{pr.ijlist.shape[1]}, share {sim.ishare}, {padded} padded pairs = "
@@ -1988,13 +2227,16 @@ def main() -> int:
               f"inside the cutoff): max abs err {err:.3e}, rel {rel:.3e} (tol "
               f"{tol_of(torch, dtype):.0e}); median kernel {ms:.4f} ms exact, "
               f"{ms_approx:.4f} ms with approx_rcp (approx / exact "
-              f"{ms_approx / ms:.4f}, max abs err {err_a:.3e}, rel {rel_a:.3e}), "
-              f"plain {plain_ms:.4f} ms, "
+              f"{ms_approx / ms:.4f}, max abs err {err_a:.3e}, rel {rel_a:.3e}); on "
+              f"the device (CUDA graph) {dev_ms:.4f} ms exact, {dev_approx:.4f} ms with "
+              f"approx_rcp; plain {plain_ms:.4f} ms, "
               f"bound {bound[0]:.4f} ms ({bound[1]}) on {smi}", flush=True)
         if not rel_a <= tol_of(torch, dtype):
             fail(f"K1 with approx_rcp disagrees with its plain version at 131k ({dtype})")
         if not rel <= tol_of(torch, dtype):
             fail(f"kernel disagrees with its plain version at 131k ({dtype})")
+    for line in kernel_ptxas_lines("lj_cluster_ilist_kernel"):
+        print("  " + line)
 
     # 7-10. the cluster EAM path
     eam_rows, eam_main = run_eam_phases(torch, dev, smi, ec)
@@ -2019,7 +2261,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         kernel_row(KERNEL, launches, *res[torch.float32][:4],
-                   exact_ms=res[torch.float32][4]),
+                   exact_ms=res[torch.float32][4], device_ms=res[torch.float32][5]),
         *eam_rows, stream_row,
         *typed_rows, *bucket_rows, bf16_row, *fetch_rows,
     ]}))

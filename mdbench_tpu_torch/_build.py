@@ -103,33 +103,33 @@ def nvcc_path() -> str:
     return found
 
 
-def sources() -> list[Path]:
-    return sorted(SRC_DIR.glob("*.cu"))
+def sources(src_dir: Path | None = None) -> list[Path]:
+    return sorted(Path(src_dir or SRC_DIR).glob("*.cu"))
 
 
-def library_path() -> Path:
-    """Where the library for the current sources, headers and flags
-    lives."""
+def library_path(src_dir: Path | None = None) -> Path:
+    """Where the library for the sources and headers in `src_dir` (the
+    package's csrc/ by default) and the flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(SRC_DIR.glob("*.cu*")):
+    for src in sorted(Path(src_dir or SRC_DIR).glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmdbench_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources, one nvcc each in parallel, and link them,
-    unless the library for them already exists. Raises with nvcc's
-    output if a step fails."""
-    out = library_path()
+def build(src_dir: Path | None = None) -> Path:
+    """Compile the sources of `src_dir`, one nvcc each in parallel, and
+    link them, unless the library for them already exists. Raises with
+    nvcc's output if a step fails."""
+    out = library_path(src_dir)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     tag = f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources(src_dir)]
     jobs = []
-    for src, obj in zip(sources(), objs):
+    for src, obj in zip(sources(src_dir), objs):
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         jobs.append((cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -158,11 +158,14 @@ def build() -> Path:
     return out
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built if needed, with argtypes declared."""
+def load(src_dir: Path | None = None) -> ctypes.CDLL:
+    """The kernel library, built if needed, with argtypes declared. With
+    `src_dir`, another copy of csrc/ with the same entry points (an
+    earlier checkout's or an edited one, for an A/B on the card), the
+    library built from it becomes the one every wrapper launches."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+    if _lib is None or src_dir is not None:
+        lib = ctypes.CDLL(str(build(src_dir)))
         for name, (argtypes, restype) in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

@@ -37,34 +37,60 @@
 // Each unit's sum runs in list order, so K2b and K3b equal K2 and K3 bit
 // for bit on the same lists.
 //
-// Design: K1's (lj_cluster_ilist.cu). One thread per i-atom; the sum in
-// registers in list order, deterministic, no atomics; the unit's listed
-// j16 staged in shared memory in tiles (coalesced 16-atom loads,
-// broadcast reads), 3 values per atom for pass 1, 4 (with fp) for pass 2.
-// The TPU's pre-gathered 48/64-wide planar rows, lane folds and output
-// blocks are not needed: the kernel reads the listed rows itself.
+// Design: the two sweeps of lj_cluster_ilist.cu (csrc/ilist_sweep.cuh).
+// One thread per i-atom; the sum in registers, deterministic, no atomics;
+// the unit's listed j16 staged in shared memory in tiles (coalesced
+// 16-atom loads, broadcast reads), 3 values per atom for pass 1, 4 (with
+// fp) for pass 2. Per chunk of 128 staged atoms, sweep A computes every
+// pair's rsq (explicitly rounded, the plain version's order) and sets a
+// bit of a 128-bit register mask where 0 < rsq < cutsq; sweep B pops the
+// set bits in ascending order, recomputes that pair's d and rsq with the
+// same operations and runs the pair math: sqrt, t, and one (pass 1) or two
+// (pass 2) degree-16 Horner chains. Each i-atom's sum therefore runs over
+// the plain version's pair set in list order, and K2b/K3b equal K2/K3 bit
+// for bit. The TPU's pre-gathered 48/64-wide planar rows, lane folds and
+// output blocks are not needed: the kernel reads the listed rows itself.
 //
-// What bounds it on the card: the pair arithmetic. A pair inside the
-// cutoff costs a square root and one (pass 1) or two (pass 2) degree-16
-// Horner chains, ~40-70 flops, against 12-16 bytes of staged data that
-// share*8 threads reuse. Horner runs on explicitly rounded multiplies and
-// adds (no fused multiply-add), so each pair's value is bit-equal to the
-// plain torch version's; letting the compiler fuse them is the first
-// speed step once a tolerance for it is argued.
+// What bounds it on the card: the pair arithmetic inside the cutoff, paid
+// at the warp's busiest lane. At 131k (the EAM run's final bucketed lists,
+// ops/lj_cluster.ilist_sweep_counts) 5,054,118 of 57,343,488 listed pairs
+// lie inside the 4.95 A cutoff (8.8%); such a pair costs a square root and
+// 32 (pass 1) or 64 (pass 2) explicitly rounded Horner operations, against
+// ~12 for the distance test. A branch around the pair math, per pair, was
+// taken by some lane of the warp at 928,339 of 1,889,408 staged atoms
+// (49%), each time at the price of the whole pair math; sweep B takes
+// 443,959 warp steps at chunk 64 (efficiency 0.36, mean set bits over the
+// busiest lane's) and ~344,000 at 128 (0.46). On one H100 (NVIDIA H100
+// 80GB HBM3, 700.00 W; probes/ilist.py, the branch loop's kernel and the
+// variants in one process), float32 K3b / K2b: the branch loop
+// 0.2253-0.2260 / 0.1440-0.1444 ms; the two sweeps 0.1378-0.1380 /
+// 0.1065-0.1073 at chunk 64, 0.1144-0.1151 / 0.1000-0.1032 at 128. A
+// warp-wide queue of the set bits (the pair math on 32 queued pairs a
+// step, each lane's sum from a buffer in list order) took 0.1417-0.1437 /
+// 0.1245-0.1282: its queue and buffer cost more than the busiest lane's
+// wait. Horner with fused multiply-adds was 10% faster at chunk 64 but
+// moved pass 2's float32 force off the plain version's by 1.09e-5 of max
+// |f| at 131k (1.41e-5 on the card test's engine lists), past the 1e-5
+// the kernels are held to, so each multiply and add stays rounded on its
+// own and each pair's value is bit-equal to the plain torch version's.
 //
-// Padding atoms sit at ~1e30 (rsq inf in float32, or 0 for two
-// coinciding padding atoms): the cutoff test SELECTS (a branch around the
-// pair math). rsq is formed with explicitly rounded operations in the
-// plain version's order, so the pair set is the plain version's; sqrt is
-// the IEEE square root.
+// Padding atoms sit at ~1e30 (rsq inf in float32, or 0 for two coinciding
+// padding atoms) and NaN coordinates give a NaN rsq: none sets a bit, so
+// none reaches the pair math (a select, never a product with a 0/1 mask).
+// sqrt is the IEEE square root.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ilist_sweep.cuh"
 #include "unit_map.cuh"
 
 namespace {
 
+using ilist_sweep::add_rn;
+using ilist_sweep::kChunk;
+using ilist_sweep::Mask;
+using ilist_sweep::mul_rn;
 using unit_map::Buckets;
 using unit_map::unit_of;
 
@@ -72,6 +98,9 @@ constexpr int kThreads = 128;      // threads per block
 constexpr int kJ16 = 16;           // atoms per j-cluster
 constexpr int kSmemBytes = 24576;  // staging budget per block
 constexpr int kNCoef = 17;         // degree-16 polynomials
+// dynamic shared memory a launch may take without opting in (48 KB less
+// the static s_nmax and some slack)
+constexpr size_t kDefaultSmem = 48 * 1024 - 64;
 
 template <typename T>
 struct EamCoefs {
@@ -81,10 +110,6 @@ struct EamCoefs {
   T g2[kNCoef];
 };
 
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
 __device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
 
@@ -95,6 +120,8 @@ __device__ __forceinline__ T clip1(T x) {
   return lo > T(1) ? T(1) : lo;
 }
 
+// highest degree first, each multiply and add rounded on its own (the
+// plain version's values; the header says why not fused)
 template <typename T>
 __device__ __forceinline__ T horner(const T (&c)[kNCoef], T t) {
   T acc = c[kNCoef - 1];
@@ -148,9 +175,11 @@ eam_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
   }
   const int32_t* list = ijlist + static_cast<int64_t>(active ? s : 0) * icap;
   T a0 = T(0), a1 = T(0), a2 = T(0);
+  const int nw = __reduce_max_sync(0xffffffffu, n);  // the warp's longest list
 
   for (int k0 = 0; k0 < nmax; k0 += tile_j) {
-    const int m = min(tile_j, n - k0) * kJ16;  // this unit's atoms in the tile
+    const int m = min(tile_j, n - k0) * kJ16;    // this unit's atoms in the tile
+    const int mw = min(tile_j, nw - k0) * kJ16;  // the warp's most
     for (int e = ia; e < m; e += tpu) {
       const int64_t src = static_cast<int64_t>(list[k0 + e / kJ16]) * kJ16 + e % kJ16;
       sx[e] = xc[src];
@@ -159,12 +188,17 @@ eam_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
       if constexpr (kForce) sf[e] = fp[src];
     }
     __syncthreads();
-    for (int e = 0; e < m; ++e) {
-      const T dx = xi - sx[e];
-      const T dy = yi - sy[e];
-      const T dz = zi - sz[e];
-      const T rsq = add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)), mul_rn(dz, dz));
-      if (rsq < c.cutsq && rsq > T(0)) {
+    for (int c0 = 0; c0 < mw; c0 += kChunk) {
+      // sweep A: the chunk's pairs inside the cutoff, this unit's atoms only
+      Mask mask = ilist_sweep::sweep_planes(sx, sy, sz, c0, xi, yi, zi, c.cutsq);
+      mask.keep_below(m - c0);
+      // sweep B: the pair math on the set bits, in list order
+      while (mask.any()) {
+        const int e = c0 + mask.pop();
+        const T dx = xi - sx[e];
+        const T dy = yi - sy[e];
+        const T dz = zi - sz[e];
+        const T rsq = ilist_sweep::rsq_rn(dx, dy, dz);
         const T t = clip1(mul_rn(sqrt_rn(rsq) - c.mid, c.iscale));
         if constexpr (kForce) {
           const T fpair =
@@ -207,12 +241,17 @@ int launch(const T* xc, const T* yc, const T* zc, const T* fp,
   }
   constexpr int kVals = kForce ? 4 : 3;
   const int upb = kThreads / (share * 8);
-  int tile_j = kSmemBytes / (upb * kVals * kJ16 * static_cast<int>(sizeof(T)));
-  if (tile_j < 1) tile_j = 1;
+  const int tile_j = ilist_sweep::whole_chunks(
+      kSmemBytes / (upb * kVals * kJ16 * static_cast<int>(sizeof(T))));
   const size_t smem = static_cast<size_t>(upb) * kVals * tile_j * kJ16 * sizeof(T);
+  auto* kernel = eam_ilist_kernel<T, kForce>;
+  if (smem > kDefaultSmem) {  // beyond the default limit: opt in
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const int blocks = (n_rows + upb - 1) / upb;
-  eam_ilist_kernel<T, kForce><<<blocks, kThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       xc, yc, zc, fp, ijlist, nji, bcrows, out0, out1, out2, n_rows, n_units,
       icap, share, tile_j, bk, c);
   return static_cast<int>(cudaGetLastError());

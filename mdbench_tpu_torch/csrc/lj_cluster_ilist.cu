@@ -32,19 +32,43 @@
 // second instantiation of the same template: the block copies the three
 // tables into shared memory once, each staged j atom is one packed
 // record of its coordinates and its type (Packed below: one 16-byte
-// shared-memory read per pair in float32, two in float64, where three
-// planes and a type plane took four reads), each thread reads its own
-// type once and keeps pointers to its rows of the tables, and a pair
-// reads its cutoff (and, inside it, eps and sigma6) from shared memory.
+// shared-memory read per pair in float32, two in float64), each thread
+// reads its own type once and keeps pointers to its rows of the tables.
 // The TPU kernel's T^2 trace-time selects per tile are not needed; T is a
 // runtime value up to 32 (24 KB of tables in float64).
 //
-// What bounds it on the card: the pair arithmetic (one reciprocal and ~20
-// flops per pair, over nji*16 pairs per i-atom), not memory — each
-// staged coordinate is reused by share*8 threads; the typed form adds the
-// table reads (one per pair, three inside the cutoff). The tile loop runs
-// to the block's longest list, and units with shorter lists idle for the
-// rest of it.
+// The tile loop runs in two sweeps per chunk of 128 staged atoms
+// (csrc/ilist_sweep.cuh). Sweep A, distance only: each thread forms rsq
+// for every staged atom of the chunk (planes read as 16-byte vectors; in
+// the typed form the record and the pair's cutoff cutsq_i[tj]) and sets
+// bit e of a 128-bit register mask where 0 < rsq < cutoff. Sweep B: the
+// thread pops its set bits in ascending order, recomputes that pair's d
+// and rsq with the same operations and runs the pair math (the reciprocal,
+// sr6, gf; typed, eps and sigma6 from the tables) into its sums. So each
+// i-atom's sum runs over exactly the plain version's pairs in list order,
+// and K1b equals K1 bit for bit. Lanes with fewer set bits wait for the
+// warp's busiest lane; chunks run to the warp's longest list, and each
+// lane masks the atoms past its own unit's.
+//
+// What bounds it on the card: issue slots, at about half the card's rate.
+// At 131k (the LJ run's final bucketed lists, ops/lj_cluster.
+// ilist_sweep_counts) 7,215,039 of 65,316,096 listed pairs lie inside the
+// cutoff (11%). Sweep A costs ~11 slots a listed pair (three vector reads
+// per four atoms, rsq, two compares, the bit) over 2,212,096 warp steps;
+// sweep B ~40 a step (the pop, the recomputed d and rsq, the pair math,
+// the sums) over 460,428 warp steps (efficiency 0.49: mean set bits over
+// the busiest lane's). A branch around the pair math per pair was taken
+// by some lane at 1,149,994 staged atoms (0.54 of sweep A's steps), each
+// time for ~14 (approximate reciprocal) or ~24 (divide) slots: so the two
+// sweeps gain on the divide and lose on the approximate reciprocal, whose
+// pair math is cheaper than sweep B's own steps. On one H100 (NVIDIA H100
+// 80GB HBM3, 700.00 W; probes/ilist.py, the branch loop's kernel beside
+// this one in one process), float32 K1b: exact 0.1210-0.1212 ms with the
+// branch, 0.1077-0.1090 with the two sweeps; with the approximate
+// reciprocal 0.0929 against 0.0997-0.1005; float64 0.1600-0.1605 against
+// 0.1185-0.1194. Each staged coordinate is reused by share*8 threads, so
+// memory does not bound it. The tile loop runs to the block's longest
+// list, and units with shorter lists idle for the rest of it.
 //
 // The bucketed form (K1b; replaces the per-bucket calls of the same TPU
 // kernel in mdbench_tpu/engine_cluster.py::_force_buckets) is the same
@@ -69,23 +93,25 @@
 // stop): the step is launch-bound, and a launch per bucket would add two.
 //
 // Padding atoms sit at ~1e30; in float32 their rsq overflows to inf and
-// two coinciding padding atoms give rsq == 0. The cutoff test therefore
-// SELECTS (a branch around the pair math), never multiplies by a 0/1
-// mask (inf * 0 = NaN). rsq is computed with explicitly rounded
-// operations, in the plain version's order, so the kernel keeps exactly
-// the plain version's pair set even where the compiler would contract
-// it into fused multiply-adds. The reciprocal is an IEEE divide, or, in
-// float32 when the caller asks for it (Params.approx_rcp, as the TPU
-// kernel's approx_rcp), rcp.approx.ftz.f32 and one Newton step,
-// r (2 - rsq r): the counterpart of pl.reciprocal(approx=True) and its
-// step. Float64 ignores the flag, as the TPU kernel does. Only pairs
-// inside the cutoff reach the reciprocal.
+// two coinciding padding atoms give rsq == 0, and NaN coordinates give a
+// NaN rsq. None of them sets a bit, so none reaches the pair math: the
+// cutoff test SELECTS, never multiplies by a 0/1 mask (inf * 0 = NaN).
+// rsq is computed with explicitly rounded operations, in the plain
+// version's order, so the kernel keeps exactly the plain version's pair
+// set even where the compiler would contract it into fused multiply-adds.
+// The reciprocal is an IEEE divide, or, in float32 when the caller asks
+// for it (Params.approx_rcp, as the TPU kernel's approx_rcp),
+// rcp.approx.ftz.f32 and one Newton step, r (2 - rsq r): the counterpart
+// of pl.reciprocal(approx=True) and its step. Float64 ignores the flag,
+// as the TPU kernel does. Only pairs inside the cutoff reach the
+// reciprocal (sweep B).
 //
 // The bf16 form (T2, the probe of tools/r3_bf16.py: force_bf16 -> _kernel,
 // the TPU kernel that runs K1's pair tile in bfloat16) is a third form of
 // the pair math in the same kernel: untyped, flat lists, float32 planes,
 // the TPU kernel's order of operations (r3_bf16.py:59-88), one rounding
-// per operation:
+// per operation, over every staged pair without the two sweeps (the TPU
+// kernel's masked tile):
 //   dx, dy, dz   subtracted in float32, rounded to bfloat16
 //   rsq          (dx*dx + dy*dy) + dz*dz in bfloat16
 //   mask         0 < rsq < cutforcesq, on rsq's float32 value
@@ -111,10 +137,14 @@
 
 #include <type_traits>
 
+#include "ilist_sweep.cuh"
 #include "unit_map.cuh"
 
 namespace {
 
+using ilist_sweep::kChunk;
+using ilist_sweep::Mask;
+using ilist_sweep::rsq_rn;
 using unit_map::Buckets;
 using unit_map::unit_of;
 
@@ -125,11 +155,6 @@ constexpr int kMaxTypes = 32;      // typed form: the largest T
 // dynamic shared memory a launch may take without opting in (48 KB less
 // the static s_nmax and some slack)
 constexpr size_t kDefaultSmem = 48 * 1024 - 64;
-
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 // the pair math: an IEEE divide, the approximate reciprocal with one
 // Newton step (float32 only), or the bf16 form (float32, untyped)
@@ -254,6 +279,10 @@ lj_cluster_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
       s_tab[nt2 + k] = sig6_t[k];
       s_tab[2 * nt2 + k] = cutsq_t[k];
     }
+    // sweep A reads whole chunks, past the unit's staged atoms too, and
+    // looks up each record's type: every record holds a valid type from
+    // here on (the same thread stages the same records later)
+    for (int e = ia; e < tile_atoms; e += tpu) sp[e].put(T(0), T(0), T(0), 0);
   }
 
   int n = 0;
@@ -279,9 +308,11 @@ lj_cluster_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
   const T* cutsq_i = sig6_i + nt2;
   const int32_t* list = ijlist + static_cast<int64_t>(active ? s : 0) * icap;
   T ax = T(0), ay = T(0), az = T(0);
+  const int nw = __reduce_max_sync(0xffffffffu, n);  // the warp's longest list
 
   for (int k0 = 0; k0 < nmax; k0 += tile_j) {
-    const int m = min(tile_j, n - k0) * kJ16;  // this unit's atoms in the tile
+    const int m = min(tile_j, n - k0) * kJ16;    // this unit's atoms in the tile
+    const int mw = min(tile_j, nw - k0) * kJ16;  // the warp's most
     for (int e = ia; e < m; e += tpu) {
       const int64_t src = static_cast<int64_t>(list[k0 + e / kJ16]) * kJ16 + e % kJ16;
       if constexpr (kTyped) {
@@ -299,28 +330,40 @@ lj_cluster_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
       for (int e = 0; e < m; e += 2)
         bf16_pairs(sx, sy, sz, e, xi, yi, zi, cutforcesq, sigma6, epsilon, ax, ay, az);
     } else {
-      for (int e = 0; e < m; ++e) {
-        T xj, yj, zj;
-        int tj = 0;
+      for (int c0 = 0; c0 < mw; c0 += kChunk) {
+        // sweep A: the chunk's pairs inside the cutoff, this unit's atoms only
+        Mask mask;
         if constexpr (kTyped) {
-          sp[e].get(xj, yj, zj, tj);
+#pragma unroll
+          for (int k = 0; k < kChunk; ++k) {
+            T xj, yj, zj;
+            int tj;
+            sp[c0 + k].get(xj, yj, zj, tj);
+            const T rsq = rsq_rn(xi - xj, yi - yj, zi - zj);
+            if (rsq < cutsq_i[tj] && rsq > T(0)) mask.set(k);
+          }
         } else {
-          xj = sx[e];
-          yj = sy[e];
-          zj = sz[e];
+          mask = ilist_sweep::sweep_planes(sx, sy, sz, c0, xi, yi, zi, cutforcesq);
         }
-        const T dx = xi - xj;
-        const T dy = yi - yj;
-        const T dz = zi - zj;
-        const T rsq = add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)), mul_rn(dz, dz));
-        T cut = cutforcesq;
-        if constexpr (kTyped) cut = cutsq_i[tj];
-        if (rsq < cut && rsq > T(0)) {
-          T s6 = sigma6, ep = epsilon;
+        mask.keep_below(m - c0);
+        // sweep B: the pair math on the set bits, in list order
+        while (mask.any()) {
+          const int e = c0 + mask.pop();
+          T xj, yj, zj, s6 = sigma6, ep = epsilon;
           if constexpr (kTyped) {
+            int tj;
+            sp[e].get(xj, yj, zj, tj);
             s6 = sig6_i[tj];
             ep = eps_i[tj];
+          } else {
+            xj = sx[e];
+            yj = sy[e];
+            zj = sz[e];
           }
+          const T dx = xi - xj;
+          const T dy = yi - yj;
+          const T dz = zi - zj;
+          const T rsq = rsq_rn(dx, dy, dz);
           T sr2;
           if constexpr (kMath == PairMath::kRcpNewton) {
             sr2 = rcp_newton(rsq);
@@ -357,8 +400,7 @@ int launch(const T* xc, const T* yc, const T* zc, const int32_t* tc,
   const int upb = kThreads / (share * 8);
   // bytes staged per listed j atom and unit: 3 coordinates, or a record
   const int per_atom = static_cast<int>(kTyped ? sizeof(Packed<T>) : 3 * sizeof(T));
-  int tile_j = kSmemBytes / (upb * kJ16 * per_atom);
-  if (tile_j < 1) tile_j = 1;
+  const int tile_j = ilist_sweep::whole_chunks(kSmemBytes / (upb * kJ16 * per_atom));
   const size_t tables = kTyped ? 3 * sizeof(T) * ntypes * ntypes : 0;
   const size_t smem = tables + static_cast<size_t>(upb) * tile_j * kJ16 * per_atom;
   auto* kernel = lj_cluster_ilist_kernel<T, kTyped, PairMath::kIeee>;

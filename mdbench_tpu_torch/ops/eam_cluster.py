@@ -31,7 +31,12 @@ from mdbench_tpu_torch.ops.eam import EamDevice, _grid_index, _horner
 from mdbench_tpu_torch.ops.lj_cluster import (
     _check_bucket_args,
     _check_cuda_args,
+    _group_chunks,
+    ilist_rows,
+    ilist_sweep_pairs,
     per_bucket,
+    scatter_rows,
+    sweep_sum,
 )
 
 # kernel launches made by the wrappers, by kernel (a run's proof that it
@@ -186,6 +191,37 @@ def eam_cluster_force_ref(xc, yc, zc, ijlist, border_map,
                                          n_clusters_pad, cutforcesq, poly,
                                          share)
     return fx, fy, fz, fp_plane
+
+
+def eam_sweep_ref(xc, yc, zc, ijlist, nji, n_clusters_pad: int,
+                  cutforcesq: float, poly, share: int = 2, fp_plane=None,
+                  buckets=None, max_elems: int = 1 << 24):
+    """Plain mirror of the EAM kernels' two sweeps (tests only; the
+    wrappers never call it): the pass-1 density (fp_plane None) or the
+    pass-2 force, per i-atom over the pairs sweep A marks
+    (`ops/lj_cluster.ilist_sweep_pairs`), each pair's value as the plain
+    version forms it, summed one pair at a time in list order
+    (`sweep_sum`), reading min(nji, cap) entries of each list;
+    `buckets` (plan, bcrows) as in `ops/lj_cluster.ilist_rows`. Returns (rho,) or (fx, fy, fz),
+    each (n_clusters_pad, 8)."""
+    units, n = ilist_rows(ijlist, nji, share, buckets)
+    force = fp_plane is not None
+    sums = [[] for _ in range(3 if force else 1)]
+    for sl in _group_chunks(ijlist.shape[0], share * 8, ijlist.shape[1] * 16,
+                            max_elems):
+        sp = ilist_sweep_pairs(xc, yc, zc, ijlist, units, n, share, cutforcesq,
+                               sl, extra=fp_plane)
+        r = torch.sqrt(torch.where(sp.inside, sp.rsq, 1.0))
+        t = torch.clamp((r - float(poly.mid)) * float(poly.iscale), -1.0, 1.0)
+        if force:
+            fpair = -((sp.vi + sp.vj) * _horner(poly.g1, t) + _horner(poly.g2, t))
+            vals = (sp.dx * fpair, sp.dy * fpair, sp.dz * fpair)
+        else:
+            vals = (_horner(poly.dens, t),)
+        for acc, g in zip(sums, vals):
+            acc.append(sweep_sum(g, sp.inside))
+    return tuple(scatter_rows(torch.cat(a), units, n_clusters_pad, share)
+                 for a in sums)
 
 
 def _coefs(poly, cutforcesq: float) -> np.ndarray:

@@ -18,6 +18,13 @@ Three kernel wrappers, each beside its plain torch version:
   `stream_cull` and `stream_work_counts` mirror that kernel's box cull
   and count its work; only tests and chip_smoke.py call them.
 
+The exact-list kernels (this module's and ``ops/eam_cluster.py``'s) run
+each tile in two sweeps: a distance sweep that marks each lane's pairs
+inside the cutoff, then the pair math on the marked pairs in list order
+(``csrc/ilist_sweep.cuh``). `lj_cluster_force_sweep` mirrors that sum
+and `ilist_sweep_counts` counts the sweeps' work; only tests,
+chip_smoke.py and the probes call them.
+
 The exact-list wrappers take `approx_rcp`, as mdbench_tpu's exact-list
 kernel does: in float32 on the card the kernel then takes the approximate
 reciprocal with one Newton step instead of a divide. Float64 and the plain
@@ -48,6 +55,7 @@ as their counterparts are XLA ops on every backend in mdbench_tpu.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -719,6 +727,195 @@ def stream_work_counts(xc, yc, zc, jlist, ranges, cutsq: float) -> dict:
     nwin, nkept = inwin.sum(1), kept.sum(1)
     return dict(tiles=nwin // 16, window_clusters=nwin, kept_clusters=nkept,
                 lane_pairs=nkept * WARP_STEP_PAIRS)
+
+
+# the exact-list kernels' sweep chunk: staged j atoms per lane mask
+# (csrc/ilist_sweep.cuh kChunk)
+SWEEP_CHUNK = 128
+WARP = 32  # threads (i-atoms) per warp
+
+
+def ilist_rows(ijlist, nji, share: int, buckets=None):
+    """(units, n), each (n_rows,) int64: the unit whose list is each row of
+    `ijlist` (-1 for a dummy unit) and the entries the exact-list kernels
+    read there. Flat (buckets None): row u is unit u, n = min(nji, icap).
+    Bucketed, buckets = (plan, bcrows) with plan (sizes, caps) and ijlist
+    then bijlist (rows in nji order): the unit of cluster row
+    bcrows[s * share], n = min(nji, icap, its bucket's cap)."""
+    nrow, icap = ijlist.shape
+    dev = ijlist.device
+    nj = nji.long().clamp(min=0)
+    if buckets is None:
+        return torch.arange(nrow, device=dev), nj.clamp(max=icap)
+    plan, bcrows = buckets
+    ends, caps = (torch.as_tensor(np.array(a, np.int64), device=dev)
+                  for a in bucket_table(tuple(map(tuple, plan))))
+    c0 = bcrows.long()[::share]
+    units = torch.where(c0 < nj.shape[0] * share, c0 // share, -1)
+    pos = torch.arange(nrow, device=dev)
+    cap = caps[torch.searchsorted(ends, pos, right=True)].clamp(max=icap)
+    n = torch.where(units >= 0, torch.minimum(nj[units.clamp(min=0)], cap), 0)
+    return units, n
+
+
+class SweepPairs(NamedTuple):
+    """A block of list rows' pairs as the exact-list kernels' sweeps see
+    them, each (r, share*8, icap*16) or broadcastable to it."""
+
+    dx: torch.Tensor
+    dy: torch.Tensor
+    dz: torch.Tensor
+    rsq: torch.Tensor
+    inside: torch.Tensor  # sweep A's bits
+    eps: object = None  # typed: per-pair epsilon and sigma^6
+    sig6: object = None
+    vi: object = None  # `extra` plane: the i-atoms' values (r, share*8, 1)
+    vj: object = None  # and the listed atoms' (r, 1, icap*16)
+
+
+def ilist_sweep_pairs(xc, yc, zc, ijlist, units, n, share: int, cutforcesq,
+                      rows: slice, tc=None, tables=None,
+                      extra=None) -> SweepPairs:
+    """The pairs of list rows `rows`: the i-atoms of each row's unit
+    (`ilist_rows`; a dummy unit's lanes read unit 0's rows and list
+    nothing) against its listed j atoms in list order. inside is sweep
+    A's bit: entry < n and 0 < rsq < cutoff, rsq = (dx*dx + dy*dy) + dz*dz
+    rounded per operation in the planes' dtype (a NaN rsq is never
+    inside); typed, the cutoff, epsilon and sigma^6 come from the tables
+    at the pair's types. `extra`, a (C_total, 8) plane (EAM's fp), is
+    gathered like the coordinates."""
+    jl = ijlist[rows].long()
+    r, icap = jl.shape
+    tpu = share * 8
+    cjn = xc.shape[0] // 2
+    u = units[rows].clamp(min=0)
+    irow = (u[:, None] * tpu + torch.arange(tpu, device=jl.device)).reshape(-1)
+
+    def gather(p):
+        return (p.reshape(-1)[irow].reshape(r, tpu, 1),
+                p.reshape(cjn, 16)[jl].reshape(r, 1, icap * 16))
+
+    dx, dy, dz = (a - b for a, b in map(gather, (xc, yc, zc)))
+    eps = sig6 = None
+    if tables is not None:
+        eps, sig6, cutforcesq = _pair_params(tables, *gather(tc), xc)
+    rsq = (dx * dx + dy * dy) + dz * dz
+    listed = torch.arange(icap * 16, device=jl.device) < (n[rows] * 16)[:, None]
+    inside = listed[:, None, :] & (rsq < cutforcesq) & (rsq > 0.0)
+    vi, vj = gather(extra) if extra is not None else (None, None)
+    return SweepPairs(dx, dy, dz, rsq, inside, eps, sig6, vi, vj)
+
+
+def sweep_sum(g, inside):
+    """Sweep B's per-lane sums: for each (row, lane), the values `g` (r,
+    lanes, L) at its inside pairs added one at a time in ascending list
+    order, each addition rounded in g's dtype (the kernel may fuse a
+    product into its addition; the mirror does not). Pairs outside add
+    nothing (selected, never multiplied by a 0/1 mask)."""
+    g = torch.where(inside, g, torch.zeros((), dtype=g.dtype, device=g.device))
+    acc = torch.zeros(g.shape[:2], dtype=g.dtype, device=g.device)
+    for e in range(g.shape[2]):
+        acc = acc + g[:, :, e]
+    return acc
+
+
+def scatter_rows(vals, units, n_clusters_pad: int, share: int):
+    """(n_clusters_pad, 8) planes from per-row sums `vals` (n_rows,
+    share*8): each real unit's rows written from its row; rows of no unit
+    stay 0."""
+    out = torch.zeros(n_clusters_pad * 8, dtype=vals.dtype, device=vals.device)
+    keep = units >= 0
+    tpu = share * 8
+    idx = (units[keep][:, None] * tpu + torch.arange(tpu, device=vals.device))
+    out[idx.reshape(-1)] = vals[keep].reshape(-1)
+    return out.reshape(n_clusters_pad, 8)
+
+
+def lj_cluster_force_sweep(
+    xc, yc, zc,  # (C_total, 8) coordinate planes
+    ijlist,  # (n_rows, icap) int j16 ids (bijlist when bucketed)
+    nji,  # (n_units,) int list lengths
+    n_clusters_pad: int,
+    cutforcesq: float, sigma6: float, epsilon: float,
+    share: int = 2,
+    tc=None,  # (C_total, 8) int types, typed runs only
+    tables=None,  # (eps, sig6, cutsq), each (T, T), typed runs only
+    buckets=None,  # (plan, bcrows) for the bucketed form
+    max_elems: int = 1 << 24,
+):
+    """Plain mirror of the exact-list kernels' two sweeps (tests and
+    chip_smoke.py only; the force wrappers never call it): per i-atom,
+    the pair math (dividing) on the pairs that sweep A marks
+    (`ilist_sweep_pairs`), summed by `sweep_sum` in list order. Flat, or
+    bucketed (`ilist_rows`). Returns (fx, fy, fz), each
+    (n_clusters_pad, 8)."""
+    _check_typed_pair(tc, tables)
+    units, n = ilist_rows(ijlist, nji, share, buckets)
+    sums = [[], [], []]
+    for sl in _group_chunks(ijlist.shape[0], share * 8, ijlist.shape[1] * 16,
+                            max_elems):
+        sp = ilist_sweep_pairs(xc, yc, zc, ijlist, units, n, share, cutforcesq,
+                               sl, tc, tables)
+        eps, s6 = (sp.eps, sp.sig6) if tables is not None else (epsilon, sigma6)
+        sr2 = 1.0 / torch.where(sp.inside, sp.rsq, 1.0)
+        sr6 = sr2 * sr2 * sr2 * s6
+        gf = 48.0 * eps * sr6 * (sr6 - 0.5) * sr2
+        for acc, d in zip(sums, (sp.dx, sp.dy, sp.dz)):
+            acc.append(sweep_sum(d * gf, sp.inside))
+    return tuple(scatter_rows(torch.cat(a), units, n_clusters_pad, share)
+                 for a in sums)
+
+
+def ilist_sweep_counts(xc, yc, zc, ijlist, nji, share: int, cutsq,
+                       chunk: int = SWEEP_CHUNK, buckets=None, tc=None,
+                       tables=None, max_elems: int = 1 << 24) -> dict:
+    """The exact-list kernels' work on these lists (tests and
+    chip_smoke.py only). Per list row (n_rows,) int64: `listed` pairs
+    (its unit's share*8 i-atoms x its n*16 listed atoms, `ilist_rows`),
+    `inside` pairs (sweep A's set bits) and `sweep_b`, the sum over
+    chunks of `chunk` atoms of the most bits any of the row's lanes has
+    there. Totals (ints), per warp of 32 lanes (32 / (8*share)
+    consecutive rows): `warp_sweep_a`, the lane steps of sweep A (every
+    chunk up to the warp's longest list); `warp_sweep_b`, sweep B's
+    iterations (per chunk the most set bits of any lane of the warp);
+    `warp_branch`, the staged atoms at which a branch around the pair
+    math (the earlier design) is taken by some lane of the warp;
+    `efficiency`, the warp's mean set bits over its most, inside /
+    (32 * warp_sweep_b). Typed, each pair's cutoff comes from the
+    tables."""
+    if chunk < 1:
+        raise ValueError("chunk must be positive")
+    units, n = ilist_rows(ijlist, nji, share, buckets)
+    nrow, icap = ijlist.shape
+    tpu = share * 8
+    per = max(WARP // tpu, 1)  # rows per warp
+    nchunk = -(-icap * 16 // chunk)
+    width = nchunk * chunk
+    bits = torch.zeros((nrow, tpu, nchunk), dtype=torch.int64, device=xc.device)
+    hit = torch.zeros((nrow, icap * 16), dtype=torch.bool, device=xc.device)
+    for sl in _group_chunks(nrow, tpu, icap * 16, max_elems):
+        inside = ilist_sweep_pairs(xc, yc, zc, ijlist, units, n, share, cutsq,
+                                   sl, tc, tables).inside
+        padded = torch.nn.functional.pad(inside, (0, width - icap * 16))
+        bits[sl] = padded.reshape(inside.shape[0], tpu, nchunk, chunk).sum(3)
+        hit[sl] = inside.any(1)
+    listed = n * 16 * tpu
+    inside = bits.sum((1, 2))
+    sweep_b = bits.amax(1).sum(1)
+    pad = -nrow % per
+    wbits = torch.nn.functional.pad(bits, (0, 0, 0, 0, 0, pad))
+    wbits = wbits.reshape(-1, per * tpu, nchunk)
+    whit = torch.nn.functional.pad(hit, (0, 0, 0, pad)).reshape(-1, per, icap * 16)
+    nw = torch.nn.functional.pad(n, (0, pad)).reshape(-1, per).amax(1)
+    warp_b = int(wbits.amax(1).sum())
+    total_inside = int(inside.sum())
+    return dict(
+        listed=listed, inside=inside, sweep_b=sweep_b,
+        warp_sweep_a=int(((nw * 16 + chunk - 1) // chunk * chunk).sum()),
+        warp_sweep_b=warp_b,
+        warp_branch=int(whit.any(1).sum()),
+        efficiency=total_inside / (WARP * warp_b) if warp_b else 1.0,
+    )
 
 
 def _check_stream_args(xc, yc, zc, jlist, ranges, n_clusters_pad):

@@ -92,6 +92,23 @@ def test_headers_are_hashed_not_compiled(fake_toolkit):
     assert compiles.endswith("a.cu") and "-shared" in link
 
 
+def test_build_from_another_source_dir(fake_toolkit, tmp_path):
+    """build(src_dir) compiles another copy of csrc/ (an A/B's variant)
+    into a library of its own beside the package's, and leaves the
+    package's sources alone."""
+    src, calls = fake_toolkit
+    (src / "a.cu").write_text("// a\n")
+    other = tmp_path / "variant"
+    other.mkdir()
+    (other / "a.cu").write_text("// a, a variant\n")
+    mine, theirs = _build.build(), _build.build(other)
+    assert mine == _build.library_path() and theirs == _build.library_path(other)
+    assert mine != theirs and mine.exists() and theirs.exists()
+    compiled = [line.split()[-1] for line in calls.read_text().splitlines()
+                if " -c " in f" {line} "]
+    assert compiled == [str(src / "a.cu"), str(other / "a.cu")]
+
+
 def _c_argtype(decl: str):
     """The ctypes type of one C parameter declaration of an entry point."""
     decl = decl.strip()

@@ -29,6 +29,7 @@ from chip_smoke import (
     hand_plan,
     random_group_lists,
     random_tables,
+    sweep_edge_calls,
     write_standin_funcfl,
 )
 from mdbench_tpu_torch.config import FF_EAM, Params
@@ -572,6 +573,51 @@ def test_cuda_approx_rcp_kernels(cuda, share, nu, tdtype):
             assert all(torch.equal(a, b) for a, b in zip(approx, exact)), name
         got[name] = approx
     assert all(torch.equal(a, b) for a, b in zip(got["K1b"], got["K1"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("share", [1, 2, 4])
+@pytest.mark.parametrize("tdtype", [torch.float32, torch.float64])
+def test_cuda_ilist_kernels_on_sweep_edge_cases(cuda, eam_file, tdtype, share, nan):
+    """K1, K1t, K1b, K2, K2b, K3 and K3b on chip_smoke.boundary_ilist_case
+    (chip_smoke.sweep_edge_calls): pairs exactly at the cutoff and one ulp
+    inside it, padding at 1e30, coinciding padding, NaN rows, an empty
+    list, units without a pair inside (rows exactly 0), a tile whose every
+    pair is inside, a unit whose pairs inside lie in one chunk; flat, and
+    bucketed on a hand plan with a zero tier and dummy units (bit-equal to
+    the flat kernels) and with a truncating bucket. NaN atoms take no
+    pair, so with NaN rows the kernels must give the plain versions'
+    values on the same rows as padding (rows 0-1 also on their own: their
+    forces are small beside the dense rows'). Two launches give the same
+    bits; with approx_rcp the LJ kernels stay within the tolerance in
+    float32 and are bit-equal in float64."""
+    np_dtype = np.float32 if tdtype == torch.float32 else np.float64
+    calls, p_k, p_r, npad = sweep_edge_calls(torch, cuda, np_dtype, share, nan,
+                                             fit_eam_poly(load_eam(eam_file)))
+    got = {}
+    for name, (kern, plain) in calls.items():
+        out, again = kern(p_k), kern(p_k)
+        torch.cuda.synchronize()
+        want = plain(p_r)
+        assert float(want[0].abs().max()) > 0, name
+        for rows in (slice(0, 2), slice(0, npad)):
+            a, b = [t[rows] for t in out], [t[rows] for t in want]
+            if any(bool(t.any()) for t in b):
+                assert _rel(a, b) <= TOL[tdtype], name
+            else:  # a truncating bucket can leave rows 0-1 without a pair
+                assert not any(bool(t.any()) for t in a), name
+        for a, b in zip(out, again):
+            assert torch.equal(a, b) and (a[4:] == 0).all(), name
+        got[name] = out
+        if name.startswith("K1"):
+            approx = kern(p_k, approx_rcp=True)
+            if tdtype == torch.float64:
+                assert all(torch.equal(a, b) for a, b in zip(approx, out)), name
+            else:
+                assert _rel(approx, want) <= TOL[tdtype], name
+    for flat in ("K1", "K2", "K3"):
+        assert all(torch.equal(a, b) for a, b in zip(got[flat + "b"], got[flat])), flat
 
 
 @pytest.mark.cuda
