@@ -159,9 +159,28 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      graph: the JSON rows' ms and library_ms) and back to back from the
      host, each beside index_select's, and the bound.
 
+ 27. the verlet scheme's main path: run_bench_verlet (131,072 atoms, 200
+     SP steps, 16-atom row lists), flat (engine.FlatSimulation: K1 for
+     every force) and bucketed (the melt calibration plans capacity
+     buckets: K1 for the set-up forces before the plan, K1b for every
+     force of the checked and timed runs), each gated on the C
+     reference's temperature trace; no other kernel launches;
+ 28. K1 and K1b on those runs' final row lists (planes
+     x[:, d].reshape(-1, 8), share 2) against their plain twins, float32
+     (<= 1e-5) and float64 (<= 1e-12), exact and with approx_rcp, K1b
+     bit-equal to K1; median times back to back and on the device, sweep
+     counts, bound, and the time of the three plane copies a force call
+     makes; then a jittered 8^3 DP verlet box, card against the CPU plain
+     path (step-0 forces <= 1e-10, 40-step temperatures <= 1e-9) on the
+     row lists, the planar full lists and the half lists;
+ 29. measure_phases on the bucketed run's final state (FORCE and NEIGH
+     ms), the stream synchronisations of a 40-step run and of one rebuild
+     (torch.cuda.set_sync_debug_mode), and one torch.profiler pass over a
+     200-step run (device ms by kernel, busy share).
+
 Every kernel count is set to 0 just before each main path (phases 4, 8,
-12, both runs of 17, and the probes' runs in 25 and 26) and read just
-after it. Then it prints a JSON line of the kernels, nvidia-smi's line,
+12, both runs of 17, the probes' runs in 25 and 26, and both runs of 27)
+and read just after it. Then it prints a JSON line of the kernels, nvidia-smi's line,
 and {"ok": true, "device": {...}} as the last line; the script's wall
 time goes to standard error.
 
@@ -2068,6 +2087,212 @@ def run_fetch_phase(torch, dev, smi: str) -> list:
     return out
 
 
+VERLET_KERNELS = {
+    "flat": {**KERNEL, "name": "lj_cluster_ilist (verlet rows)"},
+    "bucketed": {**BUCKET_KERNELS["lj_cluster_ilist_buckets"],
+                 "name": "lj_cluster_ilist_buckets (verlet rows)"},
+}
+
+
+def sync_count(torch, fn) -> int:
+    """Host synchronisations of the stream in fn() (torch.cuda's sync
+    debug mode, its warnings counted)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # torch's text for each synchronising call (the mode's own "prototype"
+    # warning, emitted once, is not one)
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def verlet_kernel_row(torch, lj, sim, st, smi: str, launches: int, bucketed: bool,
+                      tag: str) -> dict:
+    """K1 (flat) or K1b (bucketed) on a verlet run's final state: the
+    planes x[:, d].reshape(-1, 8) and the row lists (share 2), against the
+    plain twin in float32 and float64 (exact and with approx_rcp, the
+    main path's form), K1b also bit-equal to K1 on the same lists; median
+    times back to back and on the device alone, the sweep counts and the
+    bound. Returns the JSON row (float32, approx_rcp)."""
+    from mdbench_tpu_torch.probes import graph_ms
+
+    p, nl = sim.params, st.nlist
+    npad = sim.caps.nlocal_pad // 8
+    cut = (p.cutforce**2, p.sigma6, p.epsilon)
+    planes32 = [st.x[:, k].reshape(-1, 8).contiguous() for k in range(3)]
+    if bucketed:
+        lists, kw = nl.brows, dict(buckets=(sim.rbuckets, nl.bcrows))
+    else:
+        lists, kw = nl.rows, {}
+    c = lj.ilist_sweep_counts(*planes32, lists, nl.numrows, 2, p.cutforce**2, **kw)
+    evaluated, inside = int(c["listed"].sum()), int(c["inside"].sum())
+    print(f"{tag} at 131k ({'buckets ' + str(sim.rbuckets) if bucketed else 'flat'}, "
+          f"{nl.rows.shape[0]} units x rcap {nl.rows.shape[1]}, numrows mean "
+          f"{float(nl.numrows.float().mean()):.2f} max {int(nl.numrows.max())}): "
+          + sweep_line(torch, lj, planes32, lists, nl.numrows, 2, p.cutforce**2, **kw),
+          flush=True)
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        planes = [q.to(dtype) for q in planes32]
+
+        def flat(approx=False):
+            return lj.lj_cluster_force_ilist(*planes, nl.rows, nl.numrows, npad, *cut,
+                                             share=2, approx_rcp=approx)
+
+        if bucketed:
+            maps = (nl.brows, nl.bcrows, nl.binv)
+
+            def kern(approx=False):
+                return lj.lj_cluster_force_buckets(*planes, *maps, nl.numrows, npad,
+                                                   sim.rbuckets, *cut, share=2,
+                                                   approx_rcp=approx)
+
+            def plain():
+                return lj.lj_cluster_force_buckets_ref(*planes, *maps, npad,
+                                                       sim.rbuckets, *cut, share=2)
+        else:
+            kern = flat
+
+            def plain():
+                return lj.lj_cluster_force_ilist_ref(*planes, nl.rows, npad, *cut,
+                                                     share=2)
+
+        out, want = kern(), plain()
+        err, rel = rel_err(torch, out, want)
+        err_a, rel_a = rel_err(torch, kern(True), want)
+        same = all(torch.equal(a, b) for a, b in zip(out, flat()))
+        ms, ms_a = median_ms(torch, kern, 50), median_ms(torch, lambda: kern(True), 50)
+        dev_a = graph_ms(lambda: kern(True), 50)
+        plain_ms = median_ms(torch, plain, 5)
+        bound = bound_of(lj_ops(evaluated, inside),
+                         nbytes_of(*planes, lists, nl.numrows, *out)
+                         + (nbytes_of(nl.bcrows) if bucketed else 0), dtype)
+        res[dtype] = (err_a, ms_a, plain_ms, bound, ms, dev_a)
+        tol = tol_of(torch, dtype)
+        print(f"{tag} at 131k ({str(dtype)[6:]}): max abs err {err:.3e}, rel {rel:.3e} "
+              f"(tol {tol:.0e}); with approx_rcp (the main path's form) max abs err "
+              f"{err_a:.3e}, rel {rel_a:.3e}; equal to K1 on the same lists: {same}; "
+              f"median {ms:.4f} ms exact, {ms_a:.4f} ms with approx_rcp, on the device "
+              f"(CUDA graph) {dev_a:.4f} ms; plain {plain_ms:.4f} ms; bound "
+              f"{bound[0]:.4f} ms ({bound[1]}; {evaluated} listed pairs, {inside} "
+              f"inside) on {smi}", flush=True)
+        if not (rel <= tol and rel_a <= tol and same):
+            fail(f"{tag} on the verlet lists disagrees with its plain version or K1 "
+                 f"({dtype})")
+    copies = median_ms(torch, lambda: [st.x[:, k].reshape(-1, 8).contiguous()
+                                       for k in range(3)], 50)
+    print(f"{tag}: the three plane copies x[:, d].reshape(-1, 8).contiguous() of the "
+          f"{tuple(st.x.shape)} state: {copies:.4f} ms per force call on {smi}",
+          flush=True)
+    r = res[torch.float32]
+    return kernel_row(VERLET_KERNELS["bucketed" if bucketed else "flat"], launches,
+                      *r[:4], exact_ms=r[4], device_ms=r[5])
+
+
+def run_verlet_phases(torch, dev, smi: str, ec) -> list:
+    """Phases 27-29 (the verlet scheme's LJ path). Returns the JSON rows of
+    K1 and K1b on the verlet lists."""
+    from mdbench_tpu_torch.bench import root_bench, run_bench_verlet
+    from mdbench_tpu_torch.config import Params
+    from mdbench_tpu_torch.engine import FlatSimulation, Simulation
+    from mdbench_tpu_torch.models.lattice import create_fcc_lattice
+    from mdbench_tpu_torch.ops import lj_cluster as lj
+
+    def run_flat():
+        """run_bench_verlet's run on FlatSimulation (no capacity buckets)."""
+        params = Params(precision="sp", scheme="verlet", dense_thermo=False)
+        sim = FlatSimulation(params, device=dev)
+        out = sim.run(repeats=REPEATS, chain=CHAIN)
+        root_bench().check_golden(out.temps, params.reneigh_every)
+        return sim, out, sim.natoms * params.ntimes / out.total_time
+
+    # 27. the verlet 131k/200 SP run, flat and bucketed, golden-gated
+    runs = {}
+    for side in ("flat", "bucketed"):
+        reset_counts(lj, ec)
+        t0 = time.perf_counter()
+        sim, out, rate = (run_flat() if side == "flat"
+                          else run_bench_verlet(repeats=REPEATS, chain=CHAIN))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: getattr(lj, name) for name in LJ_COUNTS}
+        p = sim.params
+        need = (1 + REPEATS * CHAIN) * (p.ntimes + 1)
+        print(f"verlet {side}: {sim.natoms} atoms, {p.ntimes} steps, {p.precision}, "
+              f"caps {tuple(sim.caps)}, rcap {sim.rcap}, ccap {sim.ccap}, ucl "
+              f"{sim.ucl}, ukr {sim.ukr}, buckets {sim.rbuckets}; golden gate passed; "
+              f"TOTAL {out.total_time:.6f} s per run, {rate:.6e} atom-updates/s, run() "
+              f"wall {wall:.2f} s; launches {counts}; EAM {dict(ec.LAUNCHES)} on {smi}",
+              flush=True)
+        k1, k1b = counts["LAUNCHES"], counts["BUCKET_LAUNCHES"]
+        others = {k: v for k, v in counts.items()
+                  if k not in ("LAUNCHES", "BUCKET_LAUNCHES") and v}
+        if others or any(ec.LAUNCHES.values()):
+            fail(f"the verlet run launched another force kernel: {others}")
+        if side == "flat" and (sim.rbuckets is not None or k1b or k1 < need):
+            fail(f"the flat verlet run launched K1 {k1} (>= {need}) and K1b {k1b} "
+                 "(0) times")
+        if side == "bucketed" and (sim.rbuckets is None or k1 < 1 or k1b < need):
+            fail(f"the bucketed verlet run planned {sim.rbuckets} and launched K1 {k1} "
+                 f"(set-up) and K1b {k1b} (>= {need}) times")
+        if not np.isfinite(out.temps).all() or not bool(torch.isfinite(out.state.v).all()):
+            fail("the verlet run's state is not finite")
+        print(f"verlet {side} temps: " + " ".join(
+            f"{s_}:{out.temps[s_ - 1]:.6e}" for s_ in range(20, p.ntimes + 1, 20)))
+        runs[side] = (sim, out.state, k1b if side == "bucketed" else k1, out.total_time)
+
+    # 28. K1 and K1b on the verlet run's final lists; a small box card vs CPU
+    rows = [verlet_kernel_row(torch, lj, *runs["flat"][:2], smi, runs["flat"][2],
+                              False, "K1 (verlet rows)"),
+            verlet_kernel_row(torch, lj, *runs["bucketed"][:2], smi,
+                              runs["bucketed"][2], True, "K1b (verlet rows)")]
+    for extra in ({"kernel": "auto"}, {"kernel": "xla"}, {"half_neigh": 1}):
+        kw = dict(nx=8, ny=8, nz=8, ntimes=40, reneigh_every=10, precision="dp",
+                  **extra)
+        x, v, _ = create_fcc_lattice(Params(**kw))
+        x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
+        f_c, f_g = (Simulation(Params(**kw), x=x, v=v, device=d).first_force()
+                    for d in ("cpu", dev))
+        frel = np.abs(f_g - f_c).max() / np.abs(f_c).max()
+        r_c, r_g = (Simulation(Params(**kw), device=d).run(repeats=0)
+                    for d in ("cpu", dev))
+        trel = float(np.max(np.abs(r_g.temps - r_c.temps) / np.abs(r_c.temps)))
+        print(f"verlet small input 8^3 dp {extra}: step-0 force rel err {frel:.3e} (tol "
+              f"1e-10), 40-step temperature rel err {trel:.3e} (tol 1e-9)", flush=True)
+        if not (frel <= 1e-10 and trel <= 1e-9):
+            fail(f"the card's verlet run {extra} disagrees with the CPU plain path")
+
+    # 29. FORCE/NEIGH, host synchronisations, the profile of one run
+    sim, st = runs["bucketed"][:2]
+    t_force, t_neigh = sim.measure_phases(st)
+    n_run = sync_count(torch, lambda: sim._run_steps(sim.initial_state(), 40))
+    n_ren = sync_count(torch, lambda: sim._reneighbor(st.x, st.types))
+    prof = device_profile(torch, lambda: sim._run_steps(sim.initial_state(), 200))
+    top = sorted(prof["ms"].items(), key=lambda kv: -kv[1])[:12]
+    total_ms = sum(prof["ms"].values())
+    print(f"verlet measure_phases at 131k (buckets {sim.rbuckets}): FORCE "
+          f"{t_force * 1e3:.4f} ms per call, NEIGH {t_neigh * 1e3:.4f} ms per rebuild; "
+          f"host synchronisations: {n_run} in a 40-step _run_steps (initial state "
+          f"included), {n_ren} in one rebuild; on {smi}", flush=True)
+    total = runs["bucketed"][3]
+    print(f"verlet TOTAL {total:.6f} s against 200 FORCE + 10 NEIGH = "
+          f"{(200 * t_force + 10 * t_neigh):.6f} s on {smi}", flush=True)
+    print(f"verlet profile of one 200-step _run_steps: wall {prof['wall_s']:.4f} s "
+          f"(profiled), device busy {prof['busy']:.4f}, {prof['spans']} spans, device "
+          f"ms {total_ms:.4f}; top kernels (ms): " + "; ".join(
+              f"{name[:110]} {ms:.4f}" for name, ms in top), flush=True)
+    if not (0 < t_force < 1 and 0 < t_neigh < 10):
+        fail("verlet measure_phases gave no plausible times")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2259,11 +2484,14 @@ def main() -> int:
     bf16_row = run_bf16_phase(torch, dev, smi, ec, (sim, st, b_launches))
     fetch_rows = run_fetch_phase(torch, dev, smi)
 
+    # 27-29. the verlet scheme's LJ path
+    verlet_rows = run_verlet_phases(torch, dev, smi, ec)
+
     print(json.dumps({"kernels": [
         kernel_row(KERNEL, launches, *res[torch.float32][:4],
                    exact_ms=res[torch.float32][4], device_ms=res[torch.float32][5]),
         *eam_rows, stream_row,
-        *typed_rows, *bucket_rows, bf16_row, *fetch_rows,
+        *typed_rows, *bucket_rows, bf16_row, *fetch_rows, *verlet_rows,
     ]}))
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(smi)

@@ -1,8 +1,10 @@
 """mdbench_tpu_torch — the PyTorch/CUDA port of mdbench_tpu.
 
 The port runs the cluster-pair scheme (GROMACS-style M x N cluster lists,
-reference src/clusterpair/) with Lennard-Jones or EAM forces on one NVIDIA
-Hopper card. Module paths mirror ``mdbench_tpu`` so each function's counterpart is
+reference src/clusterpair/; ``engine_cluster.py``) with Lennard-Jones or
+EAM forces, and the verlet scheme (per-atom or 16-atom row lists,
+reference src/verletlist/; ``engine.py``) with Lennard-Jones forces, on
+one NVIDIA Hopper card. Module paths mirror ``mdbench_tpu`` so each function's counterpart is
 easy to find; ``mdbench_tpu`` stays the reference the tests hold the port
 against.
 
@@ -15,7 +17,9 @@ against.
   (``csrc/lj_cluster_ilist.cu``), the two EAM passes
   (``csrc/eam_cluster.cu``) and the group-window LJ force
   (``csrc/lj_cluster_stream.cu``), picked by ``Params.kernel`` as in
-  mdbench_tpu. On a CPU tensor the plain torch twins run instead;
+  mdbench_tpu; the verlet scheme's row lists run the exact-list LJ
+  kernel with 16-atom rows as its j-clusters. On a CPU tensor the plain
+  torch twins run instead;
 - ``stats.py`` and ``stub.py`` port the exact counters and the cluster
   kernel microbenchmark.
 

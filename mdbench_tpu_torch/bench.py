@@ -16,6 +16,10 @@ Prints exactly one JSON line.
 card (the same 32^3 cells, with initEam's overrides: 131,072 atoms,
 cutoff of the potential file, 60 steps) and applies no gate.
 
+`run_bench_verlet` runs the same LJ workload on the verlet scheme
+(tools/r4_vbench.py's run: 16-atom row lists, K1 or K1b on the card),
+gated on the same golden trace.
+
 `run_bench_file` runs the same LJ workload from an atom file
 (`Params(input_file=...)`: positions, velocities, box and types of the
 file; a file with more than one type runs the typed force with the
@@ -52,6 +56,24 @@ def run_bench(repeats: int = 3, chain: int = 3, kernel: str = "auto"):
     params = Params(precision="sp", scheme="cluster", kernel=kernel,
                     dense_thermo=False)
     sim = ClusterSimulation(params, device="cuda")
+    out = sim.run(repeats=repeats, chain=chain)
+    check_golden(out.temps, params.reneigh_every)
+    return sim, out, sim.natoms * params.ntimes / out.total_time
+
+
+def run_bench_verlet(repeats: int = 3, chain: int = 3, kernel: str = "auto"):
+    """The benchmark run on the verlet scheme on the CUDA card, gated on
+    the golden trace, with the verlet force path `kernel` ("auto" or
+    "rowlist": the row lists and the exact-list kernels; "xla": the
+    planar per-atom force). Returns (sim, result, atom-updates per
+    second)."""
+    from mdbench_tpu_torch.config import Params
+    from mdbench_tpu_torch.engine import Simulation
+
+    check_golden = root_bench().check_golden
+    params = Params(precision="sp", scheme="verlet", kernel=kernel,
+                    dense_thermo=False)
+    sim = Simulation(params, device="cuda")
     out = sim.run(repeats=repeats, chain=chain)
     check_golden(out.temps, params.reneigh_every)
     return sim, out, sim.natoms * params.ntimes / out.total_time

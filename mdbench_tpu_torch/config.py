@@ -100,17 +100,19 @@ class Params:
     # two packages read the same files and print the same banner. The
     # port runs a subset; engine_cluster.check_slice raises
     # NotImplementedError for the rest (see ROADMAP.md).
-    scheme: str = "verlet"  # "verlet" | "cluster"  (port: cluster only)
+    scheme: str = "verlet"  # "verlet" | "cluster"  (port: verlet LJ only)
     precision: str = "dp"  # "sp" | "dp"  (reference config.mk DATA_TYPE)
     compute_stats: bool = True
     sort_atoms: bool = True  # reference SORT_ATOMS
     # record T/P every step (True) or only at reneighbor boundaries
     # (False — the reference prints only every nstat steps)
     dense_thermo: bool = True
-    # force-kernel axis, as in mdbench_tpu: "auto" | "ilist_pl" (the
-    # exact-list kernels), "pallas" (the group-window kernel), "ilist" |
-    # "xla" (their plain torch twins, on any device); on the CPU every
-    # name runs the plain versions
+    # force-kernel axis, as in mdbench_tpu. Cluster scheme: "auto" |
+    # "ilist_pl" (the exact-list kernels), "pallas" (the group-window
+    # kernel), "ilist" | "xla" (their plain torch twins, on any device).
+    # Verlet scheme: "auto" | "rowlist" (16-atom row lists and the
+    # exact-list kernels), "xla" (the planar per-atom force). On the CPU
+    # every name runs the plain versions
     kernel: str = "auto"
     # FORCE/NEIGH section timing mode of the JAX CLI ("est" | "diff")
     timers: str = "est"

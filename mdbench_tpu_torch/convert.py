@@ -1,8 +1,9 @@
-"""Carry cluster state and EAM tables from mdbench_tpu into the port.
+"""Carry state and EAM tables from mdbench_tpu into the port.
 
-The system has no weights: its state is the cluster layout, the ghost
-map and the pair lists, and its parameters are the EAM spline tables and
-pair polynomials, and on typed runs the per-type-pair LJ tables. Each
+The system has no weights: its state is the cluster layout (cluster
+scheme) or the atom rows (verlet scheme), the ghost map and the pair
+lists, and its parameters are the EAM spline tables and pair
+polynomials, and on typed runs the per-type-pair LJ tables. Each
 function takes the arrays of one of
 mdbench_tpu's NamedTuples — the NamedTuple itself (its arrays convert
 with numpy.asarray), any object with the same attribute names, or a
@@ -18,10 +19,12 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from mdbench_tpu_torch.engine import StepState
 from mdbench_tpu_torch.engine_cluster import CStepState
 from mdbench_tpu_torch.models.eam_tables import EamPoly
 from mdbench_tpu_torch.ops.eam import EamDevice
 from mdbench_tpu_torch.ops.cluster import ClusterHalo, ClusterPairList, Clusters
+from mdbench_tpu_torch.state import Halo, NeighborList
 
 
 def _field(src, name):
@@ -122,6 +125,49 @@ def step_state_from_numpy(src, device, dtype, typed: bool = False) -> CStepState
         halo_from_numpy(_field(src, "halo"), device, dtype),
         pairs_from_numpy(_field(src, "pairs"), device),
         _bool(src, "overflow", device),
+    )
+
+
+def verlet_halo_from_numpy(src, device, dtype) -> Halo:
+    """mdbench_tpu state.Halo (verlet scheme) -> port state.Halo."""
+    return Halo(
+        border_map=_int(src, "border_map", device),
+        shift=_float(src, "shift", device, dtype),
+        nghost=_int(src, "nghost", device),
+        overflow=_bool(src, "overflow", device),
+    )
+
+
+def neighbor_list_from_numpy(src, device) -> NeighborList:
+    """mdbench_tpu state.NeighborList -> port state.NeighborList: the
+    per-atom lists as int64, the row lists and their bucket maps as int32
+    and the observed maxima (ncmax) as int64 where the source holds them,
+    None where it does not."""
+    def opt(name, dtype):
+        if not (_has(src, name) and _field(src, name) is not None):
+            return None
+        return _int(src, name, device, dtype)
+
+    return NeighborList(
+        neighbors=_int(src, "neighbors", device),
+        numneigh=_int(src, "numneigh", device),
+        overflow=_bool(src, "overflow", device),
+        **{name: opt(name, torch.int32)
+           for name in ("rows", "numrows", "brows", "bcrows", "binv")},
+        ncmax=opt("ncmax", torch.int64),
+    )
+
+
+def verlet_step_state_from_numpy(src, device, dtype) -> StepState:
+    """mdbench_tpu engine.StepState -> port engine.StepState."""
+    return StepState(
+        x=_float(src, "x", device, dtype),
+        v=_float(src, "v", device, dtype),
+        f=_float(src, "f", device, dtype),
+        types=_int(src, "types", device, torch.int32),
+        halo=verlet_halo_from_numpy(_field(src, "halo"), device, dtype),
+        nlist=neighbor_list_from_numpy(_field(src, "nlist"), device),
+        overflow=_bool(src, "overflow", device),
     )
 
 

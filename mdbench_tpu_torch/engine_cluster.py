@@ -146,9 +146,14 @@ def check_slice(params: Params) -> None:
     """Raise NotImplementedError for settings this port does not run yet
     (each is a queue entry in ROADMAP.md)."""
     unported = {
-        "scheme other than 'cluster'": params.scheme != "cluster",
+        "scheme other than 'cluster' or 'verlet'": (
+            params.scheme not in ("cluster", "verlet")
+        ),
         "force_field other than lj or eam": (
             params.force_field not in (FF_LJ, FF_EAM)
+        ),
+        "EAM on the verlet scheme": (
+            params.scheme == "verlet" and params.force_field == FF_EAM
         ),
         "derive_bf16": bool(params.derive_bf16),
     }
@@ -210,6 +215,9 @@ class ClusterSimulation:
                 "(kernel=auto|ilist|ilist_pl)"
             )
         check_slice(params)
+        if params.scheme != "cluster":
+            raise ValueError("ClusterSimulation runs scheme='cluster'; the verlet "
+                             "scheme runs on engine.Simulation")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

@@ -1,0 +1,461 @@
+"""Verlet neighbour lists and the row-list LJ force in torch ops (the port
+of ``mdbench_tpu.ops.verlet``; reference src/verletlist/neighbor.c:186-264
+buildNeighbor, force_lj-x86.c:21-112 for the row lists' role).
+
+Two list forms:
+
+- per-atom lists (`build_neighbors`): per local atom, every row of x in
+  the 27-bin stencil within cutneigh, ascending, padded with the sentinel
+  row (the last row of x); half lists keep j > i only;
+- row lists of the rowlist path: per unit of 16 consecutive local atoms,
+  the ids of the 16-atom rows of x (in atom order) that hold an atom
+  within cutneigh of an atom of the unit, ascending, padded with the id of
+  the last, all-sentinel row. `derive_rowlists` is the union of the
+  per-atom lists (the oracle), `derive_rowlists_from_cells` builds them
+  from the cell table, and `derive_rowlists_from_ranges` (the engine's
+  default, with sorted atoms) from contiguous row ranges of bin-sorted
+  locals and cell-sorted ghosts. All three give the same rows in the same
+  order, mdbench_tpu's, with the same overflow flags and observed maxima
+  (`stats`), so the engine's capacities and bucket plans are the same.
+
+`compute_force_lj_rowlist` takes the row lists to the exact-list LJ force
+of ``ops/lj_cluster.py`` with share 2 (a 16-atom row plays the cluster
+scheme's j16): on a CUDA tensor the K1 kernel, or its bucketed form K1b
+when the lists carry bucket maps; on a CPU tensor their plain twins.
+
+Large intermediates are built in chunks of units (or atoms) whose size
+only bounds memory: every sort and selection works within a row, so the
+result does not depend on it. mdbench_tpu's sort compactions (a packed
+key ranking first occurrences before the rest) become one torch.sort on
+the same unique key. Nothing synchronises with the host.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mdbench_tpu_torch.ops.cells import (
+    CellGrid,
+    CellList,
+    bin_coords,
+    column_offsets,
+    coord_to_bin,
+    flat_bin,
+    np_dtype,
+    stencil_offsets,
+)
+from mdbench_tpu_torch.ops.lj_cluster import (
+    lj_cluster_force_buckets,
+    lj_cluster_force_ilist,
+)
+from mdbench_tpu_torch.state import NeighborList
+
+FBIG = 1e30  # bbox fill of empty slots (mdbench_tpu's fbig)
+COL_BIG = 1 << 29  # "no column" (mdbench_tpu's big in the unit columns)
+RBIG = 1 << 28  # empty row range (sorts last)
+MAX_ELEMS = 1 << 25  # elements of one chunk's largest intermediate
+
+
+def _chunks(n: int, per_item: int, max_elems: int = MAX_ELEMS):
+    """Slices of range(n) whose items times per_item stay under max_elems."""
+    step = max(1, max_elems // max(per_item, 1))
+    return [slice(a, min(a + step, n)) for a in range(0, n, step)]
+
+
+def _first_mask(s: torch.Tensor, fill) -> torch.Tensor:
+    """First occurrence of each value in the sorted rows of s, not `fill`."""
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[:, 1:] = s[:, 1:] != s[:, :-1]
+    return first & (s != fill)
+
+
+def _compact(keep: torch.Tensor, vals: torch.Tensor, width: int, fill):
+    """The kept entries of each row first, in row order, then `fill`; the
+    first `width` columns (padded with fill past the row's length)."""
+    n = keep.shape[1]
+    pos = torch.arange(n, device=keep.device)
+    key, order = torch.sort(torch.where(keep, pos, n + pos), dim=1)
+    out = torch.where(key < n, torch.gather(vals, 1, order), fill)
+    return _cols(out, width, fill)
+
+
+def _cols(t: torch.Tensor, width: int, fill):
+    if t.shape[1] >= width:
+        return t[:, :width]
+    return torch.nn.functional.pad(t, (0, width - t.shape[1]), value=fill)
+
+
+def build_neighbors(grid: CellGrid, cl: CellList, x, types, cutneighsq,
+                    nlocal: int, nlocal_pad: int, maxneighs: int,
+                    half: bool) -> NeighborList:
+    """Per-atom verlet lists (reference buildNeighbor): per local atom the
+    rows of the 27-bin stencil with rsq <= cutneighsq (a scalar, or a
+    (T, T) table indexed by the types of i and j), not itself, not the
+    sentinel row, and with `half` only j > i; ascending, the first
+    maxneighs kept, the rest the sentinel row. Overflow: a list longer
+    than maxneighs, or the cell table's."""
+    nrows = x.shape[0]
+    dev = x.device
+    sentinel_row = nrows - 1
+    typed = torch.is_tensor(cutneighsq) and cutneighsq.dim() == 2
+    stencil = stencil_offsets(grid, dev)
+    d = grid.dims
+    safe_bin = (1 * d[1] + 1) * d[2] + 1  # an interior bin for padded rows
+    cells = cl.cells
+    cap = cells.shape[1]
+    planes = [x[:, k][cells] for k in range(3)]  # (nbins + 1, cap) each
+    C = 27 * cap
+    neighs, nns = [], []
+    for sl in _chunks(nlocal_pad, C * 8, MAX_ELEMS):
+        i_idx = torch.arange(sl.start, sl.stop, device=dev)
+        n = i_idx.shape[0]
+        is_real = i_idx < nlocal
+        i_safe = torch.where(is_real, i_idx, 0)
+        ib = torch.where(is_real, cl.bin_of[i_safe], safe_bin)
+        cand_bins = ib[:, None] + stencil[None, :]  # (n, 27)
+        cand = cells[cand_bins].reshape(n, C)
+        xi = x[i_safe]
+        rsq = None
+        for k in range(3):
+            dk = xi[:, k, None] - planes[k][cand_bins].reshape(n, C)
+            rsq = dk * dk if rsq is None else rsq + dk * dk
+        if typed:
+            nt = cutneighsq.shape[0]
+            cut = cutneighsq.reshape(-1)[types[i_safe].long()[:, None] * nt
+                                         + types[cand].long()]
+        else:
+            cut = cutneighsq
+        mask = (rsq <= cut) & (cand != i_idx[:, None]) & is_real[:, None]
+        mask &= cand != sentinel_row
+        if half:
+            mask &= cand > i_idx[:, None]
+        nns.append(mask.sum(1))
+        packed = torch.sort(torch.where(mask, cand, sentinel_row), dim=1).values
+        neighs.append(_cols(packed, maxneighs, sentinel_row))
+    neighbors = torch.cat(neighs)
+    numneigh = torch.cat(nns)
+    overflow = (numneigh > maxneighs).any() | cl.overflow
+    return NeighborList(neighbors=neighbors, numneigh=numneigh, overflow=overflow)
+
+
+def derive_rowlists(nlist: NeighborList, nlocal_pad: int, nrows: int, rcap: int):
+    """Row lists as the union of the per-atom lists (the oracle): unit u's
+    rows are the distinct j // 16 of its atoms' lists, plus u itself.
+    Returns (rows (nu, rcap) int32, numrows (nu,) int32, overflow)."""
+    neighbors, numneigh = nlist.neighbors, nlist.numneigh
+    K = neighbors.shape[1]
+    if nrows % 16 or nlocal_pad % 16 or rcap % 8:
+        raise ValueError("nrows and nlocal_pad must be multiples of 16, rcap of 8")
+    dev = neighbors.device
+    nu = nlocal_pad // 16
+    sent16 = nrows // 16 - 1
+    W = 16 * (K + 1)
+    lane = torch.arange(K, device=dev)[None, :]
+    own = (torch.arange(nlocal_pad, device=dev) // 16)[:, None]
+    rows_all = torch.where(lane < numneigh[:, None], neighbors // 16, sent16)
+    rows_all = torch.cat([rows_all, own], dim=1).reshape(nu, W)
+    rows, cnts = [], []
+    for sl in _chunks(nu, W * 4):
+        s = torch.sort(rows_all[sl], dim=1).values
+        first = _first_mask(s, sent16)
+        cnts.append(first.sum(1))
+        rows.append(_compact(first, s, rcap, sent16))
+    numrows = torch.cat(cnts).to(torch.int32)
+    return (torch.cat(rows).to(torch.int32).contiguous(), numrows,
+            (numrows > rcap).any())
+
+
+def _unit_columns(grid: CellGrid, x, nlocal: int, nlocal_pad: int, ucol: int):
+    """Per 16-atom unit, its distinct xy columns (ascending) with each
+    column's own z-cell range over the unit's atoms: (dcol, dzlo, dzhi)
+    (nu, ucol), COL_BIG / 0 where absent; n_dc (nu,) the distinct count;
+    czspan (nu, 16) each first slot's z span; validu (nu, 16)."""
+    dev = x.device
+    nu = nlocal_pad // 16
+    d2 = grid.dims[2]
+    b3 = bin_coords(grid, x[:nlocal_pad])
+    validu = (torch.arange(nlocal_pad, device=dev) < nlocal).reshape(nu, 16)
+    flat16 = torch.where(validu, flat_bin(grid, b3).reshape(nu, 16), COL_BIG)
+    fs = torch.sort(flat16, dim=1).values  # (col, z) packed ascending
+    colS = torch.where(fs < COL_BIG, fs // d2, COL_BIG)
+    zS = torch.where(fs < COL_BIG, fs % d2, 0)
+    zmax_run = zS  # each column run's last z, propagated backward
+    for k in (1, 2, 4, 8):
+        colSh = torch.nn.functional.pad(colS[:, k:], (0, k), value=COL_BIG)
+        zmh = torch.nn.functional.pad(zmax_run[:, k:], (0, k), value=0)
+        zmax_run = torch.where(colSh == colS, torch.maximum(zmax_run, zmh), zmax_run)
+    firstu = _first_mask(colS, COL_BIG)
+    n_dc = firstu.sum(1)
+    czspan = torch.where(firstu, zmax_run - zS, 0)
+    p16 = torch.arange(16, device=dev)[None, :]
+    _, order = torch.sort(torch.where(firstu, p16, 16 + p16), dim=1)
+    live = _cols(torch.gather(firstu, 1, order), ucol, False)
+    dcol = torch.where(live, _cols(torch.gather(colS, 1, order), ucol, COL_BIG), COL_BIG)
+    dzlo = torch.where(live, _cols(torch.gather(zS, 1, order), ucol, 0), 0)
+    dzhi = torch.where(live, _cols(torch.gather(zmax_run, 1, order), ucol, 0), 0)
+    return dcol, dzlo, dzhi, n_dc, czspan, validu
+
+
+def _unit_bounds(p16, validu):
+    """(lo, hi) per unit over its real atoms (FBIG / -FBIG if none)."""
+    return (torch.where(validu, p16, FBIG).amin(1),
+            torch.where(validu, p16, -FBIG).amax(1))
+
+
+def _exact_prune(x, cand, nlocal_pad: int, validu, cutsq: float, rcap: int,
+                 sent16: int):
+    """Keep a candidate row iff some (unit atom, row atom) pair is within
+    cutneigh (the stage mdbench_tpu's two row-list builds share); kept
+    rows in candidate order. Returns (rows (nu, rcap), numrows (nu,))."""
+    nu, cc = cand.shape
+    planes = [x[:, k].reshape(-1, 16) for k in range(3)]
+    units = [x[:nlocal_pad, k].reshape(nu, 16) for k in range(3)]
+    outs, nrs = [], []
+    for sl in _chunks(nu, 16 * cc * 16 * 2):
+        cu = cand[sl]
+        n = cu.shape[0]
+        rsq = None
+        for pj, pi in zip(planes, units):
+            dk = pi[sl][:, :, None] - pj[cu].reshape(n, 1, cc * 16)
+            rsq = dk * dk if rsq is None else rsq + dk * dk
+        # padding i-atoms: a padding atom and a padding slot of a row both
+        # sit at SENTINEL_COORD, so their raw rsq is 0
+        rsq = torch.where(validu[sl][:, :, None], rsq, FBIG)
+        mind = rsq.amin(1).reshape(n, cc, 16).amin(2)
+        keep = (mind <= cutsq) & (cu != sent16)
+        nrs.append(keep.sum(1))
+        outs.append(_compact(keep, cu, rcap, sent16))
+    return torch.cat(outs), torch.cat(nrs)
+
+
+def derive_rowlists_from_cells(grid: CellGrid, cl: CellList, x, nlocal: int,
+                               nlocal_pad: int, rcap: int, cutneigh: float,
+                               brcap: int = 8, ucol: int = 4, zw: int = 4,
+                               ccap: int = 128):
+    """Row lists straight from the cell table (mdbench_tpu's
+    derive_rowlists_from_cells): per cell its distinct 16-rows with their
+    bboxes; per unit the 3x3 xy stencil of each of its distinct columns,
+    each read as one run of zw cells from the column's own zmin - 1; a
+    bbox gap test against the unit's bbox; dedup; then the exact prune.
+    Needs cell-sorted ghosts and bin-sorted locals to keep rows per cell
+    few. Returns (rows (nu, rcap) int32, numrows (nu,) int32, stats (4,)
+    int64 observed maxima [candidates, distinct columns, column z span,
+    rows per cell], overflow)."""
+    nrows = x.shape[0]
+    if nrows % 16 or nlocal_pad % 16 or rcap % 8:
+        raise ValueError("nrows and nlocal_pad must be multiples of 16, rcap of 8")
+    dev = x.device
+    nu = nlocal_pad // 16
+    sent16 = nrows // 16 - 1
+    sentinel_row = nrows - 1
+    ZW = zw
+    d2 = grid.dims[2]
+
+    # 1. distinct 16-rows per cell (cell content is row-ascending)
+    cells = cl.cells
+    r16 = cells // 16
+    firstc = (cells != sentinel_row) & _first_mask(r16, -1)
+    cntc = firstc.sum(1)
+    bin_rows = _compact(firstc, r16, brcap, sent16)  # (nbins + 1, brcap)
+    bovf = (cntc > brcap).any()
+
+    # per-row bboxes over the rows' real atoms
+    n16r = nrows // 16
+    xm, ym, zm = (x[:, k].reshape(n16r, 16) for k in range(3))
+    validr = xm.abs() < 1e29
+    bb = []
+    for p in (xm, ym, zm):
+        bb += list(_unit_bounds(p, validr))
+    bb6 = torch.stack(bb, dim=1)[bin_rows]  # (nbins + 1, brcap, 6)
+
+    # z-run tables: row b covers cells b .. b + ZW - 1 (z is the fastest
+    # cell index); one more all-empty run at the end for dead slots
+    nb1 = bin_rows.shape[0]
+
+    def zrun(tbl, fill):  # (nb1, brcap, ...) -> (nb1 + 1, ZW, brcap, ...)
+        tp = torch.cat([tbl, tbl.new_full((ZW + 1, *tbl.shape[1:]), fill)])
+        return torch.stack([tp[i : i + nb1 + 1] for i in range(ZW)], dim=1)
+
+    run_ids = zrun(bin_rows, sent16)
+    run_bb = zrun(bb6, FBIG)
+    empty_cell = nb1
+
+    # 2. per-unit distinct columns, each with its own z window
+    dcol, dzlo, _, n_dc, czspan, validu = _unit_columns(grid, x, nlocal, nlocal_pad,
+                                                        ucol)
+    sovf = (n_dc > ucol).any()
+    zovf = (czspan + 3 > ZW).any()
+    coloff = column_offsets(grid, dev)
+    zroot = (dzlo - 1).clamp(min=0)
+    dcells = torch.where(
+        dcol[:, :, None] < COL_BIG,
+        (dcol[:, :, None] + coloff[None, None, :]) * d2 + zroot[:, :, None],
+        empty_cell,
+    ).reshape(nu, ucol * 9).clamp(0, empty_cell)
+    ubb = [_unit_bounds(x[:nlocal_pad, k].reshape(nu, 16), validu) for k in range(3)]
+
+    Wc = ucol * 9 * ZW * brcap
+    cutsq = cutneigh * cutneigh
+    cc = min(ccap, Wc)
+    cands, ncs = [], []
+    for sl in _chunks(nu, Wc * 12):
+        base = dcells[sl]
+        n = base.shape[0]
+        ids = run_ids[base].reshape(n, Wc)
+        rb = run_bb[base]  # (n, ucol * 9, ZW, brcap, 6)
+        dsq = None
+        for k, (lo_i, hi_i) in enumerate(ubb):
+            lo_j = rb[..., 2 * k].reshape(n, Wc)
+            hi_j = rb[..., 2 * k + 1].reshape(n, Wc)
+            g = torch.maximum(lo_i[sl][:, None] - hi_j, lo_j - hi_i[sl][:, None])
+            g = g.clamp(min=0.0)
+            dsq = g * g if dsq is None else dsq + g * g
+        cand = torch.where(dsq <= cutsq, ids, sent16)
+        s = torch.sort(cand, dim=1).values
+        first = _first_mask(s, sent16)
+        ncs.append(first.sum(1))
+        cands.append(_compact(first, s, cc, sent16))
+    cand = torch.cat(cands)
+    ncs = torch.cat(ncs)
+    covf = (ncs > cc).any()
+
+    rows, numrows = _exact_prune(x, cand, nlocal_pad, validu, cutsq, rcap, sent16)
+    overflow = bovf | sovf | zovf | covf | (numrows > rcap).any()
+    stats = torch.stack([ncs.max(), n_dc.max(), czspan.max(), cntc.max()])
+    return (rows.to(torch.int32).contiguous(), numrows.to(torch.int32), stats,
+            overflow)
+
+
+def derive_rowlists_from_ranges(grid: CellGrid, x, nlocal: int, nlocal_pad: int,
+                                gcap: int, rcap: int, cutneigh: float, ucol: int = 4,
+                                kcap: int = 40, ccap: int = 128):
+    """Row lists from contiguous row ranges (mdbench_tpu's
+    derive_rowlists_from_ranges, the sort-free rebuild): with bin-sorted
+    locals and cell-sorted ghosts, each stencil column's candidates for a
+    unit are one contiguous range of 16-row ids per block (locals, ghosts
+    at rows [nlocal_pad, nlocal_pad + gcap)). Per unit: its distinct
+    columns' 3x3 stencils, an xy gap test of the unit bbox against each
+    stencil column, the z range of its cells, at most kcap non-empty
+    ranges sorted by their start and trimmed to disjoint intervals, their
+    rows enumerated in order (at most ccap), then the exact prune. The
+    same rows as derive_rowlists_from_cells. Returns (rows, numrows, stats
+    [candidates, distinct columns, non-empty ranges, 0], overflow)."""
+    nrows = x.shape[0]
+    if nrows % 16 or nlocal_pad % 16 or rcap % 8:
+        raise ValueError("nrows and nlocal_pad must be multiples of 16, rcap of 8")
+    dev, dtype = x.device, x.dtype
+    nu = nlocal_pad // 16
+    sent16 = nrows // 16 - 1
+    d0, d1, d2 = grid.dims
+    ncols = d0 * d1
+    cutsq = cutneigh * cutneigh
+
+    # per-cell start tables of the two blocks; column c's starts are
+    # starts[c * d2 : c * d2 + d2 + 1] (lane d2: the column's end)
+    q = torch.arange(grid.nbins + 1, device=dev)
+    starts_l = torch.searchsorted(coord_to_bin(grid, x[:nlocal]), q)
+    starts_g = torch.searchsorted(coord_to_bin(grid, x[nlocal_pad : nlocal_pad + gcap]), q)
+    cidx = (torch.arange(ncols, device=dev)[:, None] * d2
+            + torch.arange(d2 + 1, device=dev)[None, :])
+    zero = torch.zeros((1, d2 + 1), dtype=starts_l.dtype, device=dev)
+    tab_l = torch.cat([starts_l[cidx], zero])  # (ncols + 1, d2 + 1)
+    tab_g = torch.cat([starts_g[cidx], zero])
+
+    dcol, dzlo, dzhi, n_dc, _, validu = _unit_columns(grid, x, nlocal, nlocal_pad,
+                                                      ucol)
+    sovf = (n_dc > ucol).any()
+    (uxlo, uxhi), (uylo, uyhi) = (
+        _unit_bounds(x[:nlocal_pad, k].reshape(nu, 16), validu) for k in range(2))
+    coloff = column_offsets(grid, dev)
+    K9 = ucol * 9
+    base16g = nlocal_pad // 16
+    bs0, bs1 = (float(b) for b in np.asarray(grid.binsize[:2], np_dtype(dtype)))
+    lpos = torch.arange(ccap, device=dev)
+    cands, totals, nks = [], [], []
+    for sl in _chunks(nu, 2 * K9 * (d2 + 1) * 4 + ccap * 8):
+        dc, zl, zh = dcol[sl], dzlo[sl], dzhi[sl]
+        n = dc.shape[0]
+        cs = torch.where(dc[:, :, None] < COL_BIG, dc[:, :, None] + coloff[None, None, :],
+                         ncols).clamp(0, ncols)  # (n, ucol, 9); ncols: dead row
+        # unit bbox against the stencil column's xy rectangle (bin b
+        # covers [(b - 1) * bs, b * bs) after the +1 margin shift)
+        bxc = (cs // d1).to(dtype)
+        byc = (cs % d1).to(dtype)
+        gx = torch.maximum((bxc - 1.0) * bs0 - uxhi[sl][:, None, None],
+                           uxlo[sl][:, None, None] - bxc * bs0).clamp(min=0.0)
+        gy = torch.maximum((byc - 1.0) * bs1 - uyhi[sl][:, None, None],
+                           uylo[sl][:, None, None] - byc * bs1).clamp(min=0.0)
+        keepc = (gx * gx + gy * gy <= cutsq) & (cs < ncols)
+        z0 = (zl - 1).clamp(min=0)[:, :, None].expand(n, ucol, 9)
+        z1 = (zh + 1).clamp(max=d2 - 1)[:, :, None].expand(n, ucol, 9)
+
+        def rng(tab, base):
+            t = tab[cs]  # (n, ucol, 9, d2 + 1)
+            a0 = torch.gather(t, 3, z0[..., None])[..., 0]
+            a1 = torch.gather(t, 3, (z1 + 1)[..., None])[..., 0]
+            ok = keepc & (a1 > a0)
+            rlo = torch.where(ok, base + (a0 >> 4), RBIG)
+            rhi = torch.where(ok, base + ((a1 - 1) >> 4) + 1, RBIG)
+            return rlo.reshape(n, K9), rhi.reshape(n, K9)
+
+        llo, lhi = rng(tab_l, 0)
+        glo, ghi = rng(tab_g, base16g)
+        rlo = torch.cat([llo, glo], dim=1)
+        rhi = torch.cat([lhi, ghi], dim=1)
+        # ranges by start (the order among equal starts does not change
+        # the union enumerated below); at most kcap of them
+        rlo_s, order = torch.sort(rlo, dim=1)
+        rhi_s = torch.gather(rhi, 1, order)
+        nks.append((rlo_s < RBIG).sum(1))
+        rlo_s, rhi_s = rlo_s[:, :kcap], rhi_s[:, :kcap]
+        live = rlo_s < RBIG
+        # trim overlaps (the only duplicates) to disjoint intervals
+        cm = torch.cummax(torch.where(live, rhi_s, 0), dim=1).values
+        pm = torch.nn.functional.pad(cm[:, :-1], (1, 0), value=0)
+        lo2 = torch.maximum(rlo_s, torch.minimum(pm, rhi_s))
+        ln = torch.where(live, (rhi_s - lo2).clamp(min=0), 0)
+        ends = torch.cumsum(ln, dim=1)
+        total = ends[:, -1]
+        # slot t of the enumeration lies in the first range whose end > t
+        k = torch.searchsorted(ends, lpos[None, :].expand(n, ccap).contiguous(),
+                               right=True).clamp(max=ln.shape[1] - 1)
+        start = torch.gather(ends - ln, 1, k)
+        cand = torch.gather(lo2, 1, k) + (lpos[None, :] - start)
+        cands.append(torch.where(lpos[None, :] < total[:, None], cand, sent16))
+        totals.append(total)
+    cand = torch.cat(cands)
+    total = torch.cat(totals)
+    nk = torch.cat(nks)
+    covf = (total > ccap).any()
+    kovf = (nk > kcap).any()
+
+    rows, numrows = _exact_prune(x, cand, nlocal_pad, validu, cutsq, rcap, sent16)
+    overflow = sovf | covf | kovf | (numrows > rcap).any()
+    stats = torch.stack([total.max(), n_dc.max(), nk.max(), torch.zeros_like(nk.max())])
+    return (rows.to(torch.int32).contiguous(), numrows.to(torch.int32), stats,
+            overflow)
+
+
+def compute_force_lj_rowlist(x, rows, numrows, nlocal_pad: int, cutforcesq: float,
+                             sigma6: float, epsilon: float, approx_rcp: bool = False,
+                             buckets=None, brows=None, bcrows=None, binv=None):
+    """LJ force over the row lists, (nlocal_pad, 3) like the planar full
+    force (the same pair set: the rows cover every list entry, self pairs
+    drop out by rsq > 0, padding by the cutoff). The planes are
+    x[:, d].reshape(-1, 8), copied contiguous (three copies a call); with
+    the bucket maps (`buckets` = (sizes, caps) and brows, bcrows, binv)
+    the bucketed force, else the flat one, each with share 2
+    (module docstring). `approx_rcp` as in ops/lj_cluster."""
+    if x.shape[0] % 16 or nlocal_pad % 16:
+        raise ValueError("x rows and nlocal_pad must be multiples of 16")
+    xc, yc, zc = (x[:, k].reshape(-1, 8).contiguous() for k in range(3))
+    npad = nlocal_pad // 8
+    lj = (cutforcesq, sigma6, epsilon)
+    if buckets is not None and brows is not None:
+        f3 = lj_cluster_force_buckets(xc, yc, zc, brows, bcrows, binv, numrows, npad,
+                                      buckets, *lj, share=2, approx_rcp=approx_rcp)
+    else:
+        f3 = lj_cluster_force_ilist(xc, yc, zc, rows, numrows, npad, *lj, share=2,
+                                    approx_rcp=approx_rcp)
+    return torch.stack([f.reshape(-1) for f in f3], dim=1)

@@ -218,7 +218,7 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "mdbench_tpu_torch.stub runs the cluster stub only "
             "(--scheme cluster); the verlet stub comes with the verlet "
-            "scheme, ROADMAP.md slice 2"
+            "EAM force, ROADMAP.md slice 2"
         )
     # half lists and EAM are verlet-stub axes, as in mdbench_tpu
     for k in ("half", "force_field", "eam_file", "eam_eval"):

@@ -2,9 +2,11 @@
 the two EAM passes of csrc/eam_cluster.cu and the group-window LJ kernel
 csrc/lj_cluster_stream.cu, the LJ kernels untyped and typed, the
 exact-list kernels flat and over capacity buckets, exact and with the
-approximate reciprocal) and the probes' kernels (the bf16 form of
+approximate reciprocal, on the cluster lists and on the verlet scheme's
+16-atom row lists) and the probes' kernels (the bf16 form of
 csrc/lj_cluster_ilist.cu, the row fetch of csrc/row_fetch.cu)
-against their plain torch versions, on a CUDA card. This file imports no jax, so
+against their plain torch versions, on a CUDA card; and the verlet engine
+on the card against its CPU run. This file imports no jax, so
 it runs on a machine that has torch and a card but no jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -34,6 +36,7 @@ from chip_smoke import (
 )
 from mdbench_tpu_torch.config import FF_EAM, Params
 from mdbench_tpu_torch.convert import clusters_from_numpy, pairs_from_numpy
+from mdbench_tpu_torch.engine import Simulation
 from mdbench_tpu_torch.engine_cluster import ClusterSimulation
 from mdbench_tpu_torch.models.eam_tables import (
     apply_eam_overrides,
@@ -41,7 +44,7 @@ from mdbench_tpu_torch.models.eam_tables import (
     load_eam,
 )
 from mdbench_tpu_torch.models.lattice import create_fcc_lattice
-from mdbench_tpu_torch.ops.cluster import attach_bucket_maps
+from mdbench_tpu_torch.ops.cluster import attach_bucket_maps, bucket_maps_core
 from mdbench_tpu_torch.ops import eam_cluster as tec
 from mdbench_tpu_torch.ops import lj_cluster as tlj
 from mdbench_tpu_torch.ops import row_fetch as trf
@@ -686,3 +689,76 @@ def test_cuda_row_fetch_matches_index_select(cuda, mode, rows_per_id, n_ids):
     torch.cuda.synchronize()
     assert trf.LAUNCHES == {k: n + (k == name) for k, n in before.items()}
     assert torch.equal(got, trf.row_fetch_ref(table, ids, rows_per_id))
+
+
+@pytest.fixture(scope="module")
+def verlet_states():
+    """16^3 verlet rowlist states on the card after a 20-step run (its
+    calibrations and one rebuild with the re-sort), per precision."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    out = {}
+    for precision in ("sp", "dp"):
+        p = Params(nx=16, ny=16, nz=16, ntimes=20, precision=precision)
+        sim = Simulation(p, device=torch.device("cuda"))
+        out[precision] = (sim, sim.run(repeats=0).state)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("approx", [False, True])
+@pytest.mark.parametrize("precision", ["sp", "dp"])
+def test_cuda_kernels_on_verlet_row_lists(verlet_states, precision, approx):
+    """K1 and K1b on the verlet scheme's 16-atom row lists (share 2, rows
+    in atom order, sentinel-padded planes, cell-sorted ghosts) against
+    their plain twins, which divide: 1e-5 / 1e-12 of max |f|, with and
+    without the approximate reciprocal; K1b over a hand-set plan equals K1
+    bit for bit."""
+    sim, st = verlet_states[precision]
+    nl = st.nlist
+    dtype = sim.params.dtype
+    planes = [st.x[:, k].reshape(-1, 8).contiguous() for k in range(3)]
+    npad = sim.caps.nlocal_pad // 8
+    lj = (CUT2, SIG6, EPS)
+    want = tlj.lj_cluster_force_ilist_ref(*planes, nl.rows, npad, *lj, share=2)
+    before = tlj.LAUNCHES
+    got = tlj.lj_cluster_force_ilist(*planes, nl.rows, nl.numrows, npad, *lj, share=2,
+                                     approx_rcp=approx)
+    torch.cuda.synchronize()
+    assert tlj.LAUNCHES == before + 1
+    assert _rel(got, want) <= TOL[dtype]
+    plan = hand_plan(nl.numrows.cpu().numpy(), nl.rows.shape[1])
+    maps = bucket_maps_core(nl.rows, nl.numrows, npad, 2, planes[0].shape[0], *plan)
+    assert not bool(maps[3])
+    got_b = tlj.lj_cluster_force_buckets(*planes, *maps[:3], nl.numrows, npad, plan, *lj,
+                                         share=2, approx_rcp=approx)
+    assert all(torch.equal(a, b) for a, b in zip(got_b, got))
+    want_b = tlj.lj_cluster_force_buckets_ref(*planes, *maps[:3], npad, plan, *lj, share=2)
+    assert _rel(got_b, want_b) <= TOL[dtype]
+    # the engine's step-0 force of these lists is K1's
+    f = sim._force(st.x, st.types, nl)
+    assert f.shape == (sim.caps.nlocal_pad, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [{"kernel": "auto"}, {"kernel": "xla"},
+                                   {"half_neigh": 1}])
+def test_cuda_verlet_engine_matches_cpu(cuda, extra):
+    """A jittered 8^3 DP verlet box, card against the CPU plain path:
+    step-0 forces <= 1e-10 of max |f|, 40-step temperatures <= 1e-9 (the
+    half lists' index_add_ sums with atomics on the card); the row lists
+    launch K1 and no other kernel, the planar paths none."""
+    kw = dict(nx=8, ny=8, nz=8, ntimes=40, reneigh_every=10, precision="dp", **extra)
+    x, v, _ = create_fcc_lattice(Params(**kw))
+    x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
+    before = {n: getattr(tlj, n) for n in LJ_COUNTS}
+    f_gpu = Simulation(Params(**kw), x=x, v=v, device=cuda).first_force()
+    grew = {n: getattr(tlj, n) - before[n] for n in LJ_COUNTS}
+    rowlist = extra.get("kernel") == "auto"
+    assert grew["LAUNCHES"] >= (1 if rowlist else 0)
+    assert all(n == 0 for k, n in grew.items() if k != "LAUNCHES" or not rowlist)
+    f_cpu = Simulation(Params(**kw), x=x, v=v, device="cpu").first_force()
+    assert np.abs(f_gpu - f_cpu).max() <= 1e-10 * np.abs(f_cpu).max()
+    r_gpu = Simulation(Params(**kw), device=cuda).run(repeats=0)
+    r_cpu = Simulation(Params(**kw), device="cpu").run(repeats=0)
+    np.testing.assert_allclose(r_gpu.temps, r_cpu.temps, rtol=1e-9)

@@ -88,6 +88,12 @@ def test_cpu_path_imports_no_jax():
         "                                 sim.n_clusters_pad, 16, 6.25, 7.84)\n"
         "assert out.temps.shape == (4,) and cs['pairs_within_cutforce'] > 0\n"
         "stub.run_cluster_stub(natoms=2048, nneighs=12, ntimes=1, device='cpu')\n"
+        "from mdbench_tpu_torch.engine import Simulation\n"
+        "for kernel in ('auto', 'xla'):\n"
+        "    p = Params(nx=4, ny=4, nz=4, ntimes=4, reneigh_every=2, kernel=kernel)\n"
+        "    out = Simulation(p, device='cpu').run(repeats=0)\n"
+        "    assert out.temps.shape == (4,)\n"
+        "assert callable(bench.run_bench_verlet)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'mdbench_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

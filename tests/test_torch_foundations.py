@@ -86,7 +86,8 @@ def test_thermo_setup_matches(ff):
 
 
 @pytest.mark.parametrize("kw", [
-    {"scheme": "verlet"},
+    # the verlet scheme runs LJ since its port; verlet EAM does not yet
+    {"scheme": "verlet", "force_field": tconfig.FF_EAM, "eam_file": "Cu_u3.eam"},
     {"force_field": tconfig.FF_DEM},
     {"derive_bf16": True},
 ])
