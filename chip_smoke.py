@@ -178,9 +178,36 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      (torch.cuda.set_sync_debug_mode), and one torch.profiler pass over a
      200-step run (device ms by kernel, busy share).
 
+ 30. the verlet scheme's EAM path: run_bench_eam(scheme="verlet")
+     (131,072 atoms, 60 SP steps, per-atom lists, the two-pass EAM force
+     in torch ops; eam_eval auto takes the polynomials on the card) on
+     phase 8's stand-in potential: no hand kernel launches; TOTAL,
+     FORCE and NEIGH (measure_phases), the calibrated list width K, the
+     force's bound and one torch.profiler pass over a 60-step run (device
+     busy share, device ms by kernel); an SP spline run and DP poly and spline runs, each
+     SP run within EAM_SP_TOL of the DP run of its evaluation at steps
+     20/40/60, and the DP poly run within rel 1e-6 of phase 8's cluster
+     DP run (poly) at every 20th step (step 0's temperatures within rel
+     1e-14);
+ 31. verlet EAM on a jittered 8^3 DP box, spline and poly, card against
+     the CPU plain path (step-0 forces and 20-step temperatures <= 1e-12)
+     and no host synchronisation in a 20-step run;
+ 32. the verlet stub (run_stub: 65,536 atoms, 76 neighbours, 200 SP
+     steps) for LJ full and half lists and EAM spline and poly: Mega atom
+     updates/s, and the DP first force on the card against the CPU (<=
+     1e-12 of the largest finite value, non-finite entries equal);
+ 33. the command line (`python -m mdbench_tpu_torch.cli`) in
+     subprocesses: verlet and cluster LJ at 131k/200 SP with nstat 20,
+     gated on the golden trace, each naming the card and K1b; on an 8^3
+     box --vtk, --xtc, -w and --checkpoint, then --trace-index,
+     --trace-mem and --timers diff (cluster), then --restore, each
+     writing its files; and -f eam on both schemes (131k/60 SP, naming
+     the torch ops and K2b/K3b).
+
 Every kernel count is set to 0 just before each main path (phases 4, 8,
-12, both runs of 17, the probes' runs in 25 and 26, and both runs of 27)
-and read just after it. Then it prints a JSON line of the kernels, nvidia-smi's line,
+12, both runs of 17, the probes' runs in 25 and 26, both runs of 27,
+and phase 30's SP run and each stub of 32, where it must stay 0) and
+read just after it. Then it prints a JSON line of the kernels, nvidia-smi's line,
 and {"ok": true, "device": {...}} as the last line; the script's wall
 time goes to standard error.
 
@@ -908,8 +935,10 @@ def reset_counts(lj, ec) -> None:
         ec.LAUNCHES[name] = 0
 
 
-def run_eam_phases(torch, dev, smi: str, ec) -> list:
-    """Phases 7-10 (the cluster EAM path). Returns the kernels' JSON rows."""
+def run_eam_phases(torch, dev, smi: str, ec) -> tuple:
+    """Phases 7-10 (the cluster EAM path). Returns the kernels' JSON rows,
+    the SP run's (sim, final state, launches) and the DP run's (sim,
+    result)."""
     from mdbench_tpu_torch import _build
     from mdbench_tpu_torch.bench import run_bench_eam
     from mdbench_tpu_torch.config import FF_EAM, Params
@@ -1002,7 +1031,7 @@ def run_eam_phases(torch, dev, smi: str, ec) -> list:
     for t in (st.vxc, st.fxc, st.clusters.xc[: sim.n_clusters_pad]):
         if not bool(torch.isfinite(t).all()):
             fail("the EAM run's final state is not finite")
-    _, out_dp, _ = run_bench_eam(eam_file, "dp", repeats=1, chain=1)
+    sim_dp, out_dp, _ = run_bench_eam(eam_file, "dp", repeats=1, chain=1)
     for step, tol in EAM_SP_TOL.items():
         t_sp, t_dp = float(temps[step - 1]), float(out_dp.temps[step - 1])
         rel = abs(t_sp - t_dp) / abs(t_dp)
@@ -1079,7 +1108,7 @@ def run_eam_phases(torch, dev, smi: str, ec) -> list:
                                         plain_ms, bound, device_ms=dev_ms)
     for line in kernel_ptxas_lines("eam_ilist_kernel"):
         print("  " + line)
-    return [rows[name] for name in EAM_KERNELS], (sim, st, launches)
+    return [rows[name] for name in EAM_KERNELS], (sim, st, launches), (sim_dp, out_dp)
 
 
 def stub_force_err(torch, got, want):
@@ -2293,6 +2322,229 @@ def run_verlet_phases(torch, dev, smi: str, ec) -> list:
     return rows
 
 
+def eam_verlet_bound(torch, sim, st) -> tuple:
+    """(bound, listed pairs, pairs inside) of one verlet EAM force (poly)
+    on `st`'s lists: 8 operations a listed pair, 6 + 2d (density) and 10 +
+    2(d1 + d2) (force) more inside the cutoff (§ kernel bound); bytes: x,
+    the lists, border_map and frho read once, the forces written once."""
+    p, nl = sim.params, st.nlist
+    n = sim.caps.nlocal_pad
+    k = nl.neighbors.shape[1]
+    valid = torch.arange(k, device=st.x.device)[None, :] < nl.numneigh[:, None]
+    xi, xj = st.x[:n].double(), st.x.double()[nl.neighbors]
+    rsq = ((xi[:, None, :] - xj) ** 2).sum(-1)
+    listed = int(nl.numneigh.sum())
+    inside = int((valid & (rsq < p.cutforce**2)).sum())
+    deg = {name: len(getattr(sim.eam_poly, name)) - 1 for name in ("dens", "g1", "g2")}
+    ops = 8 * listed + (6 + 2 * deg["dens"] + 10 + 2 * (deg["g1"] + deg["g2"])) * inside
+    moved = nbytes_of(st.x, nl.neighbors, nl.numneigh, st.halo.border_map,
+                      sim.eam_dev.frho, st.f)
+    return bound_of(ops, moved, p.dtype), listed, inside
+
+
+def run_verlet_eam_phases(torch, dev, smi: str, ec, eam_dp) -> None:
+    """Phases 30-32 (the verlet scheme's EAM force and the verlet stub).
+    `eam_dp` is phase 8's cluster DP run (sim, result) on the same box."""
+    from mdbench_tpu_torch import _build
+    from mdbench_tpu_torch.bench import run_bench_eam
+    from mdbench_tpu_torch.config import FF_EAM, Params
+    from mdbench_tpu_torch.engine import Simulation
+    from mdbench_tpu_torch.models.eam_tables import apply_eam_overrides, load_eam
+    from mdbench_tpu_torch.models.lattice import create_fcc_lattice
+    from mdbench_tpu_torch.ops import lj_cluster as lj
+    from mdbench_tpu_torch.stub import run_stub
+
+    eam_file = str(_build.BUILD_DIR / "standin_cu.eam")  # phase 8's
+
+    def hand_launches():
+        return {**{name: getattr(lj, name) for name in LJ_COUNTS}, **ec.LAUNCHES}
+
+    # 30. verlet EAM at full width: SP auto (poly on the card), SP spline,
+    # DP poly; no hand kernel runs on this path
+    reset_counts(lj, ec)
+    t0 = time.perf_counter()
+    sim, out, rate = run_bench_eam(eam_file, "sp", repeats=REPEATS, chain=CHAIN,
+                                   scheme="verlet")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if any(hand_launches().values()):
+        fail(f"the verlet EAM run launched a hand kernel: {hand_launches()}")
+    st, p = out.state, sim.params
+    if sim.eam_poly is None:
+        fail("eam_eval auto did not take the polynomials in SP on the card")
+    if not (np.isfinite(out.temps).all() and bool(torch.isfinite(st.v).all())):
+        fail("the verlet EAM run's state is not finite")
+    t_force, t_neigh = sim.measure_phases(st)
+    bound, listed, inside = eam_verlet_bound(torch, sim, st)
+    nn = st.nlist.numneigh[: sim.nlocal].float()
+    print(f"verlet EAM main path: {sim.natoms} atoms, {p.ntimes} steps, {p.precision}, "
+          f"poly, cutforce {p.cutforce}, cutneigh {p.cutneigh}, caps {tuple(sim.caps)} "
+          f"(K = {sim.caps.maxneighs} after the calibration; numneigh mean "
+          f"{float(nn.mean()):.2f} max {int(nn.max())}); TOTAL {out.total_time:.6f} s "
+          f"per run, {rate:.6e} atom-updates/s, run() wall {wall:.2f} s; FORCE "
+          f"{t_force * 1e3:.4f} ms per call, NEIGH {t_neigh * 1e3:.4f} ms per rebuild "
+          f"({p.ntimes + 1} forces and {p.ntimes // p.reneigh_every} rebuilds a run); "
+          f"force bound {bound[0]:.4f} ms ({bound[1]}; {listed} listed pairs, {inside} "
+          f"inside); hand-kernel launches 0; on {smi}", flush=True)
+    prof = device_profile(torch, lambda: sim._run_steps(sim.initial_state(), p.ntimes))
+    top = sorted(prof["ms"].items(), key=lambda kv: -kv[1])[:8]
+    print(f"verlet EAM profile of one {p.ntimes}-step _run_steps (initial state "
+          f"included): wall {prof['wall_s']:.4f} s (profiled), device busy "
+          f"{prof['busy']:.4f}, {prof['spans']} spans, device ms "
+          f"{sum(prof['ms'].values()):.4f}; top kernels (ms): " + "; ".join(
+              f"{name[:110]} {ms:.4f}" for name, ms in top) + f" on {smi}", flush=True)
+    kw = dict(scheme="verlet", dense_thermo=False, force_field=FF_EAM, eam_file=eam_file,
+              ntimes=60)
+    runs = {("sp", "poly"): (sim, out)}
+    for prec, ev in (("sp", "spline"), ("dp", "poly"), ("dp", "spline")):
+        s_ = Simulation(Params(precision=prec, eam_eval=ev, **kw), device=dev)
+        runs[prec, ev] = (s_, s_.run(repeats=1, chain=1))
+        print(f"verlet EAM {prec} {ev}: TOTAL {runs[prec, ev][1].total_time:.6f} s (one "
+              f"timed run) on {smi}", flush=True)
+    for step, tol in EAM_SP_TOL.items():
+        for ev in ("poly", "spline"):
+            t_sp = float(runs["sp", ev][1].temps[step - 1])
+            t_dp = float(runs["dp", ev][1].temps[step - 1])
+            rel = abs(t_sp - t_dp) / abs(t_dp)
+            print(f"verlet EAM step {step} {ev}: SP {t_sp:.6e} against DP {t_dp:.6e}, rel "
+                  f"{rel:.3e} (tol {tol:.0e})", flush=True)
+            if not rel <= tol:
+                fail(f"verlet EAM SP {ev} departs from DP at step {step}")
+    sim_dp, out_dp = runs["dp", "poly"]
+    sim_c, out_c = eam_dp
+    st_c, st_v = sim_c.initial_state(), sim_dp.initial_state()
+    t0_c = float(sim_c._thermo(st_c.vxc, st_c.vyc, st_c.vzc)[0])
+    t0_v = float(sim_dp._thermo(st_v.v)[0])
+    rel0 = abs(t0_v - t0_c) / t0_c
+    print(f"verlet against cluster EAM DP: step 0 {t0_v:.15e} / {t0_c:.15e} (rel "
+          f"{rel0:.3e})", flush=True)
+    if not rel0 <= 1e-14:
+        fail("verlet and cluster EAM start from different temperatures")
+    for step in range(20, 61, 20):
+        a, b = float(out_dp.temps[step - 1]), float(out_c.temps[step - 1])
+        rel = abs(a - b) / abs(b)
+        print(f"verlet against cluster EAM DP step {step}: {a:.9e} / {b:.9e}, rel "
+              f"{rel:.3e} (tol 1e-6)", flush=True)
+        if not rel <= 1e-6:
+            fail(f"verlet EAM DP departs from the cluster DP run at step {step}")
+
+    # 31. verlet EAM card against CPU, float64, 8^3; no host synchronisation
+    for eam_eval in ("spline", "poly"):
+        kw = dict(nx=8, ny=8, nz=8, ntimes=20, reneigh_every=10, precision="dp",
+                  force_field=FF_EAM, eam_file=eam_file, eam_eval=eam_eval)
+        x, v, _ = create_fcc_lattice(apply_eam_overrides(Params(**kw),
+                                                         load_eam(eam_file)))
+        x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
+        f_c, f_g = (Simulation(Params(**kw), x=x, v=v, device=d).first_force()
+                    for d in ("cpu", dev))
+        frel = np.abs(f_g - f_c).max() / np.abs(f_c).max()
+        r_c, r_g = (Simulation(Params(**kw), device=d).run(repeats=0)
+                    for d in ("cpu", dev))
+        trel = float(np.max(np.abs(r_g.temps - r_c.temps) / np.abs(r_c.temps)))
+        sim8 = Simulation(Params(**kw), device=dev)
+        n_sync = sync_count(torch, lambda: sim8._run_steps(sim8.initial_state(), 20))
+        print(f"verlet EAM 8^3 dp {eam_eval}: step-0 force rel err {frel:.3e} (tol "
+              f"1e-12), 20-step temperature rel err {trel:.3e} (tol 1e-12), host "
+              f"synchronisations in a 20-step run {n_sync}", flush=True)
+        if not (frel <= 1e-12 and trel <= 1e-12):
+            fail(f"the card's verlet EAM ({eam_eval}) disagrees with the CPU")
+        if n_sync:
+            fail("a verlet EAM run synchronises the host with the card")
+
+    # 32. the verlet stub on the card; first force against the CPU in float64
+    stubs = {"LJ full": {}, "LJ half": {"half": True},
+             "EAM spline": {"force_field": "eam", "eam_file": eam_file},
+             "EAM poly": {"force_field": "eam", "eam_file": eam_file, "eam_eval": "poly"}}
+    for name, kw in stubs.items():
+        reset_counts(lj, ec)
+        res = run_stub(natoms=65536, nneighs=76, ntimes=200, device=dev, **kw)
+        f = [run_stub(natoms=65536, nneighs=76, ntimes=1, precision="dp", device=d,
+                      **kw)["first_force"].cpu() for d in (dev, "cpu")]
+        fin = torch.isfinite(f[1])
+        same_nf = torch.equal(torch.isfinite(f[0]), fin)
+        err = float((f[0][fin] - f[1][fin]).abs().max() / f[1][fin].abs().max())
+        print(f"verlet stub {name} (65536 atoms, 76 neighbours, 200 SP steps): "
+              f"{res['mega_updates']:.4f} Mega atom updates/s, {res['total']:.6f} s, "
+              f"{res['cycles_per_neighbor']:.4f} cycles per neighbour at 2.4 GHz; DP "
+              f"first force card against CPU rel {err:.3e} (tol 1e-12), non-finite "
+              f"entries equal: {same_nf}; hand-kernel launches "
+              f"{sum(hand_launches().values())}; on {smi}", flush=True)
+        if not (err <= 1e-12 and same_nf and bool(fin.any())):
+            fail(f"the verlet stub's {name} first force on the card disagrees")
+
+
+def run_cli_phase(torch, smi: str) -> None:
+    """Phase 33: `python -m mdbench_tpu_torch.cli` in subprocesses (the
+    machine has no jax, so each run also shows that the entry point needs
+    none): verlet and cluster LJ at 131k/200 SP with nstat 20, golden-gated;
+    the output options on 8^3; EAM on both schemes."""
+    import shutil
+    from pathlib import Path
+
+    from mdbench_tpu_torch import _build
+    from mdbench_tpu_torch.bench import root_bench
+
+    kind = torch.cuda.get_device_name(0)
+    root = Path(__file__).resolve().parent
+    work = _build.BUILD_DIR / "cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    (work / "nstat20.conf").write_text("nstat 20\n")
+    eam_file = str(_build.BUILD_DIR / "standin_cu.eam")
+
+    def cli(args: str, *files: str) -> str:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "mdbench_tpu_torch.cli",
+                              *args.split()], cwd=root, capture_output=True, text=True,
+                             timeout=600)
+        wall = time.perf_counter() - t0
+        out = res.stdout
+        if res.returncode != 0:
+            fail(f"cli {args} exited {res.returncode}: {res.stderr[-2000:]}")
+        missing = [f for f in files if not (work / f).exists()]
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith(("Device:", "TOTAL", "Performance:"))]
+        print(f"cli {args}: {wall:.1f} s wall; " + "; ".join(lines), flush=True)
+        if missing or f"Device: {kind}, force: " not in out:
+            fail(f"cli {args}: no device line naming the card, or files {missing} "
+                 "missing")
+        if "million atom updates per second" not in out or "Statistics:" not in out:
+            fail(f"cli {args}: no Performance line or statistics")
+        return out
+
+    for scheme, force in (("verlet", "K1b (approx_rcp)"), ("cluster", "K1b (approx_rcp)")):
+        out = cli(f"-p {work / 'nstat20.conf'} --precision sp --scheme {scheme}")
+        temps = np.full(200, np.nan)
+        for ln in out.splitlines():
+            f = ln.split("\t")
+            if len(f) == 3 and f[0].isdigit() and int(f[0]) > 0:
+                temps[int(f[0]) - 1] = float(f[1])
+        root_bench().check_golden(temps, 20)
+        print(f"cli {scheme} 131k/200 SP: golden gate passed "
+              f"({', '.join(f'{s}:{temps[s - 1]:.6e}' for s in range(20, 201, 20))})",
+              flush=True)
+        if f"force: {force}" not in out:
+            fail(f"cli {scheme} did not run {force}")
+    small = "-nx 8 -ny 8 -nz 8 -n 40 --precision dp"
+    cli(f"{small} --vtk {work}/t --xtc {work}/t.xtc -w {work}/atoms.in "
+        f"--checkpoint {work}/ck.npz", "t_0.vtk", "t_20.vtk", "t_40.vtk", "t.xtc",
+        "atoms.in", "ck.npz")
+    out = cli(f"{small} --scheme cluster --trace-index {work}/ti_ --trace-mem "
+              f"{work}/tm_ --timers diff", *(f"t{k}_{n}_tracer_{s}.out"
+                                             for k, n in (("i", "index"), ("m", "mem"))
+                                             for s in (0, 20, 40)))
+    if "(timers: diff" not in out:
+        fail("cli --timers diff printed no differential timers")
+    out = cli(f"{small} --restore {work}/ck.npz")
+    if "restored 2048 atoms at step 40" not in out:
+        fail("cli --restore did not resume from the checkpoint")
+    for scheme, force in (("verlet", "torch ops (EAM poly)"), ("cluster", "K2b/K3b")):
+        out = cli(f"-f eam -e {eam_file} -n 60 --precision sp --scheme {scheme}")
+        if f"force: {force}" not in out:
+            fail(f"cli EAM {scheme} did not run {force}")
+    print(f"cli runs on {smi}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2464,7 +2716,7 @@ def main() -> int:
         print("  " + line)
 
     # 7-10. the cluster EAM path
-    eam_rows, eam_main = run_eam_phases(torch, dev, smi, ec)
+    eam_rows, eam_main, eam_dp = run_eam_phases(torch, dev, smi, ec)
 
     # 11-15. the group-window path
     stream_row = run_group_phases(torch, dev, smi, ec,
@@ -2486,6 +2738,12 @@ def main() -> int:
 
     # 27-29. the verlet scheme's LJ path
     verlet_rows = run_verlet_phases(torch, dev, smi, ec)
+
+    # 30-32. the verlet scheme's EAM path and the verlet stub
+    run_verlet_eam_phases(torch, dev, smi, ec, eam_dp)
+
+    # 33. the command line, as subprocesses
+    run_cli_phase(torch, smi)
 
     print(json.dumps({"kernels": [
         kernel_row(KERNEL, launches, *res[torch.float32][:4],

@@ -12,9 +12,11 @@ chained runs, fenced with torch.cuda.synchronize().
 
 Prints exactly one JSON line.
 
-`run_bench_eam` runs the cluster EAM workload of tools/r3_eamc.py on the
-card (the same 32^3 cells, with initEam's overrides: 131,072 atoms,
-cutoff of the potential file, 60 steps) and applies no gate.
+`run_bench_eam` runs the EAM workload of tools/r3_eamc.py on the card
+(the same 32^3 cells, with initEam's overrides: 131,072 atoms, cutoff of
+the potential file, 60 steps), on the cluster scheme or, with
+scheme="verlet", on the verlet scheme's per-atom lists, and applies no
+gate.
 
 `run_bench_verlet` runs the same LJ workload on the verlet scheme
 (tools/r4_vbench.py's run: 16-atom row lists, K1 or K1b on the card),
@@ -80,15 +82,19 @@ def run_bench_verlet(repeats: int = 3, chain: int = 3, kernel: str = "auto"):
 
 
 def run_bench_eam(eam_file: str, precision: str = "sp", repeats: int = 3,
-                  chain: int = 3):
-    """The cluster EAM run on the CUDA card with the potential `eam_file`.
-    Returns (sim, result, atom-updates per second)."""
+                  chain: int = 3, scheme: str = "cluster"):
+    """The EAM run on the CUDA card with the potential `eam_file` on
+    `scheme` ("cluster": K2b/K3b after the bucket plan; "verlet": the
+    torch ops of ops/eam.py). Returns (sim, result, atom-updates per
+    second)."""
     from mdbench_tpu_torch.config import FF_EAM, Params
+    from mdbench_tpu_torch.engine import Simulation
     from mdbench_tpu_torch.engine_cluster import ClusterSimulation
 
-    params = Params(precision=precision, scheme="cluster", dense_thermo=False,
+    params = Params(precision=precision, scheme=scheme, dense_thermo=False,
                     force_field=FF_EAM, eam_file=eam_file, ntimes=60)
-    sim = ClusterSimulation(params, device="cuda")
+    engine = ClusterSimulation if scheme == "cluster" else Simulation
+    sim = engine(params, device="cuda")
     out = sim.run(repeats=repeats, chain=chain)
     return sim, out, sim.natoms * params.ntimes / out.total_time
 

@@ -22,15 +22,20 @@ bin-sorted atoms). Two force paths, as in mdbench_tpu:
   takes this path for "auto" only on a TPU, and its kernel only in SP;
   the port takes it for "auto" on every device and launches the kernels
   on a CUDA tensor in SP and DP;
-- the planar path (kernel "xla", half lists, or more than one atom type):
-  per-atom lists and the planar torch forces of ops/lj.py.
+- the planar path (kernel "xla", half lists, more than one atom type, or
+  EAM): per-atom lists and the planar torch forces of ops/lj.py, or the
+  two-pass EAM force of ops/eam.py (the reference's splines, or with
+  eam_eval "poly", or "auto" in SP on the card, the fitted pair
+  polynomials), whose ghost-fp refresh reads the halo's border_map.
 
 The time-step loop is a Python loop of eager torch ops on `device`
 (mdbench_tpu compiled it into nested lax.scans). The integration and the
 ghost refresh update the state's tensors IN PLACE: a state passed to
 `_run_steps` is consumed. Capacity overflows raise a device flag that is
 read on the host only after a run (and at the calibrations), as in
-mdbench_tpu; the host then grows the capacities and retries.
+mdbench_tpu; the host then grows the capacities and retries. The force and
+the rebuild run inside tracing.region("force") / ("reneighbor"), spans of
+a profile and nothing outside one.
 """
 
 from __future__ import annotations
@@ -41,9 +46,14 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from mdbench_tpu_torch.config import FF_LJ, Params
+from mdbench_tpu_torch.config import FF_EAM, FF_LJ, Params
 from mdbench_tpu_torch.engine_cluster import check_slice
 from mdbench_tpu_torch.io.readers import read_atom
+from mdbench_tpu_torch.models.eam_tables import (
+    apply_eam_overrides,
+    fit_eam_poly,
+    load_eam,
+)
 from mdbench_tpu_torch.models.lattice import create_fcc_lattice
 from mdbench_tpu_torch.ops import lj as lj_ops
 from mdbench_tpu_torch.ops.cells import (
@@ -54,6 +64,12 @@ from mdbench_tpu_torch.ops.cells import (
     sort_atoms_host,
 )
 from mdbench_tpu_torch.ops.cluster import bucket_maps_core, plan_capacity_buckets
+from mdbench_tpu_torch.ops.eam import (
+    EamDevice,
+    compute_force_eam,
+    compute_force_eam_poly,
+    use_poly_eval,
+)
 from mdbench_tpu_torch.ops.integrate import (
     final_integrate,
     initial_integrate,
@@ -73,6 +89,7 @@ from mdbench_tpu_torch.thermo import (
     adjusted_dtforce,
     setup_thermo,
 )
+from mdbench_tpu_torch.tracing import region
 
 # the force-kernel names of mdbench_tpu's verlet engine
 KERNELS = ("auto", "rowlist", "xla")
@@ -124,14 +141,15 @@ def _estimate_ghost_capacity(params: Params, nlocal: int) -> int:
 
 
 class Simulation:
-    """The verlet-scheme LJ simulation on one torch device.
+    """The verlet-scheme LJ or EAM simulation on one torch device.
 
     `device` is explicit (default "cuda"); asking for a CUDA device
     without one raises, and nothing drops to the CPU. Without `x`, the
     atoms come from `params.input_file` (not rescaled unless `adjust`)
     or else from the FCC lattice (rescaled). `params.kernel` is one of
-    KERNELS (module docstring); verlet EAM raises NotImplementedError
-    (engine_cluster.check_slice)."""
+    KERNELS (module docstring). EAM loads `params.eam_file` and applies
+    initEam's overrides to `params` before the lattice is made, as
+    mdbench_tpu does: pass a fresh `Params` to each engine."""
 
     def __init__(
         self,
@@ -156,6 +174,16 @@ class Simulation:
                 "pass device='cpu' to run the plain path"
             )
         self.params = params
+        self.eam_tables = self.eam_poly = None
+        if params.force_field == FF_EAM:
+            # the funcfl file's overrides set rho, so they come before the
+            # lattice (reference setup() calls initEam first, main.c:38)
+            if not params.eam_file:
+                raise ValueError("force_field=eam requires eam_file")
+            self.eam_tables = load_eam(params.eam_file)
+            apply_eam_overrides(params, self.eam_tables)
+            if use_poly_eval(params, self.device):
+                self.eam_poly = fit_eam_poly(self.eam_tables)
         if x is None and params.input_file:
             r = read_atom(params)
             x, v, types = r.x, r.v, r.types
@@ -198,6 +226,7 @@ class Simulation:
         self.ukr = 40  # candidate row ranges per unit (ranges build)
         self._rowbuild_ranges = self._rowlist and params.sort_atoms
         self.rbuckets = None  # (sizes, caps) capacity buckets, planned once
+        self._force_reps = 1  # forces per plain step (cli --timers diff: 2)
         self._rcap_calibrated = False
         self._melt_calibrated = False
         pad_unit = 1024 if self._rowlist else 256
@@ -242,12 +271,18 @@ class Simulation:
                 cutforcesq=full(p.cutforce**2), cutneighsq=full(p.cutneigh**2))
             self.cutforcesq = self.tables.cutforcesq
             self.cutneighsq = self.tables.cutneighsq
+        if self.eam_tables is not None:
+            self.eam_dev = EamDevice.from_tables(self.eam_tables, dev, dtype)
 
     # -- device phases ----------------------------------------------------
 
     def _reneighbor(self, x, types):
         """Wrap, ghosts, lists (reference reneighbour(), main.c:76-95).
         Returns (x, types, halo, nlist, overflow)."""
+        with region("reneighbor"):
+            return self._reneighbor_inner(x, types)
+
+    def _reneighbor_inner(self, x, types):
         p, caps = self.params, self.caps
         x = wrap_into_box(x, self.prd, self.nlocal)
         halo = setup_pbc(
@@ -295,9 +330,19 @@ class Simulation:
             self.nlocal, self.caps.nlocal_pad, self.caps.maxneighs,
             half=bool(self.params.half_neigh))
 
-    def _force(self, x, types, nlist: NeighborList):
+    def _force(self, x, types, nlist: NeighborList, halo: Halo):
         """(nlocal_pad, 3) forces by the path (module docstring)."""
+        with region("force"):
+            return self._force_inner(x, types, nlist, halo)
+
+    def _force_inner(self, x, types, nlist: NeighborList, halo: Halo):
         p, caps = self.params, self.caps
+        if self.eam_tables is not None:
+            args = (x, nlist.neighbors, nlist.numneigh, halo.border_map, self.nlocal,
+                    caps.nlocal_pad, p.cutforce**2, self.eam_dev)
+            if self.eam_poly is not None:
+                return compute_force_eam_poly(*args, self.eam_poly)[0]
+            return compute_force_eam(*args)[0]
         if p.half_neigh:
             return lj_ops.compute_force_lj_half(
                 x, nlist.neighbors, nlist.numneigh, self.nlocal, caps.nlocal_pad,
@@ -321,13 +366,21 @@ class Simulation:
 
     def _plain_steps(self, state: StepState, n: int, thermo: list) -> StepState:
         """n steps without a rebuild; appends (t, p), or None when
-        dense_thermo is off, per step."""
+        dense_thermo is off, per step. With _force_reps > 1 each step chains
+        that many forces, each from x + 1e-30 * the previous force (cli
+        --timers diff: one extra force a plain step, mdbench_tpu
+        engine.py:474-481)."""
         p = self.params
+        npad = self.caps.nlocal_pad
         x, v, f = state.x, state.v, state.f
         for _ in range(n):
             initial_integrate(x, v, f, p.dt, self.dtforce, self.nlocal)
-            update_pbc(x, state.halo, self.caps.nlocal_pad)
-            f = self._force(x, state.types, state.nlist)
+            update_pbc(x, state.halo, npad)
+            f = self._force(x, state.types, state.nlist, state.halo)
+            for _r in range(self._force_reps - 1):
+                xx = x.clone()
+                xx[:npad] += 1e-30 * f
+                f = self._force(xx, state.types, state.nlist, state.halo)
             final_integrate(v, f, self.dtforce, self.nlocal)
             thermo.append(self._thermo(v) if p.dense_thermo else None)
         return state._replace(x=x, v=v, f=f)
@@ -344,7 +397,7 @@ class Simulation:
             x = wrap_into_box(x, self.prd, self.nlocal)
             x, v, types = sort_atoms_device(self.grid, x, v, types, self.nlocal)
         x, types, halo, nlist, ovf = self._reneighbor(x, types)
-        f = self._force(x, types, nlist)
+        f = self._force(x, types, nlist, halo)
         final_integrate(v, f, self.dtforce, self.nlocal)
         thermo.append(self._thermo(v))
         return StepState(x, v, f, types, halo, nlist, state.overflow | ovf)
@@ -383,7 +436,7 @@ class Simulation:
         """Ghosts and lists built and the step-0 forces computed
         (reference setup() + the first computeForce, main.c:234-250)."""
         x, types, halo, nlist, ovf = self._reneighbor(self.x0, self.types0)
-        f = self._force(x, types, nlist)
+        f = self._force(x, types, nlist, halo)
         return StepState(x, self.v0.clone(), f, types, halo, nlist, ovf)
 
     def _sync(self):
@@ -650,7 +703,7 @@ class Simulation:
         def force_reps():
             x = state.x
             for _ in range(reps):
-                f = self._force(x, state.types, state.nlist)
+                f = self._force(x, state.types, state.nlist, state.halo)
                 x = x + 1e-30 * f[0, 0]
 
         n_neigh = max(reps // 4, 1)

@@ -41,7 +41,9 @@ The time-step loop is a Python loop of eager torch ops on `device`
 ghost refresh update the state's tensors IN PLACE, where mdbench_tpu
 rebuilt arrays with .at[].set/add: a state passed to `_run_steps` is
 consumed. Capacity overflows raise device flags that are read once per
-run, as in mdbench_tpu; the host then grows the capacity and retries.
+run, as in mdbench_tpu; the host then grows the capacity and retries. The
+force and the full rebuild run inside tracing.region("force") /
+("reneighbor"), spans of a profile and nothing outside one.
 """
 
 from __future__ import annotations
@@ -99,6 +101,7 @@ from mdbench_tpu_torch.thermo import (
     adjusted_dtforce,
     setup_thermo,
 )
+from mdbench_tpu_torch.tracing import region
 
 GROUP = 16  # i-clusters per shared group list
 # the force-kernel names of mdbench_tpu's kernel axis
@@ -151,9 +154,6 @@ def check_slice(params: Params) -> None:
         ),
         "force_field other than lj or eam": (
             params.force_field not in (FF_LJ, FF_EAM)
-        ),
-        "EAM on the verlet scheme": (
-            params.scheme == "verlet" and params.force_field == FF_EAM
         ),
         "derive_bf16": bool(params.derive_bf16),
     }
@@ -338,6 +338,7 @@ class ClusterSimulation:
         # first build, by _calibrate_list_cap
         self.buckets = None
         self.dtype = params.dtype
+        self._force_reps = 1  # forces per plain step (cli --timers diff: 2)
         self.grows: list = []  # the flags behind each capacity growth
         self.x_flat0 = self._flat(x, SENTINEL_COORD)
         self.v_flat0 = self._flat(v, 0.0)
@@ -402,6 +403,10 @@ class ClusterSimulation:
     def _reneighbor_from_flat(self, x_flat, v_flat):
         """Full build from flat atom arrays: wrap, cluster, lists.
         Returns (clusters, (vxc, vyc, vzc), halo, pairs, overflow)."""
+        with region("reneighbor"):
+            return self._reneighbor_from_flat_inner(x_flat, v_flat)
+
+    def _reneighbor_from_flat_inner(self, x_flat, v_flat):
         x_flat = self._wrap_flat(x_flat)
         clusters, ovf_c = build_clusters(
             self.grid, x_flat, self.nlocal, self.n_clusters_pad,
@@ -445,6 +450,11 @@ class ClusterSimulation:
         force in its typed form on a typed run. The exact-list kernels
         (EAM, and untyped LJ) run bucketed when the lists carry the bucket
         maps."""
+        with region("force"):
+            return self._force_from_inner(clusters, pairs, halo)
+
+    def _force_from_inner(self, clusters: Clusters, pairs: ClusterPairList,
+                          halo: ClusterHalo):
         p = self.params
         npad, cutsq = self.n_clusters_pad, p.cutforce**2
         planes = (clusters.xc, clusters.yc, clusters.zc)
@@ -514,14 +524,20 @@ class ClusterSimulation:
 
     def _plain_steps(self, state: CStepState, n: int, thermo: list):
         """n plain steps (mdbench_tpu's _plain_scan). Appends (t, p) per
-        step to `thermo`, or None when dense_thermo is off."""
+        step to `thermo`, or None when dense_thermo is off. With
+        _force_reps > 1 each step chains that many forces, each from xc +
+        1e-30 * the previous fx (cli --timers diff, mdbench_tpu
+        engine_cluster.py:589-595)."""
         npad = self.n_clusters_pad
         for _ in range(n):
             self._kick_drift(state)
-            update_cluster_pbc(state.clusters, state.halo, npad, False)
-            state = self._kick(
-                state, self._force_from(state.clusters, state.pairs, state.halo)
-            )
+            cl = update_cluster_pbc(state.clusters, state.halo, npad, False)
+            f3 = self._force_from(cl, state.pairs, state.halo)
+            for _r in range(self._force_reps - 1):
+                xc = cl.xc.clone()
+                xc[:npad] += 1e-30 * f3[0]
+                f3 = self._force_from(cl._replace(xc=xc), state.pairs, state.halo)
+            state = self._kick(state, f3)
             thermo.append(
                 self._thermo(state.vxc, state.vyc, state.vzc)
                 if self.params.dense_thermo else None

@@ -64,6 +64,22 @@ def stencil_offsets(grid: CellGrid, device) -> torch.Tensor:
     return ((a // 9 - 1) * ny + (a // 3 % 3 - 1)) * nz + (a % 3 - 1)
 
 
+def stencil_bins(grid: CellGrid, ib: torch.Tensor) -> torch.Tensor:
+    """(n, 27) flat bins of the stencil around the flat bins `ib` (n,), in
+    stencil_offsets' order; a stencil bin outside the grid (around an atom
+    in the margin ring: a local that has left the box since its last wrap)
+    is the trap bin `grid.nbins`, whose slots hold only the sentinel row."""
+    _, ny, nz = grid.dims
+    a = torch.arange(27, device=ib.device)
+    b = [ib[:, None] // (ny * nz) + (a // 9 - 1), ib[:, None] // nz % ny
+         + (a // 3 % 3 - 1), ib[:, None] % nz + (a % 3 - 1)]
+    inside = torch.ones_like(b[0], dtype=torch.bool)
+    for c, n in zip(b, grid.dims):
+        inside &= (c >= 0) & (c < n)
+    flat = ib[:, None] + stencil_offsets(grid, ib.device)[None, :]
+    return torch.where(inside, flat, grid.nbins)
+
+
 def column_offsets(grid: CellGrid, device) -> torch.Tensor:
     """The 9 flat xy-column offsets (dx, dy) in (-1, 0, 1), dy fastest."""
     a = torch.arange(9, device=device)

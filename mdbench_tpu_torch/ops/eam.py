@@ -1,9 +1,20 @@
-"""EAM spline tables on a torch device and the per-atom lookups the
-cluster-scheme EAM force needs (the port of the parts of
-``mdbench_tpu.ops.eam`` that ``ops/eam_cluster.py`` uses; reference
-src/verletlist/force_eam.c:20-231). The verlet-scheme EAM forces
-(`compute_force_eam`, `compute_force_eam_poly`) come with the verlet
-slice (ROADMAP.md).
+"""EAM over verlet neighbor lists, two passes with a ghost-fp refresh
+between them (the port of ``mdbench_tpu.ops.eam``; reference
+src/verletlist/force_eam.c:20-231), and the spline tables and per-atom
+lookups that the cluster-scheme EAM force (``ops/eam_cluster.py``) shares.
+
+Pass 1: per-atom density rho_i from the rhor spline, then fp_i = F'(rho_i)
+from the frho spline; the ghost rows of fp are copied from their local
+atoms through the halo's border_map (force_eam.c:117-120). Pass 2: pair
+forces from the rhor' and z2r splines, psip = fp_i*rhoip + fp_j*rhoip +
+phip, F = -psip/r.
+
+Torch ops on every device, with mdbench_tpu's arithmetic and order: one
+packed (N, K, 14) row gather of [rhor | z2r] by the (N, K) grid index
+serves both passes, and every intermediate is a planar (N, K) tensor.
+Masked lanes take r = 1 before the square root (a sentinel neighbour's
+rsq is inf in float32) and a force of 0 after. The sums over the list
+axis may round differently from XLA's in the last bits.
 """
 
 from __future__ import annotations
@@ -11,6 +22,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from mdbench_tpu_torch.ops.lj import _planar_delta_rsq
 
 
 class EamDevice(NamedTuple):
@@ -37,6 +50,21 @@ class EamDevice(NamedTuple):
             nrho=t.nrho,
         )
 
+    @property
+    def rz_packed(self) -> torch.Tensor:  # (nr+1, 14) [rhor | z2r]
+        return torch.cat([self.rhor, self.z2r], dim=1)
+
+
+def use_poly_eval(params, device) -> bool:
+    """The eam_eval axis: "poly" evaluates the fitted pair polynomials,
+    "spline" the reference's gathered splines, and "auto" takes poly for
+    single precision on a CUDA device, the spline elsewhere (mdbench_tpu:
+    poly for SP on a TPU)."""
+    return params.eam_eval == "poly" or (
+        params.eam_eval == "auto" and params.precision == "sp"
+        and torch.device(device).type == "cuda"
+    )
+
 
 def _grid_index(r_or_rho, rd, n):
     """p = x*rd + 1; m = floor(p) clamped to [1, n-1]; frac = min(p - m, 1)
@@ -55,3 +83,97 @@ def _horner(coefs, t):
     for c in coefs[-2::-1]:
         acc = acc * t + float(c)
     return acc
+
+
+def _lanes(x, neighbors, numneigh, nlocal_pad: int, cutforcesq: float):
+    """Planar deltas, the pair mask and r (1 on masked lanes)."""
+    k = neighbors.shape[1]
+    valid = torch.arange(k, device=x.device)[None, :] < numneigh[:, None]
+    dx, dy, dz, rsq = _planar_delta_rsq(x, neighbors, nlocal_pad)
+    mask = valid & (rsq < cutforcesq)
+    return dx, dy, dz, mask, torch.sqrt(torch.where(mask, rsq, 1.0))
+
+
+def _embedding(rhoi, eam: EamDevice, nrows: int, border_map, fp_exchange):
+    """fp = F'(rho) on the local rows from the frho spline, then the ghost
+    rows: through border_map (gathered before the slice is written; dead
+    slots read the sentinel row, whose fp stays 0), or by `fp_exchange`.
+    Returns (fp_local (nlocal_pad,), fp (nrows,))."""
+    mf, pf = _grid_index(rhoi, eam.rdrho, eam.nrho)
+    fs = eam.frho[mf]  # (nlocal_pad, 7)
+    fp_local = (fs[:, 0] * pf + fs[:, 1]) * pf + fs[:, 2]
+    n = fp_local.shape[0]
+    fp = torch.zeros((nrows,), dtype=rhoi.dtype, device=rhoi.device)
+    fp[:n] = fp_local
+    if fp_exchange is None:
+        fp[n : n + border_map.shape[0]] = fp[border_map]
+    else:
+        fp = fp_exchange(fp)
+    return fp_local, fp
+
+
+def _sum_forces(dx, dy, dz, fpair):
+    return torch.stack([torch.sum(dx * fpair, dim=1), torch.sum(dy * fpair, dim=1),
+                        torch.sum(dz * fpair, dim=1)], dim=1)
+
+
+def compute_force_eam(x, neighbors, numneigh, border_map, nlocal: int,
+                      nlocal_pad: int, cutforcesq: float, eam: EamDevice,
+                      fp_exchange=None):
+    """EAM forces over the per-atom lists with the reference's gathered
+    splines. Returns (forces (nlocal_pad, 3), fp (nrows,)).
+
+    fp_exchange(fp) -> fp fills the ghost rows of fp between the passes;
+    None is the single-device border_map copy (the domain engines pass a
+    closure that also exchanges boundary fp between devices)."""
+    dx, dy, dz, mask, r = _lanes(x, neighbors, numneigh, nlocal_pad, cutforcesq)
+    m, p = _grid_index(r, eam.rdr, eam.nr)
+    # one packed row gather for both passes; only (N, K) planes stay live
+    # across the fp refresh
+    rows = eam.rz_packed.index_select(0, m.reshape(-1)).reshape(*m.shape, 14)
+    rs, zs = rows[..., 0:7], rows[..., 7:14]
+    dens = ((rs[..., 3] * p + rs[..., 4]) * p + rs[..., 5]) * p + rs[..., 6]
+    rhoip = (rs[..., 0] * p + rs[..., 1]) * p + rs[..., 2]
+    z2p = (zs[..., 0] * p + zs[..., 1]) * p + zs[..., 2]
+    z2 = ((zs[..., 3] * p + zs[..., 4]) * p + zs[..., 5]) * p + zs[..., 6]
+    del rows, rs, zs
+
+    # pass 1: embedding density (force_eam.c:60-90)
+    rhoi = torch.sum(torch.where(mask, dens, 0.0), dim=1)
+    fp_local, fp = _embedding(rhoi, eam, x.shape[0], border_map, fp_exchange)
+
+    # pass 2: pair forces (force_eam.c:122-227)
+    recip = 1.0 / r
+    phi = z2 * recip
+    phip = z2p * recip - phi * recip
+    psip = fp_local[:, None] * rhoip + fp[neighbors] * rhoip + phip
+    fpair = torch.where(mask, -psip * recip, 0.0)
+    return _sum_forces(dx, dy, dz, fpair), fp
+
+
+def compute_force_eam_poly(x, neighbors, numneigh, border_map, nlocal: int,
+                           nlocal_pad: int, cutforcesq: float, eam: EamDevice,
+                           poly, fp_exchange=None):
+    """The gather-free twin of compute_force_eam: the per-pair rhor and z2r
+    lookups become the fitted polynomials of `poly`
+    (models/eam_tables.fit_eam_poly) in t = clip((r - mid) * iscale, -1, 1),
+
+      pass 1: rho_i = sum dens(t)
+      pass 2: fpair = -((fp_i + fp_j) * g1(t) + g2(t)),
+
+    the per-atom frho lookup stays on its spline. Same two passes, outputs
+    and fp_exchange contract."""
+    dx, dy, dz, mask, r = _lanes(x, neighbors, numneigh, nlocal_pad, cutforcesq)
+    # the clamp covers r < lo and the masked lanes' r = 1
+    t = torch.clamp((r - float(poly.mid)) * float(poly.iscale), -1.0, 1.0)
+
+    rhoi = torch.sum(torch.where(mask, _horner(poly.dens, t), 0.0), dim=1)
+    fp_local, fp = _embedding(rhoi, eam, x.shape[0], border_map, fp_exchange)
+
+    fpair = torch.where(
+        mask,
+        -((fp_local[:, None] + fp[neighbors]) * _horner(poly.g1, t)
+          + _horner(poly.g2, t)),
+        0.0,
+    )
+    return _sum_forces(dx, dy, dz, fpair), fp

@@ -43,7 +43,7 @@ from mdbench_tpu_torch.ops.cells import (
     coord_to_bin,
     flat_bin,
     np_dtype,
-    stencil_offsets,
+    stencil_bins,
 )
 from mdbench_tpu_torch.ops.lj_cluster import (
     lj_cluster_force_buckets,
@@ -99,7 +99,6 @@ def build_neighbors(grid: CellGrid, cl: CellList, x, types, cutneighsq,
     dev = x.device
     sentinel_row = nrows - 1
     typed = torch.is_tensor(cutneighsq) and cutneighsq.dim() == 2
-    stencil = stencil_offsets(grid, dev)
     d = grid.dims
     safe_bin = (1 * d[1] + 1) * d[2] + 1  # an interior bin for padded rows
     cells = cl.cells
@@ -113,7 +112,7 @@ def build_neighbors(grid: CellGrid, cl: CellList, x, types, cutneighsq,
         is_real = i_idx < nlocal
         i_safe = torch.where(is_real, i_idx, 0)
         ib = torch.where(is_real, cl.bin_of[i_safe], safe_bin)
-        cand_bins = ib[:, None] + stencil[None, :]  # (n, 27)
+        cand_bins = stencil_bins(grid, ib)  # (n, 27)
         cand = cells[cand_bins].reshape(n, C)
         xi = x[i_safe]
         rsq = None

@@ -736,7 +736,7 @@ def test_cuda_kernels_on_verlet_row_lists(verlet_states, precision, approx):
     want_b = tlj.lj_cluster_force_buckets_ref(*planes, *maps[:3], npad, plan, *lj, share=2)
     assert _rel(got_b, want_b) <= TOL[dtype]
     # the engine's step-0 force of these lists is K1's
-    f = sim._force(st.x, st.types, nl)
+    f = sim._force(st.x, st.types, nl, st.halo)
     assert f.shape == (sim.caps.nlocal_pad, 3)
 
 
@@ -762,3 +762,64 @@ def test_cuda_verlet_engine_matches_cpu(cuda, extra):
     r_gpu = Simulation(Params(**kw), device=cuda).run(repeats=0)
     r_cpu = Simulation(Params(**kw), device="cpu").run(repeats=0)
     np.testing.assert_allclose(r_gpu.temps, r_cpu.temps, rtol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eam_eval", ["spline", "poly"])
+def test_cuda_verlet_eam_matches_cpu(cuda, eam_file, eam_eval):
+    """A jittered 6^3 DP verlet EAM box, card against the CPU plain path:
+    step-0 forces <= 1e-12 of max |f| (the same torch ops; only reduction
+    orders differ), 20-step temperatures <= 1e-12; no hand kernel
+    launches (verlet EAM is torch ops)."""
+    kw = dict(nx=6, ny=6, nz=6, ntimes=20, reneigh_every=10, precision="dp",
+              force_field=FF_EAM, eam_file=eam_file, eam_eval=eam_eval)
+    x, v, _ = create_fcc_lattice(apply_eam_overrides(Params(**kw), load_eam(eam_file)))
+    x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
+    before = {n: getattr(tlj, n) for n in LJ_COUNTS}
+    f_gpu = Simulation(Params(**kw), x=x, v=v, device=cuda).first_force()
+    assert all(getattr(tlj, n) == before[n] for n in LJ_COUNTS)
+    f_cpu = Simulation(Params(**kw), x=x, v=v, device="cpu").first_force()
+    assert np.abs(f_gpu - f_cpu).max() <= 1e-12 * np.abs(f_cpu).max()
+    r_gpu = Simulation(Params(**kw), device=cuda).run(repeats=0)
+    r_cpu = Simulation(Params(**kw), device="cpu").run(repeats=0)
+    np.testing.assert_allclose(r_gpu.temps, r_cpu.temps, rtol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["full", "half", "spline", "poly"])
+def test_cuda_verlet_stub_first_force(cuda, eam_file, kind):
+    """The verlet stub's first force on the card against the CPU, float64,
+    <= 1e-12 of the largest finite value, non-finite entries equal."""
+    from mdbench_tpu_torch.stub import run_stub
+
+    kw = dict(half=kind == "half")
+    if kind in ("spline", "poly"):
+        kw = dict(force_field="eam", eam_file=eam_file, eam_eval=kind)
+    f = [run_stub(natoms=4096, nneighs=40, ntimes=2, precision="dp", device=d,
+                  **kw)["first_force"].cpu() for d in (cuda, "cpu")]
+    fin = torch.isfinite(f[1])
+    assert torch.equal(torch.isfinite(f[0]), fin) and fin.any()
+    err = (f[0][fin] - f[1][fin]).abs().max() / f[1][fin].abs().max()
+    assert float(err) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["verlet", "cluster"])
+def test_cuda_cli_run(cuda, scheme, capsys):
+    """A 4^3 DP CLI run on the card: the thermo rows equal the CPU run's
+    (rel 1e-9), the device line names the card and the kernel."""
+    import re
+
+    from mdbench_tpu_torch.cli import main
+
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        assert main(f"-nx 4 -ny 4 -nz 4 -n 20 --precision dp --scheme {scheme} "
+                    f"--device {dev}".split()) == 0
+        out = capsys.readouterr().out
+        rows[dev] = np.array([[float(g) for g in m.groups()] for m in
+                              map(re.compile(r"^(\d+)\t(\S+)\t(\S+)$").match,
+                                  out.splitlines()) if m])
+        if dev == "cuda":
+            assert f"Device: {torch.cuda.get_device_name()}, force: K1" in out
+    np.testing.assert_allclose(rows["cuda"], rows["cpu"], rtol=1e-9)

@@ -86,8 +86,8 @@ def test_thermo_setup_matches(ff):
 
 
 @pytest.mark.parametrize("kw", [
-    # the verlet scheme runs LJ since its port; verlet EAM does not yet
-    {"scheme": "verlet", "force_field": tconfig.FF_EAM, "eam_file": "Cu_u3.eam"},
+    # both schemes run LJ and EAM; mdbench_tpu's domain engines are slice 6
+    {"scheme": "domain"},
     {"force_field": tconfig.FF_DEM},
     {"derive_bf16": True},
 ])
@@ -97,6 +97,19 @@ def test_unported_settings_raise(kw):
         check_slice(p)
     with pytest.raises(NotImplementedError):
         ClusterSimulation(p, device="cpu")
+
+
+@pytest.mark.parametrize("scheme", ["verlet", "cluster"])
+def test_eam_is_in_the_slice_and_needs_a_potential(scheme):
+    """EAM passes the slice check on both schemes; without eam_file both
+    engines raise ValueError, as mdbench_tpu's do."""
+    from mdbench_tpu_torch.engine import Simulation
+
+    kw = dict(nx=4, ny=4, nz=4, scheme=scheme, force_field=tconfig.FF_EAM)
+    check_slice(tconfig.Params(**kw, eam_file="Cu_u3.eam"))
+    engine = Simulation if scheme == "verlet" else ClusterSimulation
+    with pytest.raises(ValueError, match="eam_file"):
+        engine(tconfig.Params(**kw), device="cpu")
 
 
 def test_cuda_device_without_card_raises():

@@ -6,7 +6,8 @@ mdbench_tpu's integers on the same state, and the within-cutoff pair
 counts equal a dense minimum-image count. Stub: the synthetic planes and
 lists are mdbench_tpu's bit for bit, a tiny run's first force is
 mdbench_tpu's `lj_cluster_force_xla` on them (float64, 1e-12 of max |f|:
-only the summation order differs), and the verlet stub refuses.
+only the summation order differs), and the stub's command line runs
+the verlet stub by default.
 """
 
 from types import SimpleNamespace
@@ -129,6 +130,14 @@ def test_stub_csv_row(capsys):
 
 
 @pytest.mark.parametrize("argv", [[], ["--scheme", "verlet"]])
-def test_verlet_stub_is_not_ported(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tstub.main(argv)
+def test_verlet_stub_main_runs(argv, capsys):
+    """The verlet stub, the default scheme, runs (on the CPU when asked:
+    its default device is cuda, which raises without a card)."""
+    small = ["-na", "256", "-nn", "12", "-n", "2", "--precision", "dp"]
+    assert tstub.main(argv + small + ["--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("Total time: ") and "Mega atom updates/s: " in lines[0]
+    assert lines[1].startswith("Cycles per atom: ")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tstub.main(argv + small)

@@ -88,6 +88,36 @@ def _ghosted(sim, x):
     return xt.numpy()
 
 
+def test_lists_of_atoms_that_left_the_box():
+    """Locals that left the box since their last wrap sit in the margin
+    bins, whose stencils reach past the grid: those stencil bins read the
+    trap bin, and each atom's list is every row within cutneigh (brute
+    force), as on any other atom."""
+    sim, x = _jittered_x()
+    n, p = sim.nlocal, sim.params
+    x[:n] = np.mod(x[:n], sim.prd)
+    halo = tpbc.setup_pbc(_t(x), n, sim.caps.nlocal_pad, sim.caps.ghost, sim.prd,
+                          (1, 1, 1), p.cutneigh)
+    moved = [0, 7, 50, 100, 150, 200]
+    for k, i in enumerate(moved):
+        d = k % 3
+        x[i, d] = -0.01 if k < 3 else sim.prd[d] + 0.01
+    xt = tpbc.update_pbc(_t(x), halo, sim.caps.nlocal_pad)
+    ib = tcells.coord_to_bin(sim.grid, xt)[moved]
+    bins = tcells.stencil_bins(sim.grid, ib)
+    assert bool((bins == sim.grid.nbins).any(1).all())
+    assert bool(((bins >= 0) & (bins <= sim.grid.nbins)).all())
+    nl = tver.build_neighbors(sim.grid, tcells.build_cells(sim.grid, xt), xt,
+                              sim.types0, p.cutneigh**2, n, sim.caps.nlocal_pad,
+                              sim.caps.maxneighs, half=False)
+    xa = xt.numpy()
+    rsq = ((xa[:n, None, :] - xa[None, :-1, :]) ** 2).sum(-1)
+    for i in range(n):
+        want = set(np.flatnonzero(rsq[i] <= p.cutneigh**2)) - {i}
+        got = nl.neighbors[i, : int(nl.numneigh[i])].tolist()
+        assert set(got) == want and len(got) == len(want), i
+
+
 def test_cell_table_and_sort_equal_jax():
     sim, x = _jittered_x()
     x = _ghosted(sim, x)
@@ -406,6 +436,6 @@ def test_converters_carry_jax_state():
         st = convert.verlet_step_state_from_numpy(jst, "cpu", torch.float64)
         assert isinstance(st.halo, THalo) and isinstance(jst.halo, JHalo)
         assert (st.nlist.rows is None) == (kernel == "xla")
-        f = sim._force(st.x, st.types, st.nlist)
+        f = sim._force(st.x, st.types, st.nlist, st.halo)
         assert _rel(f.numpy(), jst.f) < 1e-10
         assert st.nlist.rows is None or st.nlist.rows.dtype == torch.int32
