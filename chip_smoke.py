@@ -204,12 +204,37 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      writing its files; and -f eam on both schemes (131k/60 SP, naming
      the torch ops and K2b/K3b).
 
+ 34. the slab engine (parallel/verlet_domain.DomainSimulation) on an
+     in-process mesh of one slab: run_bench_domain(ndev=1), 131,072 atoms,
+     200 SP steps on the row lists (the melt calibration plans capacity
+     buckets: K1 for the set-up forces, K1b after), gated on the C
+     reference's temperature trace, TOTAL beside phase 27's single-engine
+     TOTAL; every atom on the slab; then one more run of the timed
+     region's kind: K1b launched once a step (K1 0), no host
+     synchronisation (torch.cuda.set_sync_debug_mode);
+ 35. the same on two and four slabs (26.9 and 13.4 sigma wide, above
+     cutneigh 2.8): golden-gated, atoms conserved across the migrations,
+     the timed run's launches (two slabs: K1b if their units get a plan;
+     four slabs: K1, 2,304 units a slab being too few for one) and no
+     host synchronisation; the dry run (parallel/dryrun: 4 slabs of an
+     8x2x2 box, planar and row lists, against engine.Simulation); then
+     K1b on the one-slab run's final row lists and K1 on the four-slab
+     run's, as phase 28 (error against the plain twins, K1b equal to K1,
+     times, sweep counts, bound);
+ 36. EAM on two slabs at 131k/60 on phase 8's stand-in potential: SP
+     poly against DP poly within EAM_SP_TOL at steps 20/40/60 (the ghost
+     fp exchanged between the slabs between the passes), no hand kernel;
+     DP poly against phase 30's single-engine DP poly run (rel 1e-6 at
+     steps 20/40/60);
+     an 8^3 DP box on two slabs, spline and poly, card against the CPU
+     (20-step temperatures <= 1e-12).
+
 Every kernel count is set to 0 just before each main path (phases 4, 8,
 12, both runs of 17, the probes' runs in 25 and 26, both runs of 27,
-and phase 30's SP run and each stub of 32, where it must stay 0) and
-read just after it. Then it prints a JSON line of the kernels, nvidia-smi's line,
-and {"ok": true, "device": {...}} as the last line; the script's wall
-time goes to standard error.
+phase 30's SP run and each stub of 32, where it must stay 0, and each
+run of 34-36) and read just after it. Then it prints the script's wall
+time, a JSON line of the kernels, nvidia-smi's line, and {"ok": true,
+"device": {...}} as the last line.
 
 A kernel's bound (bound_ms) is the least time the card could take for
 the work the main path's inputs need: the larger of its operations over
@@ -2142,27 +2167,27 @@ def sync_count(torch, fn) -> int:
                for w in caught)
 
 
-def verlet_kernel_row(torch, lj, sim, st, smi: str, launches: int, bucketed: bool,
-                      tag: str) -> dict:
-    """K1 (flat) or K1b (bucketed) on a verlet run's final state: the
-    planes x[:, d].reshape(-1, 8) and the row lists (share 2), against the
-    plain twin in float32 and float64 (exact and with approx_rcp, the
-    main path's form), K1b also bit-equal to K1 on the same lists; median
-    times back to back and on the device alone, the sweep counts and the
-    bound. Returns the JSON row (float32, approx_rcp)."""
+def rowlist_kernel_row(torch, lj, p, x, nl, nlocal_pad: int, rbuckets, smi: str,
+                       launches: int, bucketed: bool, tag: str, meta: dict) -> dict:
+    """K1 (flat) or K1b (bucketed) on 16-atom row lists `nl` of the rows x
+    (a verlet run's or a slab's final state): the planes x[:, d].reshape(-1,
+    8) and the row lists (share 2), against the plain twin in float32 and
+    float64 (exact and with approx_rcp, the main path's form), K1b also
+    bit-equal to K1 on the same lists; median times back to back and on
+    the device alone, the sweep counts and the bound. Returns the JSON row
+    (float32, approx_rcp)."""
     from mdbench_tpu_torch.probes import graph_ms
 
-    p, nl = sim.params, st.nlist
-    npad = sim.caps.nlocal_pad // 8
+    npad = nlocal_pad // 8
     cut = (p.cutforce**2, p.sigma6, p.epsilon)
-    planes32 = [st.x[:, k].reshape(-1, 8).contiguous() for k in range(3)]
+    planes32 = [x[:, k].reshape(-1, 8).contiguous() for k in range(3)]
     if bucketed:
-        lists, kw = nl.brows, dict(buckets=(sim.rbuckets, nl.bcrows))
+        lists, kw = nl.brows, dict(buckets=(rbuckets, nl.bcrows))
     else:
         lists, kw = nl.rows, {}
     c = lj.ilist_sweep_counts(*planes32, lists, nl.numrows, 2, p.cutforce**2, **kw)
     evaluated, inside = int(c["listed"].sum()), int(c["inside"].sum())
-    print(f"{tag} at 131k ({'buckets ' + str(sim.rbuckets) if bucketed else 'flat'}, "
+    print(f"{tag} at 131k ({'buckets ' + str(rbuckets) if bucketed else 'flat'}, "
           f"{nl.rows.shape[0]} units x rcap {nl.rows.shape[1]}, numrows mean "
           f"{float(nl.numrows.float().mean()):.2f} max {int(nl.numrows.max())}): "
           + sweep_line(torch, lj, planes32, lists, nl.numrows, 2, p.cutforce**2, **kw),
@@ -2180,12 +2205,12 @@ def verlet_kernel_row(torch, lj, sim, st, smi: str, launches: int, bucketed: boo
 
             def kern(approx=False):
                 return lj.lj_cluster_force_buckets(*planes, *maps, nl.numrows, npad,
-                                                   sim.rbuckets, *cut, share=2,
+                                                   rbuckets, *cut, share=2,
                                                    approx_rcp=approx)
 
             def plain():
                 return lj.lj_cluster_force_buckets_ref(*planes, *maps, npad,
-                                                       sim.rbuckets, *cut, share=2)
+                                                       rbuckets, *cut, share=2)
         else:
             kern = flat
 
@@ -2215,14 +2240,13 @@ def verlet_kernel_row(torch, lj, sim, st, smi: str, launches: int, bucketed: boo
         if not (rel <= tol and rel_a <= tol and same):
             fail(f"{tag} on the verlet lists disagrees with its plain version or K1 "
                  f"({dtype})")
-    copies = median_ms(torch, lambda: [st.x[:, k].reshape(-1, 8).contiguous()
+    copies = median_ms(torch, lambda: [x[:, k].reshape(-1, 8).contiguous()
                                        for k in range(3)], 50)
     print(f"{tag}: the three plane copies x[:, d].reshape(-1, 8).contiguous() of the "
-          f"{tuple(st.x.shape)} state: {copies:.4f} ms per force call on {smi}",
+          f"{tuple(x.shape)} state: {copies:.4f} ms per force call on {smi}",
           flush=True)
     r = res[torch.float32]
-    return kernel_row(VERLET_KERNELS["bucketed" if bucketed else "flat"], launches,
-                      *r[:4], exact_ms=r[4], device_ms=r[5])
+    return kernel_row(meta, launches, *r[:4], exact_ms=r[4], device_ms=r[5])
 
 
 def run_verlet_phases(torch, dev, smi: str, ec) -> list:
@@ -2278,10 +2302,13 @@ def run_verlet_phases(torch, dev, smi: str, ec) -> list:
         runs[side] = (sim, out.state, k1b if side == "bucketed" else k1, out.total_time)
 
     # 28. K1 and K1b on the verlet run's final lists; a small box card vs CPU
-    rows = [verlet_kernel_row(torch, lj, *runs["flat"][:2], smi, runs["flat"][2],
-                              False, "K1 (verlet rows)"),
-            verlet_kernel_row(torch, lj, *runs["bucketed"][:2], smi,
-                              runs["bucketed"][2], True, "K1b (verlet rows)")]
+    rows = []
+    for side, tag in (("flat", "K1"), ("bucketed", "K1b")):
+        sim, st, launches = runs[side][:3]
+        rows.append(rowlist_kernel_row(
+            torch, lj, sim.params, st.x, st.nlist, sim.caps.nlocal_pad, sim.rbuckets,
+            smi, launches, side == "bucketed", f"{tag} (verlet rows)",
+            VERLET_KERNELS[side]))
     for extra in ({"kernel": "auto"}, {"kernel": "xla"}, {"half_neigh": 1}):
         kw = dict(nx=8, ny=8, nz=8, ntimes=40, reneigh_every=10, precision="dp",
                   **extra)
@@ -2319,7 +2346,7 @@ def run_verlet_phases(torch, dev, smi: str, ec) -> list:
               f"{name[:110]} {ms:.4f}" for name, ms in top), flush=True)
     if not (0 < t_force < 1 and 0 < t_neigh < 10):
         fail("verlet measure_phases gave no plausible times")
-    return rows
+    return rows, {side: r[3] for side, r in runs.items()}
 
 
 def eam_verlet_bound(torch, sim, st) -> tuple:
@@ -2342,9 +2369,10 @@ def eam_verlet_bound(torch, sim, st) -> tuple:
     return bound_of(ops, moved, p.dtype), listed, inside
 
 
-def run_verlet_eam_phases(torch, dev, smi: str, ec, eam_dp) -> None:
+def run_verlet_eam_phases(torch, dev, smi: str, ec, eam_dp) -> tuple:
     """Phases 30-32 (the verlet scheme's EAM force and the verlet stub).
-    `eam_dp` is phase 8's cluster DP run (sim, result) on the same box."""
+    `eam_dp` is phase 8's cluster DP run (sim, result) on the same box.
+    Returns phase 30's verlet DP poly run (sim, result)."""
     from mdbench_tpu_torch import _build
     from mdbench_tpu_torch.bench import run_bench_eam
     from mdbench_tpu_torch.config import FF_EAM, Params
@@ -2471,6 +2499,161 @@ def run_verlet_eam_phases(torch, dev, smi: str, ec, eam_dp) -> None:
               f"{sum(hand_launches().values())}; on {smi}", flush=True)
         if not (err <= 1e-12 and same_nf and bool(fin.any())):
             fail(f"the verlet stub's {name} first force on the card disagrees")
+    return runs["dp", "poly"]
+
+
+DOMAIN_KERNELS = {
+    "flat": {**KERNEL, "name": "lj_cluster_ilist (slab rows)"},
+    "bucketed": {**BUCKET_KERNELS["lj_cluster_ilist_buckets"],
+                 "name": "lj_cluster_ilist_buckets (slab rows)"},
+}
+
+
+def run_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict, eam_verlet_dp
+                      ) -> list:
+    """Phases 34-36 (the slab engine, parallel/verlet_domain, on an
+    in-process mesh on the card). `eam_verlet_dp` is phase 30's
+    single-engine verlet DP poly run (sim, result) on phase 36's box.
+    Returns the JSON rows of K1b on the 1-slab run's row lists and K1 on
+    the 4-slab run's."""
+    from mdbench_tpu_torch import _build
+    from mdbench_tpu_torch.bench import run_bench_domain
+    from mdbench_tpu_torch.config import FF_EAM, Params
+    from mdbench_tpu_torch.ops import lj_cluster as lj
+    from mdbench_tpu_torch.parallel.dryrun import dryrun_multichip
+    from mdbench_tpu_torch.parallel.verlet_domain import DomainSimulation
+
+    # 34. one slab; 35. two and four slabs: 131k/200 SP, golden-gated
+    runs = {}
+    for ndev in (1, 2, 4):
+        reset_counts(lj, ec)
+        t0 = time.perf_counter()
+        sim, out, rate = run_bench_domain(ndev=ndev, repeats=REPEATS, chain=CHAIN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: getattr(lj, name) for name in LJ_COUNTS}
+        k1, k1b = counts["LAUNCHES"], counts["BUCKET_LAUNCHES"]
+        others = {k: v for k, v in counts.items()
+                  if k not in ("LAUNCHES", "BUCKET_LAUNCHES") and v}
+        p, st = sim.params, out.state
+        nloc = [int(n) for n in st.nlocal]
+        print(f"domain mesh({ndev}): {sim.natoms} atoms, slab width {sim.slab_w:.4f} "
+              f"(cutneigh {p.cutneigh}), {p.ntimes} steps, {p.precision}, acap "
+              f"{sim.acap}, gcap {sim.gcap}, bcap {sim.bcap}, rcap {sim.rcap}, ccap "
+              f"{sim.ccap}, buckets {sim.rbuckets}, grows {sim.grows or 'none'}; atoms per "
+              f"slab {nloc}; golden gate "
+              f"passed; TOTAL {out.total_time:.6f} s per run, {rate:.6e} atom-updates/s "
+              f"(single-engine verlet, phase 27: TOTAL flat "
+              f"{verlet_totals['flat']:.6f} s, bucketed {verlet_totals['bucketed']:.6f} "
+              f"s), run() wall {wall:.2f} s; launches K1 {k1}, K1b {k1b}, others "
+              f"{others}, EAM {dict(ec.LAUNCHES)} on {smi}", flush=True)
+        if k1 + k1b == 0 or others or any(ec.LAUNCHES.values()):
+            fail(f"the domain run launched K1 {k1}, K1b {k1b}, others {others}")
+        if sum(nloc) != sim.natoms:
+            fail(f"the slabs hold {sum(nloc)} atoms, not {sim.natoms}")
+        if not (np.isfinite(out.temps).all()
+                and all(bool(torch.isfinite(v).all()) for v in st.v)):
+            fail("the domain run's state is not finite")
+        print(f"domain mesh({ndev}) temps: " + " ".join(
+            f"{s_}:{out.temps[s_ - 1]:.6e}" for s_ in range(20, p.ntimes + 1, 20)),
+            flush=True)
+        # one more run of the timed region's kind: its launches and host
+        # synchronisations (the initial state built before)
+        s0 = sim.initial_state()
+        torch.cuda.synchronize()
+        reset_counts(lj, ec)
+        n_sync = sync_count(torch, lambda: sim._run_steps(s0, p.ntimes))
+        k1_t, k1b_t = lj.LAUNCHES, lj.BUCKET_LAUNCHES
+        need = ndev * p.ntimes
+        want = (0, need) if sim.rbuckets is not None else (need, 0)
+        print(f"domain mesh({ndev}) timed run: K1 {k1_t}, K1b {k1b_t} launches (want "
+              f"{want}); host synchronisations {n_sync}", flush=True)
+        if (k1_t, k1b_t) != want:
+            fail(f"the timed domain run launched K1 {k1_t} and K1b {k1b_t} times, not "
+                 f"{want}")
+        if n_sync:
+            fail("a timed domain run synchronises the host with the card")
+        if ndev != 2:
+            prof = device_profile(torch, lambda: sim._run_steps(sim.initial_state(),
+                                                                p.ntimes))
+            top = sorted(prof["ms"].items(), key=lambda kv: -kv[1])[:8]
+            print(f"domain mesh({ndev}) profile of one {p.ntimes}-step _run_steps (initial "
+                  f"state included): wall {prof['wall_s']:.4f} s (profiled), device busy "
+                  f"{prof['busy']:.4f}, {prof['spans']} spans, device ms "
+                  f"{sum(prof['ms'].values()):.4f}; top kernels (ms): " + "; ".join(
+                      f"{name[:90]} {ms:.4f}" for name, ms in top) + f" on {smi}",
+                  flush=True)
+        runs[ndev] = (sim, out, k1b if sim.rbuckets is not None else k1)
+    if runs[1][0].rbuckets is None or runs[4][0].rbuckets is not None:
+        fail("the 1-slab run must plan capacity buckets and the 4-slab run none")
+    # the dry run on the card: 4 slabs of a box thinner than 2 cutneigh in y
+    # and z (1024-atom local blocks, mostly padding), against the single
+    # engine (it raises on a mismatch)
+    t0 = time.perf_counter()
+    dryrun_multichip(4, device=dev)
+    print(f"dryrun_multichip(4) on the card: OK ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    rows = []
+    for ndev, bucketed in ((1, True), (4, False)):
+        sim, out, launches = runs[ndev]
+        st = out.state
+        # the lists of the final atoms (one rebuild of the final state)
+        d = sim.initial_state(list(st.x), list(st.v), list(st.nlocal))[0]
+        rows.append(rowlist_kernel_row(
+            torch, lj, sim.params, d.x, d.nlist, sim.acap, sim.rbuckets, smi, launches,
+            bucketed, f"{'K1b' if bucketed else 'K1'} (slab rows, mesh({ndev}))",
+            DOMAIN_KERNELS["bucketed" if bucketed else "flat"]))
+
+    # 36. EAM on two slabs, 131k/60 on the stand-in potential: SP poly
+    # against DP poly, DP poly against phase 30's single engine (no slab
+    # code on that side); an 8^3 DP box card against CPU
+    eam_file = str(_build.BUILD_DIR / "standin_cu.eam")  # phase 8's
+    kw = dict(scheme="verlet", dense_thermo=False, force_field=FF_EAM, eam_file=eam_file,
+              ntimes=60)
+    eruns = {}
+    for prec in ("sp", "dp"):
+        reset_counts(lj, ec)
+        sim = DomainSimulation(Params(precision=prec, eam_eval="poly", **kw), ndev=2,
+                               device=dev)
+        out = sim.run(repeats=1, chain=1)
+        hand = {**{n: getattr(lj, n) for n in LJ_COUNTS}, **ec.LAUNCHES}
+        nloc = sum(int(n) for n in out.state.nlocal)
+        print(f"domain EAM mesh(2) {prec} poly: {sim.natoms} atoms, {sim.params.ntimes} "
+              f"steps, maxneighs {sim.maxneighs}, TOTAL {out.total_time:.6f} s (one timed "
+              f"run) on {smi}", flush=True)
+        if any(hand.values()) or nloc != sim.natoms or not np.isfinite(out.temps).all():
+            fail(f"the domain EAM run ({prec}) launched {hand} or lost atoms ({nloc})")
+        eruns[prec] = out
+    for step, tol in EAM_SP_TOL.items():
+        t_sp = float(eruns["sp"].temps[step - 1])
+        t_dp = float(eruns["dp"].temps[step - 1])
+        rel = abs(t_sp - t_dp) / abs(t_dp)
+        print(f"domain EAM step {step}: SP {t_sp:.6e} against DP {t_dp:.6e}, rel "
+              f"{rel:.3e} (tol {tol:.0e})", flush=True)
+        if not rel <= tol:
+            fail(f"domain EAM SP departs from DP at step {step}")
+    # the ghost fp exchange and the migrations against the single engine's
+    # border_map refresh, same Params: phase 30 held that run to the
+    # cluster DP run at 1e-6 (it matched to the 9 digits printed)
+    out_v = eam_verlet_dp[1]
+    for step in range(20, 61, 20):
+        a, b = float(eruns["dp"].temps[step - 1]), float(out_v.temps[step - 1])
+        rel = abs(a - b) / abs(b)
+        print(f"domain EAM mesh(2) against verlet EAM DP poly step {step}: {a:.12e} / "
+              f"{b:.12e}, rel {rel:.3e} (tol 1e-6)", flush=True)
+        if not rel <= 1e-6:
+            fail(f"the domain EAM DP run departs from the single engine at step {step}")
+    for eam_eval in ("spline", "poly"):
+        kw8 = dict(nx=8, ny=8, nz=8, ntimes=20, reneigh_every=10, precision="dp",
+                   force_field=FF_EAM, eam_file=eam_file, eam_eval=eam_eval)
+        r_c, r_g = (DomainSimulation(Params(**kw8), ndev=2, device=d).run(repeats=0)
+                    for d in ("cpu", dev))
+        trel = float(np.max(np.abs(r_g.temps - r_c.temps) / np.abs(r_c.temps)))
+        print(f"domain EAM 8^3 dp {eam_eval} mesh(2): 20-step temperature rel err "
+              f"{trel:.3e} (tol 1e-12)", flush=True)
+        if not trel <= 1e-12:
+            fail(f"the card's domain EAM ({eam_eval}) disagrees with the CPU")
+    return rows
 
 
 def run_cli_phase(torch, smi: str) -> None:
@@ -2737,21 +2920,26 @@ def main() -> int:
     fetch_rows = run_fetch_phase(torch, dev, smi)
 
     # 27-29. the verlet scheme's LJ path
-    verlet_rows = run_verlet_phases(torch, dev, smi, ec)
+    verlet_rows, verlet_totals = run_verlet_phases(torch, dev, smi, ec)
 
     # 30-32. the verlet scheme's EAM path and the verlet stub
-    run_verlet_eam_phases(torch, dev, smi, ec, eam_dp)
+    eam_verlet_dp = run_verlet_eam_phases(torch, dev, smi, ec, eam_dp)
 
     # 33. the command line, as subprocesses
     run_cli_phase(torch, smi)
 
+    # 34-36. the slab engine on an in-process mesh
+    domain_rows = run_domain_phases(torch, dev, smi, ec, verlet_totals, eam_verlet_dp)
+
+    wall = time.perf_counter() - t_start
+    print(f"chip_smoke wall {wall:.1f} s (limit 1200 s)", flush=True)
     print(json.dumps({"kernels": [
         kernel_row(KERNEL, launches, *res[torch.float32][:4],
                    exact_ms=res[torch.float32][4], device_ms=res[torch.float32][5]),
         *eam_rows, stream_row,
-        *typed_rows, *bucket_rows, bf16_row, *fetch_rows, *verlet_rows,
+        *typed_rows, *bucket_rows, bf16_row, *fetch_rows, *verlet_rows, *domain_rows,
     ]}))
-    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
+    print(f"chip_smoke wall {wall:.1f} s", file=sys.stderr)
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -100,7 +100,7 @@ class Params:
     # two packages read the same files and print the same banner. The
     # port runs a subset; engine_cluster.check_slice raises
     # NotImplementedError for the rest (see ROADMAP.md).
-    scheme: str = "verlet"  # "verlet" | "cluster"  (port: verlet LJ only)
+    scheme: str = "verlet"  # "verlet" | "cluster"  (port: both, LJ and EAM)
     precision: str = "dp"  # "sp" | "dp"  (reference config.mk DATA_TYPE)
     compute_stats: bool = True
     sort_atoms: bool = True  # reference SORT_ATOMS

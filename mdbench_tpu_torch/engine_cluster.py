@@ -177,7 +177,9 @@ class ClusterSimulation:
     Without `x`, the atoms come from `params.input_file` (read with its
     box; velocities not rescaled unless `adjust`) or else from the FCC
     lattice. `types` (nlocal,) and `tables` (eps, sig6, cutsq), each
-    (T, T), make the run typed, as mdbench_tpu's engine takes them."""
+    (T, T), make the run typed, as mdbench_tpu's engine takes them; a
+    table whose cutsq exceeds cutforce**2 raises ValueError (the lists
+    reach only cutforce + skin)."""
 
     def __init__(
         self,
@@ -272,6 +274,14 @@ class ClusterSimulation:
                 raise ValueError(
                     "cluster-scheme EAM is single-type (funcfl): it takes "
                     "no type tables and no ntypes > 1")
+            # the pair lists are built with the scalar cutneigh, so a table
+            # cutoff past cutforce would lose pairs (mdbench_tpu accepts it
+            # silently; the port refuses it)
+            if self.type_tables[2].max() > params.cutforce**2:
+                raise ValueError(
+                    f"a type table's cutoff squared ({self.type_tables[2].max()}) "
+                    f"exceeds cutforce**2 ({params.cutforce**2}): the lists are "
+                    "built with cutneigh = cutforce + skin and would lose pairs")
             self.types_flat0 = torch.as_tensor(types0, device=self.device)
             self.tables = tuple(
                 torch.as_tensor(t, dtype=params.dtype, device=self.device)

@@ -5,7 +5,8 @@ and of the TPU kernels in ``mdbench_tpu/ops/pallas/eam_cluster.py``).
 Pass 1: rho_i = sum_j dens(r_ij); fp_i = F'(rho_i) from the exact
         per-atom frho spline.
 Ghost:  the fp rows of ghost j16 are copied from their owners through
-        the halo's border map (no shift: fp is translation invariant).
+        the halo's border map (no shift: fp is translation invariant), or
+        filled by the caller's fp_exchange (a domain engine's refresh).
 Pass 2: fpair = -((fp_i + fp_j) g1(r) + g2(r)); f_i += d_ij fpair.
 
 dens, g1 and g2 are the degree-16 polynomials of `models.eam_tables.
@@ -124,15 +125,21 @@ def _fp_ghost_refresh(fp_plane, border_map, n_clusters_pad: int):
     return fp_plane
 
 
-def fp_plane_from_rho(rho, eam: EamDevice, border_map, c_total: int):
+def fp_plane_from_rho(rho, eam: EamDevice, border_map, c_total: int,
+                      fp_exchange=None):
     """fp = F'(rho) per local atom from the frho spline, into a zeroed
-    (c_total, 8) plane whose ghost rows are then refreshed."""
+    (c_total, 8) plane whose ghost rows are then filled: from their owners
+    through `border_map`, or by fp_exchange(fp_plane) -> fp_plane when it
+    is given (a domain engine's refresh that also brings boundary fp from
+    the other domains; mdbench_tpu's fp_exchange)."""
     mf, pf = _grid_index(rho, eam.rdrho, eam.nrho)
     fs = eam.frho[mf]  # (npad, 8, 7)
     fp_local = (fs[..., 0] * pf + fs[..., 1]) * pf + fs[..., 2]
     npad = rho.shape[0]
     fp_plane = torch.zeros((c_total, 8), dtype=rho.dtype, device=rho.device)
     fp_plane[:npad] = fp_local
+    if fp_exchange is not None:
+        return fp_exchange(fp_plane)
     return _fp_ghost_refresh(fp_plane, border_map, npad)
 
 
@@ -167,12 +174,13 @@ def eam_force_buckets_ref(xc, yc, zc, fp_plane, bijlist, bcrows, binv,
 def eam_cluster_force_ref(xc, yc, zc, ijlist, border_map,
                           n_clusters_pad: int, cutforcesq: float,
                           eam: EamDevice, poly, share: int = 2,
-                          buckets=None, bpairs=None):
+                          buckets=None, bpairs=None, fp_exchange=None):
     """Plain torch cluster EAM force, the literal twin of mdbench_tpu's
-    `eam_cluster_force_xla`: pass 1, the frho spline, the ghost refresh,
-    pass 2. With `buckets` (sizes, caps) and `bpairs` (bijlist, bcrows,
-    binv), both passes run bucketed, as `eam_cluster_force_pallas` does
-    with them. Returns (fx, fy, fz, fp_plane)."""
+    `eam_cluster_force_xla`: pass 1, the frho spline, the ghost refresh
+    (or `fp_exchange`, as in `fp_plane_from_rho`), pass 2. With `buckets`
+    (sizes, caps) and `bpairs` (bijlist, bcrows, binv), both passes run
+    bucketed, as `eam_cluster_force_pallas` does with them. Returns (fx,
+    fy, fz, fp_plane)."""
     if buckets is not None:
         bijlist, bcrows, binv = bpairs
         rho = eam_rho_buckets_ref(xc, yc, zc, bijlist, bcrows, binv,
@@ -181,7 +189,7 @@ def eam_cluster_force_ref(xc, yc, zc, ijlist, border_map,
     else:
         rho = eam_rho_ilist_ref(xc, yc, zc, ijlist, n_clusters_pad,
                                 cutforcesq, poly, share)
-    fp_plane = fp_plane_from_rho(rho, eam, border_map, xc.shape[0])
+    fp_plane = fp_plane_from_rho(rho, eam, border_map, xc.shape[0], fp_exchange)
     if buckets is not None:
         fx, fy, fz = eam_force_buckets_ref(
             xc, yc, zc, fp_plane, bijlist, bcrows, binv, n_clusters_pad,
@@ -359,18 +367,19 @@ def eam_force_buckets(xc, yc, zc, fp_plane, bijlist, bcrows, binv, nji,
 def eam_cluster_force(xc, yc, zc, ijlist, nji, border_map,
                       n_clusters_pad: int, cutforcesq: float,
                       eam: EamDevice, poly, share: int = 2,
-                      buckets=None, bpairs=None):
+                      buckets=None, bpairs=None, fp_exchange=None):
     """Cluster EAM force, (fx, fy, fz, fp_plane): the contract of
     `eam_cluster_force_ref`, bucketed with `buckets` and `bpairs`
-    (bijlist, bcrows, binv). On a CPU tensor it is the plain version. On a
-    CUDA tensor: kernel pass 1 (K2, or K2b bucketed), the frho spline and
-    ghost refresh as torch ops on the current stream (so they precede
+    (bijlist, bcrows, binv), the ghost fp by `fp_exchange` when it is
+    given. On a CPU tensor it is the plain version. On a CUDA tensor:
+    kernel pass 1 (K2, or K2b bucketed), the frho spline and ghost refresh
+    (or fp_exchange) as torch ops on the current stream (so they precede
     pass 2 there), kernel pass 2 (K3, or K3b). Other devices raise
     ValueError."""
     if xc.device.type == "cpu":
         return eam_cluster_force_ref(xc, yc, zc, ijlist, border_map,
                                      n_clusters_pad, cutforcesq, eam, poly,
-                                     share, buckets, bpairs)
+                                     share, buckets, bpairs, fp_exchange)
     if buckets is not None:
         lists = (*bpairs, nji)
         rho = eam_rho_buckets(xc, yc, zc, *lists, n_clusters_pad, cutforcesq,
@@ -378,7 +387,7 @@ def eam_cluster_force(xc, yc, zc, ijlist, nji, border_map,
     else:
         rho = eam_rho_ilist(xc, yc, zc, ijlist, nji, n_clusters_pad,
                             cutforcesq, poly, share)
-    fp_plane = fp_plane_from_rho(rho, eam, border_map, xc.shape[0])
+    fp_plane = fp_plane_from_rho(rho, eam, border_map, xc.shape[0], fp_exchange)
     if buckets is not None:
         fx, fy, fz = eam_force_buckets(xc, yc, zc, fp_plane, *lists,
                                        n_clusters_pad, cutforcesq, poly,

@@ -823,3 +823,87 @@ def test_cuda_cli_run(cuda, scheme, capsys):
         if dev == "cuda":
             assert f"Device: {torch.cuda.get_device_name()}, force: K1" in out
     np.testing.assert_allclose(rows["cuda"], rows["cpu"], rtol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucketed", [False, True])
+def test_cuda_eam_fp_exchange_default_bits(cuda, eam_file, bucketed):
+    """The cluster EAM wrapper on the card with an fp_exchange that does the
+    default ghost refresh gives the bits of no fp_exchange (K2/K3, or
+    K2b/K3b over a hand plan), and a callable that halves the ghost fp
+    gives the plain version's forces for the same callable."""
+    cl, pairs, border_map, _, npad, share = synthetic_eam_case(seed=3, share=2)
+    c = clusters_from_numpy(cl, cuda, torch.float64)
+    pr = pairs_from_numpy(pairs, cuda)
+    bm = torch.tensor(border_map, dtype=torch.int64, device=cuda)
+    tables = load_eam(eam_file)
+    eam = tec.EamDevice.from_tables(tables, cuda, torch.float64)
+    poly = fit_eam_poly(tables)
+    planes = (c.xc, c.yc, c.zc)
+    kw = dict(share=share)
+    if bucketed:
+        plan = hand_plan(pr.nji.cpu().numpy(), pr.ijlist.shape[1])
+        kw.update(buckets=plan, bpairs=bucket_maps_core(
+            pr.ijlist, pr.nji, npad, share, c.xc.shape[0], *plan)[:3])
+    args = (npad, poly.cut**2, eam, poly)
+
+    def halve(fp):
+        fp = tec._fp_ghost_refresh(fp, bm, npad)
+        fp[npad:] *= 0.5
+        return fp
+
+    before = dict(tec.LAUNCHES)
+    want = tec.eam_cluster_force(*planes, pr.ijlist, pr.nji, bm, *args, **kw)
+    got = tec.eam_cluster_force(*planes, pr.ijlist, pr.nji, bm, *args,
+                                fp_exchange=lambda fp: tec._fp_ghost_refresh(fp, bm, npad),
+                                **kw)
+    torch.cuda.synchronize()
+    assert sum(tec.LAUNCHES.values()) - sum(before.values()) == 4
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    f_k = tec.eam_cluster_force(*planes, pr.ijlist, pr.nji, bm, *args,
+                                fp_exchange=halve, **kw)
+    f_r = tec.eam_cluster_force_ref(*planes, pr.ijlist, bm, *args, fp_exchange=halve,
+                                    **kw)
+    assert _rel(f_k[:3], f_r[:3]) <= TOL[torch.float64]
+    assert not torch.equal(f_k[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndev", [1, 2])
+@pytest.mark.parametrize("kernel", ["auto", "xla"])
+def test_cuda_domain_matches_cpu(cuda, ndev, kernel):
+    """The slab engine on an 8^3 DP box, card against CPU: 20-step
+    temperatures within rel 1e-12; the row lists launch K1 and no other
+    kernel, the planar path none."""
+    from mdbench_tpu_torch.parallel.verlet_domain import DomainSimulation
+
+    kw = dict(nx=8, ny=8, nz=8, ntimes=20, reneigh_every=10, precision="dp",
+              kernel=kernel)
+    before = {n: getattr(tlj, n) for n in LJ_COUNTS}
+    r_gpu = DomainSimulation(Params(**kw), ndev=ndev, device=cuda).run(repeats=0)
+    grew = {n: getattr(tlj, n) - before[n] for n in LJ_COUNTS}
+    rowlist = kernel == "auto"
+    assert grew["LAUNCHES"] >= (1 if rowlist else 0)
+    assert all(n == 0 for k, n in grew.items() if k != "LAUNCHES" or not rowlist)
+    r_cpu = DomainSimulation(Params(**kw), ndev=ndev, device="cpu").run(repeats=0)
+    assert sum(int(n) for n in r_gpu.state.nlocal) == 2048
+    np.testing.assert_allclose(r_gpu.temps, r_cpu.temps, rtol=1e-12)
+
+
+@pytest.mark.cuda
+def test_cuda_domain_rowlist_launches_k1_without_sync(cuda):
+    """An SP row-list run on two slabs: each step's force launches K1 once
+    per slab, and no call synchronises the host with the card."""
+    from chip_smoke import sync_count
+    from mdbench_tpu_torch.parallel.verlet_domain import DomainSimulation
+
+    sim = DomainSimulation(Params(nx=16, ny=8, nz=8, ntimes=20, reneigh_every=10,
+                                  precision="sp"), ndev=2, device=cuda)
+    sim.run(repeats=0)
+    assert sim.rbuckets is None  # 4096 atoms: too few units for a plan
+    s0 = sim.initial_state()
+    torch.cuda.synchronize()
+    before = tlj.LAUNCHES
+    assert sync_count(torch, lambda: sim._run_steps(s0, 20)) == 0
+    assert tlj.LAUNCHES - before == 2 * 20

@@ -1,0 +1,104 @@
+"""The exchange layer (parallel/exchange.py): InProcessMesh's shift and
+psum against lax.ppermute / lax.psum under shard_map on the virtual CPU
+mesh of tests/conftest.py, for 1, 2, 4 and 8 domains (one domain sends
+to itself); and DistExchange over a two-process gloo group
+(tests/domain_dist_worker.py): its shift, psum and all_gather on
+rank-tagged buffers, and the planar DP slab engine (8x4x4, 10 steps),
+which must equal the in-process mesh bit for bit. The two workers have a
+hard time limit: on expiry they are killed and the test fails."""
+
+import os
+import socket
+import subprocess
+import sys
+from functools import partial
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh, PartitionSpec as P
+
+from mdbench_tpu_torch.config import Params
+from mdbench_tpu_torch.parallel.exchange import InProcessMesh
+from mdbench_tpu_torch.parallel.verlet_domain import DomainSimulation
+
+torch.set_num_threads(1)
+TESTS = Path(__file__).resolve().parent
+JOIN_TIMEOUT_S = 120
+
+
+@pytest.mark.parametrize("ndev", [1, 2, 4, 8])
+def test_shift_and_psum_match_ppermute(ndev):
+    if len(jax.devices()) < ndev:
+        pytest.skip("needs the virtual CPU mesh of tests/conftest.py")
+    bufs = np.random.default_rng(ndev).normal(size=(ndev, 5, 3))
+    mesh = Mesh(np.array(jax.devices()[:ndev]), ("x",))
+
+    def body(b, step):
+        perm = [(i, (i + step) % ndev) for i in range(ndev)]
+        return (jax.lax.ppermute(b, "x", perm),
+                jax.lax.psum(jnp.sum(b), "x").reshape(1))
+
+    ex = InProcessMesh(ndev, "cpu")
+    tb = [torch.tensor(b) for b in bufs]
+    for step in (1, -1):
+        got_j, sum_j = jax.jit(jax.shard_map(
+            partial(body, step=step), mesh=mesh, in_specs=P("x"),
+            out_specs=(P("x"), P("x")), check_vma=False))(jnp.asarray(bufs))
+        got_t = ex.shift(tb, step)
+        np.testing.assert_array_equal(np.stack([t.numpy() for t in got_t]),
+                                      np.asarray(got_j))
+        sums = ex.psum([t.sum() for t in tb])
+        assert len(sums) == ndev
+        np.testing.assert_allclose([float(s) for s in sums], np.asarray(sum_j),
+                                   rtol=1e-14)
+    assert [t is b for t, b in zip(ex.all_gather(tb), tb)] == [True] * ndev
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_gloo_run_equals_in_process_mesh(tmp_path):
+    world, port = 2, _free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    outs = [tmp_path / f"rank{r}.npz" for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(TESTS / "domain_dist_worker.py"), str(r), str(world),
+         str(port), str(outs[r])], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=JOIN_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.communicate()
+        pytest.fail(f"the gloo workers did not finish within {JOIN_TIMEOUT_S} s")
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log
+    got = [dict(np.load(o)) for o in outs]
+
+    for r, g in enumerate(got):
+        np.testing.assert_array_equal(g["shift+1"], np.full((3, 2), (r - 1) % world))
+        np.testing.assert_array_equal(g["shift-1"], np.full((3, 2), (r + 1) % world))
+        assert float(g["psum"]) == sum(range(1, world + 1))
+        np.testing.assert_array_equal(g["gather"], [[q, 2 * q] for q in range(world)])
+
+    from domain_dist_worker import DOMAIN_KW
+
+    dom = DomainSimulation(Params(**DOMAIN_KW), ndev=world, device="cpu")
+    want = dom.run(repeats=0)
+    for r, g in enumerate(got):
+        np.testing.assert_array_equal(g["temps"], want.temps)
+        assert int(g["nlocal"]) == int(want.state.nlocal[r])
+        for key in ("x", "v", "f"):
+            np.testing.assert_array_equal(g[key], getattr(want.state, key)[r].numpy())
+    assert sum(int(g["nlocal"]) for g in got) == dom.natoms
