@@ -229,10 +229,43 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      an 8^3 DP box on two slabs, spline and poly, card against the CPU
      (20-step temperatures <= 1e-12).
 
+ 37. the cluster slab engine (parallel/cluster_domain.
+     ClusterDomainSimulation) on one slab: run_bench_domain(ndev=1,
+     scheme="cluster"), 131,072 atoms, 200 SP steps on the exact lists,
+     gated on the C reference's temperature trace, TOTAL beside phase 4's
+     single-engine TOTAL; every atom on the slab; the melt calibration
+     plans capacity buckets (K1 for the set-up forces, then K1b for every
+     force of the checked and timed runs; no other kernel); then one more
+     run of the timed region's kind: K1b once a step, and its host
+     synchronisations by site (torch.cuda.set_sync_debug_mode): none in
+     the domain engine's own code (parallel/), the shared cluster ops'
+     printed; one torch.profiler pass (busy share, top kernels);
+ 38. the same on two and four slabs (one timed run each), golden-gated,
+     atoms conserved across the migrations; four slabs' 2,560 units a
+     slab are too few for a plan, so K1 covers every force there (the
+     phase prints why);
+ 39. kernel="pallas" on two slabs (one timed run): golden-gated, K4
+     covers every force evaluation, K1 and K1b do not launch; then K1b,
+     K1 and K4 on the final lists of one slab of the runs of 37, 38 (four
+     slabs) and 39 against their plain versions (f32 <= 1e-5, f64 <=
+     1e-12; K1b equal to K1; median ms back to back and on the device,
+     bound);
+ 40. cluster EAM on two slabs at 131k/60 on phase 8's stand-in potential:
+     K2b/K3b (K2/K3 for the set-up forces before the plan) and no LJ
+     kernel; SP against DP within EAM_SP_TOL at steps 20/40/60, the DP
+     run within rel 1e-6 of phase 8's single-engine DP run; K2b and K3b
+     on one slab's final lists as in 39;
+ 41. small inputs on two slabs, card against the CPU plain path: a
+     jittered 8^3 DP LJ box and a jittered 6^3 DP EAM box, a full rebuild
+     every other interval (migration) and cheap ones between: step-0
+     forces <= 1e-12 of max |f| (each slab's atom window in order),
+     40-step temperatures <= 1e-9; the cluster leg of the dry run on 1
+     and 4 slabs runs in phase 35's dry-run step.
+
 Every kernel count is set to 0 just before each main path (phases 4, 8,
 12, both runs of 17, the probes' runs in 25 and 26, both runs of 27,
-phase 30's SP run and each stub of 32, where it must stay 0, and each
-run of 34-36) and read just after it. Then it prints the script's wall
+phase 30's SP run and each stub of 32, where it must stay 0, each run of
+34-36 and 37-40) and read just after it. Then it prints the script's wall
 time, a JSON line of the kernels, nvidia-smi's line, and {"ok": true,
 "device": {...}} as the last line.
 
@@ -2148,23 +2181,40 @@ VERLET_KERNELS = {
 }
 
 
-def sync_count(torch, fn) -> int:
-    """Host synchronisations of the stream in fn() (torch.cuda's sync
-    debug mode, its warnings counted)."""
+def sync_sites(torch, fn) -> dict:
+    """Host synchronisations of the stream in fn() (torch.cuda's sync debug
+    mode), counted by the innermost frame of the port's package that made
+    each: {"path/in/package.py:line": count} (a call from outside the
+    package under its own file:line)."""
+    import traceback
     import warnings
 
+    sites: dict = {}
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()
+                if "mdbench_tpu_torch/" in f.filename.replace("\\", "/")]
+        where = (f"{ours[-1].filename.replace(chr(92), '/').split('mdbench_tpu_torch/')[-1]}"
+                 f":{ours[-1].lineno}" if ours else f"{filename}:{lineno}")
+        sites[where] = sites.get(where, 0) + 1
+
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = note
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    # torch's text for each synchronising call (the mode's own "prototype"
-    # warning, emitted once, is not one)
-    return sum("called a synchronizing CUDA operation" in str(w.message)
-               for w in caught)
+    return sites
+
+
+def sync_count(torch, fn) -> int:
+    """Host synchronisations of the stream in fn() (sync_sites, summed)."""
+    return sum(sync_sites(torch, fn).values())
 
 
 def rowlist_kernel_row(torch, lj, p, x, nl, nlocal_pad: int, rbuckets, smi: str,
@@ -2586,13 +2636,15 @@ def run_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict, eam_verlet_
         runs[ndev] = (sim, out, k1b if sim.rbuckets is not None else k1)
     if runs[1][0].rbuckets is None or runs[4][0].rbuckets is not None:
         fail("the 1-slab run must plan capacity buckets and the 4-slab run none")
-    # the dry run on the card: 4 slabs of a box thinner than 2 cutneigh in y
-    # and z (1024-atom local blocks, mostly padding), against the single
-    # engine (it raises on a mismatch)
-    t0 = time.perf_counter()
-    dryrun_multichip(4, device=dev)
-    print(f"dryrun_multichip(4) on the card: OK ({time.perf_counter() - t0:.1f} s)",
-          flush=True)
+    # the dry run on the card: 1 and 4 slabs of a box thinner than 2
+    # cutneigh in y and z (1024-atom local blocks, mostly padding, on the
+    # verlet leg), against the single engines (it raises on a mismatch)
+    # (with phase 41: the cluster slab engine's leg, on 1 and 4 slabs)
+    for n in (1, 4):
+        t0 = time.perf_counter()
+        dryrun_multichip(n, device=dev)
+        print(f"dryrun_multichip({n}) on the card (verlet and cluster legs): OK "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
     rows = []
     for ndev, bucketed in ((1, True), (4, False)):
         sim, out, launches = runs[ndev]
@@ -2653,6 +2705,349 @@ def run_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict, eam_verlet_
               f"{trel:.3e} (tol 1e-12)", flush=True)
         if not trel <= 1e-12:
             fail(f"the card's domain EAM ({eam_eval}) disagrees with the CPU")
+    return rows
+
+
+# the cluster slab engine's kernels on one slab's final lists (phases 37-40)
+CLUSTER_DOMAIN_KERNELS = {
+    "K1": {**KERNEL, "name": "lj_cluster_ilist (cluster slab lists)"},
+    "K1b": {**BUCKET_KERNELS["lj_cluster_ilist_buckets"],
+            "name": "lj_cluster_ilist_buckets (cluster slab lists)"},
+    "K4": {**STREAM_KERNEL, "name": "lj_cluster_stream (cluster slab lists)"},
+    "K2": {**EAM_KERNELS["eam_rho_ilist"], "name": "eam_rho_ilist (cluster slab lists)"},
+    "K3": {**EAM_KERNELS["eam_force_ilist"],
+           "name": "eam_force_ilist (cluster slab lists)"},
+    "K2b": {**BUCKET_KERNELS["eam_rho_buckets"],
+            "name": "eam_rho_buckets (cluster slab lists)"},
+    "K3b": {**BUCKET_KERNELS["eam_force_buckets"],
+            "name": "eam_force_buckets (cluster slab lists)"},
+}
+
+
+def domain_first_forces(sim) -> list:
+    """The step-0 forces of every held domain of a cluster slab engine, in
+    the order of its atom window (rows [0, nloc)), float64 numpy."""
+    out = []
+    for d in sim.initial_state():
+        aid = d.cl.atom_id.reshape(-1).cpu().numpy()
+        f = np.stack([q.double().cpu().numpy().reshape(-1) for q in (d.fxc, d.fyc, d.fzc)],
+                     axis=1)
+        n = int(d.nloc)
+        fa = np.zeros((sim.acap, 3))
+        m = aid >= 0
+        fa[aid[m]] = f[m]
+        out.append(fa[:n])
+    return out
+
+
+def slab_list_rows(torch, sim, d, launches: dict, smi: str, tag: str, tables=None) -> list:
+    """The kernels of one cluster slab's final lists (`d`, a CDomain of
+    the engine `sim`): K1 or K1b on exact lists, K4 on group windows, K2/K3
+    or K2b/K3b with an EAM `tables`; each against its plain version in
+    float32 (<= 1e-5 of max |value|) and float64 (<= 1e-12), the bucketed
+    kernels also equal to the flat ones on the same lists; median ms back
+    to back and on the device alone (CUDA graph), the plain version's ms
+    and the bound from the lists' work (compute_cluster_stats). Returns the
+    float32 JSON rows (K1/K1b: the error and time with approx_rcp, the
+    run's form, and the exact time as exact_ms); `launches` {id: count in
+    the run}."""
+    from mdbench_tpu_torch.engine_cluster import GROUP
+    from mdbench_tpu_torch.ops import eam_cluster as ec
+    from mdbench_tpu_torch.ops import lj_cluster as lj
+    from mdbench_tpu_torch.ops.eam import EamDevice
+    from mdbench_tpu_torch.probes import graph_ms
+    from mdbench_tpu_torch.stats import compute_cluster_stats
+
+    p, cl, pr = sim.params, d.cl, d.pairs
+    npad, share = sim.ncl_pad, sim.ishare
+    cut2 = p.cutforce**2
+    bucketed = pr.bijlist is not None
+    buckets = sim.buckets if bucketed else None
+    cs = compute_cluster_stats(cl, pr, npad, GROUP, cut2, p.cutneigh**2, buckets=buckets)
+    inside = cs["pairs_within_cutforce"]
+    maps = (pr.bijlist, pr.bcrows, pr.binv)
+    lists = (nbytes_of(pr.bijlist, pr.bcrows, pr.nji) if bucketed else
+             nbytes_of(pr.ijlist, pr.nji) if pr.ijlist is not None else
+             nbytes_of(pr.jlist, pr.ranges))
+    shape = (f"{pr.ijlist.shape[0]} units x icap {pr.ijlist.shape[1]}"
+             if pr.ijlist is not None else
+             f"{pr.jlist.shape[0]} groups x L {pr.jlist.shape[1]}")
+    print(f"{tag}: {shape}, buckets {buckets}, {inside} pairs inside the cutoff"
+          + ("; " + sweep_line(torch, lj, (cl.xc, cl.yc, cl.zc),
+                               pr.bijlist if bucketed else pr.ijlist, pr.nji, share, cut2,
+                               **({"buckets": (buckets, pr.bcrows)} if bucketed else {}))
+             if pr.ijlist is not None else ""), flush=True)
+
+    def calls(planes, dtype):
+        """{id: (kernel(approx), plain, flat kernel or None, ops, extra bytes)}"""
+        if tables is not None:
+            eam = EamDevice.from_tables(tables, planes[0].device, dtype)
+            args = (npad, cut2, sim.eam_poly)
+            deg = {k: len(getattr(sim.eam_poly, k)) - 1 for k in ("dens", "g1", "g2")}
+            ev = ilist_pairs(cs, share)
+            rho = ec.eam_rho_ilist_ref(*planes, pr.ijlist, *args, share=share)
+            fp = ec.fp_plane_from_rho(rho, eam, d.halo.border_map, planes[0].shape[0])
+            ops = (8 * ev + (6 + 2 * deg["dens"]) * inside,
+                   8 * ev + (10 + 2 * (deg["g1"] + deg["g2"])) * inside)
+            if bucketed:
+                return {
+                    "K2b": (lambda a=False: (ec.eam_rho_buckets(
+                        *planes, *maps, pr.nji, *args, buckets, share=share),),
+                        lambda: (ec.eam_rho_buckets_ref(*planes, *maps, *args, buckets,
+                                                        share),),
+                        lambda: (ec.eam_rho_ilist(*planes, pr.ijlist, pr.nji, *args,
+                                                  share=share),), ops[0], 0),
+                    "K3b": (lambda a=False: ec.eam_force_buckets(
+                        *planes, fp, *maps, pr.nji, *args, buckets, share=share),
+                        lambda: ec.eam_force_buckets_ref(*planes, fp, *maps, *args,
+                                                         buckets, share),
+                        lambda: ec.eam_force_ilist(*planes, fp, pr.ijlist, pr.nji, *args,
+                                                   share=share), ops[1], nbytes_of(fp))}
+            return {
+                "K2": (lambda a=False: (ec.eam_rho_ilist(*planes, pr.ijlist, pr.nji, *args,
+                                                         share=share),),
+                       lambda: (ec.eam_rho_ilist_ref(*planes, pr.ijlist, *args,
+                                                     share=share),), None, ops[0], 0),
+                "K3": (lambda a=False: ec.eam_force_ilist(*planes, fp, pr.ijlist, pr.nji,
+                                                          *args, share=share),
+                       lambda: ec.eam_force_ilist_ref(*planes, fp, pr.ijlist, *args,
+                                                      share=share), None, ops[1],
+                       nbytes_of(fp))}
+        cut = (cut2, p.sigma6, p.epsilon)
+        if pr.ijlist is None:
+            return {"K4": (
+                lambda a=False: lj.lj_cluster_force_stream(*planes, pr.jlist, pr.ranges,
+                                                           npad, *cut),
+                lambda: lj.lj_cluster_force_group_ref(*planes, pr.jlist, npad, *cut,
+                                                      ranges=pr.ranges),
+                None, lj_ops(cs["padded_pairs"], inside), 0)}
+        ops = lj_ops(ilist_pairs(cs, share), inside)
+
+        def flat(a=False):
+            return lj.lj_cluster_force_ilist(*planes, pr.ijlist, pr.nji, npad, *cut,
+                                             share=share, approx_rcp=a)
+
+        if bucketed:
+            return {"K1b": (
+                lambda a=False: lj.lj_cluster_force_buckets(
+                    *planes, *maps, pr.nji, npad, buckets, *cut, share=share,
+                    approx_rcp=a),
+                lambda: lj.lj_cluster_force_buckets_ref(*planes, *maps, npad, buckets,
+                                                        *cut, share=share),
+                flat, ops, 0)}
+        return {"K1": (flat, lambda: lj.lj_cluster_force_ilist_ref(
+            *planes, pr.ijlist, npad, *cut, share=share), None, ops, 0)}
+
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        planes = [q.to(dtype) for q in (cl.xc, cl.yc, cl.zc)]
+        for kid, (kern, plain, flat, ops, extra) in calls(planes, dtype).items():
+            approx = kid in ("K1", "K1b")
+            out, want = kern(), plain()
+            err, rel = rel_err(torch, out, want)
+            err_a, rel_a = rel_err(torch, kern(True), want) if approx else (err, rel)
+            same = flat is None or all(torch.equal(a, b) for a, b in zip(out, flat()))
+            ms = median_ms(torch, kern, 50)
+            ms_a = median_ms(torch, lambda: kern(True), 50) if approx else ms
+            dev_ms = graph_ms(lambda: kern(approx), 50)
+            plain_ms = median_ms(torch, plain, 5)
+            bound = bound_of(ops, nbytes_of(*planes, *out) + lists + extra, dtype)
+            tol = tol_of(torch, dtype)
+            print(f"{kid} ({tag}, {str(dtype)[6:]}): max abs err {err:.3e}, rel {rel:.3e} "
+                  f"(tol {tol:.0e})" + (f", with approx_rcp (the run's form) {err_a:.3e}, "
+                                        f"rel {rel_a:.3e}" if approx else "")
+                  + (f"; equal to the flat kernel: {same}" if flat is not None else "")
+                  + f"; median {ms:.4f} ms back to back" + (
+                      f" exact, {ms_a:.4f} ms with approx_rcp" if approx else "")
+                  + f", on the device (CUDA graph) {dev_ms:.4f} ms; plain {plain_ms:.4f} "
+                  f"ms; bound {bound[0]:.4f} ms ({bound[1]}); launches in the run "
+                  f"{launches.get(kid, 0)} on {smi}", flush=True)
+            if not (rel <= tol and rel_a <= tol and same):
+                fail(f"{kid} on the cluster slab lists ({tag}) disagrees with its plain "
+                     f"version or its flat kernel ({dtype})")
+            if dtype == torch.float32:
+                rows[kid] = kernel_row(CLUSTER_DOMAIN_KERNELS[kid], launches.get(kid, 0),
+                                       err_a, ms_a, plain_ms, bound,
+                                       exact_ms=ms if approx else None, device_ms=dev_ms)
+    return list(rows.values())
+
+
+def run_cluster_domain_phases(torch, dev, smi: str, ec, single_total: float,
+                              eam_dp) -> list:
+    """Phases 37-41 (the cluster slab engine, parallel/cluster_domain, on
+    an in-process mesh on the card). `single_total` is phase 4's
+    single-engine TOTAL; `eam_dp` phase 8's single-engine cluster DP EAM run
+    (sim, result). Returns the JSON rows of the kernels on the slab
+    lists."""
+    from mdbench_tpu_torch import _build
+    from mdbench_tpu_torch.bench import run_bench_domain
+    from mdbench_tpu_torch.config import FF_EAM, Params
+    from mdbench_tpu_torch.models.eam_tables import apply_eam_overrides, load_eam
+    from mdbench_tpu_torch.models.lattice import create_fcc_lattice
+    from mdbench_tpu_torch.ops import lj_cluster as lj
+    from mdbench_tpu_torch.parallel.cluster_domain import ClusterDomainSimulation
+
+    kid_of = {"LAUNCHES": "K1", "BUCKET_LAUNCHES": "K1b", "STREAM_LAUNCHES": "K4"}
+    # 37. one slab (the bench's 3 x 3 timed runs); 38. two and four slabs;
+    # 39. kernel="pallas" on two slabs (one timed run each): 131k/200 SP,
+    # golden-gated
+    runs = {}
+    for ndev, kernel, reps, chain in ((1, "auto", REPEATS, CHAIN), (2, "auto", 1, 1),
+                                      (4, "auto", 1, 1), (2, "pallas", 1, 1)):
+        tag = f"cluster mesh({ndev}){' pallas' if kernel == 'pallas' else ''}"
+        reset_counts(lj, ec)
+        t0 = time.perf_counter()
+        sim, out, rate = run_bench_domain(ndev=ndev, kernel=kernel, repeats=reps,
+                                          chain=chain, scheme="cluster")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: getattr(lj, name) for name in LJ_COUNTS}
+        p = sim.params
+        need = ndev * (1 + reps * chain) * (p.ntimes + 1)
+        main = ("STREAM_LAUNCHES" if kernel == "pallas" else
+                "BUCKET_LAUNCHES" if sim.buckets is not None else "LAUNCHES")
+        setup = "LAUNCHES" if main == "BUCKET_LAUNCHES" else None
+        others = {k: v for k, v in counts.items() if k not in (main, setup) and v}
+        units = sim.ncl_pad // sim.ishare
+        print(f"{tag}: {sim.natoms} atoms, slab width {sim.slab_w:.4f} (cutneigh "
+              f"{p.cutneigh}), {p.ntimes} steps, {p.precision}, ncl_pad {sim.ncl_pad} "
+              f"({units} units a slab), acap {sim.acap}, gcap_rows {sim.gcap_rows}, "
+              f"xcap16 {sim.xcap16}, icap {sim.icap}, list_cap {sim.list_cap}, buckets "
+              f"{sim.buckets}, grows {sim.grows or 'none'}; atoms per slab "
+              f"{[int(n) for n in out.nlocal]}; golden gate passed; TOTAL "
+              f"{out.total_time:.6f} s per run ({reps} x {chain} timed), {rate:.6e} "
+              f"atom-updates/s (single engine, phase 4: TOTAL {single_total:.6f} s; "
+              f"mesh / single {out.total_time / single_total:.4f}), run() wall "
+              f"{wall:.2f} s; launches {kid_of[main]} {counts[main]} (>= {need} force "
+              f"evaluations of the checked and timed runs), set-up K1 "
+              f"{counts['LAUNCHES'] if setup else 0}, others {others}, EAM "
+              f"{dict(ec.LAUNCHES)} on {smi}", flush=True)
+        if kernel == "auto" and sim.buckets is None:
+            print(f"{tag}: no bucket plan: {units} units a slab, below the planner's "
+                  f"4096 (ops/cluster.plan_capacity_buckets); K1 runs every force",
+                  flush=True)
+        if counts[main] < need or others or any(ec.LAUNCHES.values()):
+            fail(f"{tag} launched {counts} (EAM {dict(ec.LAUNCHES)}): {kid_of[main]} "
+                 f"must cover its {need} force evaluations, and nothing else launch")
+        if setup and not 0 < counts[setup] < ndev * (p.ntimes + 1):
+            fail(f"{tag}: K1 launched {counts[setup]} times, not only for the set-up "
+                 f"forces before the plan")
+        if int(out.nlocal.sum()) != sim.natoms:
+            fail(f"{tag}: the slabs hold {int(out.nlocal.sum())} atoms, not {sim.natoms}")
+        if not (np.isfinite(out.temps).all()
+                and all(bool(torch.isfinite(d.vxc).all()) for d in out.state)):
+            fail(f"{tag}: the state is not finite")
+        print(f"{tag} temps: " + " ".join(f"{s_}:{out.temps[s_ - 1]:.6e}"
+                                          for s_ in range(20, p.ntimes + 1, 20)),
+              flush=True)
+        # one more run of the timed region's kind (the initial state built
+        # before): its launches and host synchronisations by site
+        s0 = sim.initial_state()
+        torch.cuda.synchronize()
+        reset_counts(lj, ec)
+        sites = sync_sites(torch, lambda: sim._run_steps(s0, p.ntimes))
+        got = {k: getattr(lj, k) for k in LJ_COUNTS if getattr(lj, k)}
+        own = {w: n for w, n in sites.items() if w.startswith("parallel/")}
+        shared = {w: n for w, n in sites.items() if w not in own}
+        print(f"{tag} timed run: launches {got} (want {kid_of[main]} {ndev * p.ntimes}); "
+              f"host synchronisations: the domain engine's own {sum(own.values())} "
+              f"{own}, the shared cluster ops' {sum(shared.values())} {shared}",
+              flush=True)
+        if got != {main: ndev * p.ntimes}:
+            fail(f"{tag}: the timed run launched {got}")
+        if own:
+            fail(f"{tag}: the domain engine synchronises the host with the card")
+        if ndev == 1:
+            prof = device_profile(torch, lambda: sim._run_steps(sim.initial_state(),
+                                                                p.ntimes))
+            top = sorted(prof["ms"].items(), key=lambda kv: -kv[1])[:8]
+            print(f"{tag} profile of one {p.ntimes}-step _run_steps (initial state "
+                  f"included): wall {prof['wall_s']:.4f} s (profiled), device busy "
+                  f"{prof['busy']:.4f}, {prof['spans']} spans, device ms "
+                  f"{sum(prof['ms'].values()):.4f}; top kernels (ms): " + "; ".join(
+                      f"{name[:90]} {ms:.4f}" for name, ms in top) + f" on {smi}",
+                  flush=True)
+        runs[(ndev, kernel)] = (sim, out, {kid_of[k]: v for k, v in counts.items()
+                                           if k in kid_of})
+    if runs[(1, "auto")][0].buckets is None:
+        fail("the 1-slab cluster run must plan capacity buckets")
+    rows = []
+    for key in ((1, "auto"), (4, "auto"), (2, "pallas")):
+        sim, out, launches = runs[key]
+        rows += slab_list_rows(torch, sim, out.state[0], launches, smi,
+                               f"cluster mesh({key[0]}) {key[1]}, slab 0's final lists")
+
+    # 40. cluster EAM on two slabs, 131k/60 on phase 8's stand-in potential
+    eam_file = str(_build.BUILD_DIR / "standin_cu.eam")
+    tables = load_eam(eam_file)
+    kw = dict(scheme="cluster", dense_thermo=False, force_field=FF_EAM, eam_file=eam_file,
+              ntimes=60)
+    eruns = {}
+    for prec in ("sp", "dp"):
+        reset_counts(lj, ec)
+        sim = ClusterDomainSimulation(Params(precision=prec, **kw), ndev=2, device=dev)
+        out = sim.run(repeats=1, chain=1)
+        hand = {n: getattr(lj, n) for n in LJ_COUNTS if getattr(lj, n)}
+        e = dict(ec.LAUNCHES)
+        need = 2 * 2 * (sim.params.ntimes + 1)
+        pair = (("eam_rho_buckets", "eam_force_buckets") if sim.buckets is not None
+                else ("eam_rho_ilist", "eam_force_ilist"))
+        setup_ok = sim.buckets is None or all(
+            0 < e[n] < 2 * (sim.params.ntimes + 1) for n in ("eam_rho_ilist",
+                                                              "eam_force_ilist"))
+        print(f"cluster EAM mesh(2) {prec}: {sim.natoms} atoms, {sim.params.ntimes} "
+              f"steps, ncl_pad {sim.ncl_pad}, icap {sim.icap}, buckets {sim.buckets}, "
+              f"grows {sim.grows or 'none'}; TOTAL {out.total_time:.6f} s (one timed "
+              f"run); launches {e} (want {pair} >= {need}), LJ {hand}; atoms per slab "
+              f"{[int(n) for n in out.nlocal]} on {smi}", flush=True)
+        if (hand or any(e[n] < need for n in pair) or not setup_ok
+                or int(out.nlocal.sum()) != sim.natoms or not np.isfinite(out.temps).all()):
+            fail(f"the cluster EAM mesh(2) run ({prec}) launched {e}, LJ {hand}, or lost "
+                 f"atoms")
+        eruns[prec] = (sim, out, {"K2b" if sim.buckets is not None else "K2": e[pair[0]],
+                                  "K3b" if sim.buckets is not None else "K3": e[pair[1]]})
+    out_single = eam_dp[1]
+    for step, tol in EAM_SP_TOL.items():
+        t_sp = float(eruns["sp"][1].temps[step - 1])
+        t_dp = float(eruns["dp"][1].temps[step - 1])
+        t_1 = float(out_single.temps[step - 1])
+        rel, rel1 = abs(t_sp - t_dp) / abs(t_dp), abs(t_dp - t_1) / abs(t_1)
+        print(f"cluster EAM mesh(2) step {step}: SP {t_sp:.6e} against DP {t_dp:.12e}, "
+              f"rel {rel:.3e} (tol {tol:.0e}); DP against the single engine's DP "
+              f"(phase 8) {t_1:.12e}, rel {rel1:.3e} (tol 1e-6)", flush=True)
+        if not (rel <= tol and rel1 <= 1e-6):
+            fail(f"the cluster EAM mesh(2) run departs at step {step}")
+    sim, out, launches = eruns["sp"]
+    rows += slab_list_rows(torch, sim, out.state[0], launches, smi,
+                           "cluster EAM mesh(2), slab 0's final lists", tables=tables)
+
+    # 41. small input on two slabs, card against the CPU plain path: a
+    # jittered 8^3 DP LJ box and a 6^3 DP EAM box, full and cheap rebuilds
+    for what, kw in (("LJ 8^3", dict(nx=8, ny=8, nz=8)),
+                     ("EAM 6^3", dict(nx=6, ny=6, nz=6, force_field=FF_EAM,
+                                      eam_file=eam_file))):
+        kw.update(ntimes=40, reneigh_every=10, resort_every=20, precision="dp",
+                  scheme="cluster")
+        p0 = Params(**kw)
+        if "eam_file" in kw:
+            apply_eam_overrides(p0, tables)
+        x, v, _ = create_fcc_lattice(p0)
+        x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
+        f = {d: domain_first_forces(ClusterDomainSimulation(Params(**kw), ndev=2, x=x,
+                                                            v=v, device=d))
+             for d in ("cpu", dev)}
+        scale = max(np.abs(a).max() for a in f["cpu"])
+        frel = max(np.abs(a - b).max() for a, b in zip(f[dev], f["cpu"])) / scale
+        r = {d: ClusterDomainSimulation(Params(**kw), ndev=2, device=d).run(repeats=0)
+             for d in ("cpu", dev)}
+        trel = float(np.max(np.abs(r[dev].temps - r["cpu"].temps)
+                            / np.abs(r["cpu"].temps)))
+        print(f"cluster mesh(2) small input {what} dp: step-0 force rel err {frel:.3e} "
+              f"(tol 1e-12), 40-step temperature rel err {trel:.3e} (tol 1e-9); atoms "
+              f"per slab {[int(n) for n in r[dev].nlocal]}", flush=True)
+        if not (frel <= 1e-12 and trel <= 1e-9
+                and list(r[dev].nlocal) == list(r["cpu"].nlocal)):
+            fail(f"the card's cluster mesh(2) run ({what}) disagrees with the CPU")
     return rows
 
 
@@ -2804,6 +3199,7 @@ def main() -> int:
           f"n_clusters_pad {sim.n_clusters_pad}, icap {sim.icap}, "
           f"ghost_cap {sim.ghost_cap}, list_cap {sim.list_cap}, grows {sim.grows or 'none'}, "
           f"buckets {sim.buckets}")
+    single_total = out.total_time
     print(f"main path: golden gate passed; TOTAL {out.total_time:.6f} s per run, "
           f"{rate:.6e} atom-updates/s, run() wall {wall:.2f} s")
     print(f"main path: K1 launches {launches} (set-up, before the plan), K1b "
@@ -2931,6 +3327,10 @@ def main() -> int:
     # 34-36. the slab engine on an in-process mesh
     domain_rows = run_domain_phases(torch, dev, smi, ec, verlet_totals, eam_verlet_dp)
 
+    # 37-41. the cluster slab engine on an in-process mesh
+    cluster_domain_rows = run_cluster_domain_phases(torch, dev, smi, ec, single_total,
+                                                    eam_dp)
+
     wall = time.perf_counter() - t_start
     print(f"chip_smoke wall {wall:.1f} s (limit 1200 s)", flush=True)
     print(json.dumps({"kernels": [
@@ -2938,6 +3338,7 @@ def main() -> int:
                    exact_ms=res[torch.float32][4], device_ms=res[torch.float32][5]),
         *eam_rows, stream_row,
         *typed_rows, *bucket_rows, bf16_row, *fetch_rows, *verlet_rows, *domain_rows,
+        *cluster_domain_rows,
     ]}))
     print(f"chip_smoke wall {wall:.1f} s", file=sys.stderr)
     print(smi)

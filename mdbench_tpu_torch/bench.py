@@ -22,9 +22,11 @@ gate.
 (tools/r4_vbench.py's run: 16-atom row lists, K1 or K1b on the card),
 gated on the same golden trace.
 
-`run_bench_domain` runs the verlet LJ workload on the slab engine
-(parallel/verlet_domain.DomainSimulation) over an in-process mesh of
-`ndev` slabs on the one card, gated on the same golden trace.
+`run_bench_domain` runs the LJ workload on a slab engine over an
+in-process mesh of `ndev` slabs on the one card (the verlet scheme on
+parallel/verlet_domain.DomainSimulation, or with scheme="cluster" the
+cluster scheme on parallel/cluster_domain.ClusterDomainSimulation),
+gated on the same golden trace.
 
 `run_bench_file` runs the same LJ workload from an atom file
 (`Params(input_file=...)`: positions, velocities, box and types of the
@@ -86,19 +88,27 @@ def run_bench_verlet(repeats: int = 3, chain: int = 3, kernel: str = "auto"):
 
 
 def run_bench_domain(ndev: int = 1, kernel: str = "auto", repeats: int = 3,
-                     chain: int = 3):
-    """The verlet benchmark run on the slab engine: `ndev` slabs of an
-    in-process mesh on the CUDA card (the row lists with K1, or K1b once
-    the melt calibration plans buckets, for "auto"/"rowlist"; the planar
-    force for "xla"), measured as run_bench_verlet and gated on the golden
-    trace. Returns (sim, result, atom-updates per second)."""
+                     chain: int = 3, scheme: str = "verlet"):
+    """The benchmark run on a slab engine: `ndev` slabs of an in-process
+    mesh on the CUDA card, measured as run_bench and gated on the golden
+    trace. scheme "verlet": the verlet slab engine (the row lists with K1,
+    or K1b once the melt calibration plans buckets, for "auto"/"rowlist";
+    the planar force for "xla"); "cluster": the cluster slab engine with
+    the force kernel `kernel` ("auto": the exact lists, K1, or K1b after
+    the plan; "pallas": the group windows, K4). Returns (sim, result,
+    atom-updates per second)."""
     from mdbench_tpu_torch.config import Params
-    from mdbench_tpu_torch.parallel.verlet_domain import DomainSimulation
 
     check_golden = root_bench().check_golden
-    params = Params(precision="sp", scheme="verlet", kernel=kernel,
-                    dense_thermo=False)
-    sim = DomainSimulation(params, ndev=ndev, device="cuda")
+    params = Params(precision="sp", scheme=scheme, kernel=kernel, dense_thermo=False)
+    if scheme == "cluster":
+        from mdbench_tpu_torch.parallel.cluster_domain import ClusterDomainSimulation
+
+        sim = ClusterDomainSimulation(params, ndev=ndev, device="cuda")
+    else:
+        from mdbench_tpu_torch.parallel.verlet_domain import DomainSimulation
+
+        sim = DomainSimulation(params, ndev=ndev, device="cuda")
     out = sim.run(repeats=repeats, chain=chain)
     check_golden(out.temps, params.reneigh_every)
     return sim, out, sim.natoms * params.ntimes / out.total_time

@@ -728,7 +728,8 @@ class ClusterSimulation:
         and retry) and gives the temperatures. The timed region is
         `repeats` regions of `chain` back-to-back runs, each from a fresh
         initial state built before the region, fenced with a device
-        synchronise; total_time is the median region time / chain."""
+        synchronise; total_time is the median region time / chain, NaN with
+        repeats=0 (no timed region)."""
         p = self.params
         ntimes = p.ntimes if ntimes is None else ntimes
         calibrated = False
@@ -760,7 +761,7 @@ class ClusterSimulation:
                 del s0s
             return CRunResult(
                 temps=temps, press=press, state=state,
-                total_time=float(np.median(totals)),
+                total_time=float(np.median(totals)) if totals else float("nan"),
             )
         raise RuntimeError("cluster capacity overflow persisted")
 

@@ -3,23 +3,27 @@ ghost-fp refresh between them (the port of ``mdbench_tpu.ops.eam_cluster``
 and of the TPU kernels in ``mdbench_tpu/ops/pallas/eam_cluster.py``).
 
 Pass 1: rho_i = sum_j dens(r_ij); fp_i = F'(rho_i) from the exact
-        per-atom frho spline.
+        per-atom frho spline, into a (C_total, 8) fp plane whose ghost
+        rows are left at 0 (`eam_cluster_density`).
 Ghost:  the fp rows of ghost j16 are copied from their owners through
-        the halo's border map (no shift: fp is translation invariant), or
-        filled by the caller's fp_exchange (a domain engine's refresh).
-Pass 2: fpair = -((fp_i + fp_j) g1(r) + g2(r)); f_i += d_ij fpair.
+        the halo's border map (`_fp_ghost_refresh`; no shift: fp is
+        translation invariant). A domain engine fills them by its own
+        exchange instead, after pass 1 has run on every domain.
+Pass 2: fpair = -((fp_i + fp_j) g1(r) + g2(r)); f_i += d_ij fpair
+        (`eam_cluster_pair_forces`).
 
 dens, g1 and g2 are the degree-16 polynomials of `models.eam_tables.
 fit_eam_poly` in t = clip((r - mid) iscale, -1, 1), so no pass reads a
 table per pair.
 
-`eam_cluster_force` is the wrapper the engine calls. On a CUDA tensor it
-launches the hand-written kernels of ``csrc/eam_cluster.cu`` for the two
-passes (`eam_rho_ilist`, `eam_force_ilist`; with capacity buckets their
-bucketed forms `eam_rho_buckets`, `eam_force_buckets`) and runs the frho
-spline and the ghost refresh as torch ops between them on the same
-stream; on a CPU tensor it runs the plain version `eam_cluster_force_ref`.
-Nothing falls back from one to the other.
+`eam_cluster_force` is the single-device composition the engine calls:
+pass 1, the refresh, pass 2. On a CUDA tensor the passes launch the
+hand-written kernels of ``csrc/eam_cluster.cu`` (`eam_rho_ilist`,
+`eam_force_ilist`; with capacity buckets their bucketed forms
+`eam_rho_buckets`, `eam_force_buckets`) and the frho spline and the ghost
+refresh run as torch ops between them on the same stream; on a CPU
+tensor every part runs its plain version (the `_ref` functions). Nothing
+falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -125,21 +129,19 @@ def _fp_ghost_refresh(fp_plane, border_map, n_clusters_pad: int):
     return fp_plane
 
 
-def fp_plane_from_rho(rho, eam: EamDevice, border_map, c_total: int,
-                      fp_exchange=None):
+def fp_plane_from_rho(rho, eam: EamDevice, border_map, c_total: int):
     """fp = F'(rho) per local atom from the frho spline, into a zeroed
-    (c_total, 8) plane whose ghost rows are then filled: from their owners
-    through `border_map`, or by fp_exchange(fp_plane) -> fp_plane when it
-    is given (a domain engine's refresh that also brings boundary fp from
-    the other domains; mdbench_tpu's fp_exchange)."""
+    (c_total, 8) plane; its ghost rows are then filled from their owners
+    through `border_map`, or left at 0 when `border_map` is None (for the
+    caller to fill)."""
     mf, pf = _grid_index(rho, eam.rdrho, eam.nrho)
     fs = eam.frho[mf]  # (npad, 8, 7)
     fp_local = (fs[..., 0] * pf + fs[..., 1]) * pf + fs[..., 2]
     npad = rho.shape[0]
     fp_plane = torch.zeros((c_total, 8), dtype=rho.dtype, device=rho.device)
     fp_plane[:npad] = fp_local
-    if fp_exchange is not None:
-        return fp_exchange(fp_plane)
+    if border_map is None:
+        return fp_plane
     return _fp_ghost_refresh(fp_plane, border_map, npad)
 
 
@@ -171,33 +173,51 @@ def eam_force_buckets_ref(xc, yc, zc, fp_plane, bijlist, bcrows, binv,
             xi=tuple(p[r0:r1] for p in xi), fpi=fpi[r0:r1]))
 
 
-def eam_cluster_force_ref(xc, yc, zc, ijlist, border_map,
-                          n_clusters_pad: int, cutforcesq: float,
-                          eam: EamDevice, poly, share: int = 2,
-                          buckets=None, bpairs=None, fp_exchange=None):
-    """Plain torch cluster EAM force, the literal twin of mdbench_tpu's
-    `eam_cluster_force_xla`: pass 1, the frho spline, the ghost refresh
-    (or `fp_exchange`, as in `fp_plane_from_rho`), pass 2. With `buckets`
-    (sizes, caps) and `bpairs` (bijlist, bcrows, binv), both passes run
-    bucketed, as `eam_cluster_force_pallas` does with them. Returns (fx,
-    fy, fz, fp_plane)."""
+def eam_cluster_density_ref(xc, yc, zc, ijlist, n_clusters_pad: int,
+                            cutforcesq: float, eam: EamDevice, poly,
+                            share: int = 2, buckets=None, bpairs=None):
+    """Plain torch pass 1 and the frho spline: the (C_total, 8) fp plane,
+    ghost rows 0. With `buckets` (sizes, caps) and `bpairs` (bijlist,
+    bcrows, binv) the density runs bucketed, as mdbench_tpu's
+    `eam_cluster_force_pallas` does with them."""
     if buckets is not None:
-        bijlist, bcrows, binv = bpairs
-        rho = eam_rho_buckets_ref(xc, yc, zc, bijlist, bcrows, binv,
-                                  n_clusters_pad, cutforcesq, poly, buckets,
-                                  share)
+        rho = eam_rho_buckets_ref(xc, yc, zc, *bpairs, n_clusters_pad,
+                                  cutforcesq, poly, buckets, share)
     else:
         rho = eam_rho_ilist_ref(xc, yc, zc, ijlist, n_clusters_pad,
                                 cutforcesq, poly, share)
-    fp_plane = fp_plane_from_rho(rho, eam, border_map, xc.shape[0], fp_exchange)
+    return fp_plane_from_rho(rho, eam, None, xc.shape[0])
+
+
+def eam_cluster_pair_forces_ref(xc, yc, zc, fp_plane, ijlist,
+                                n_clusters_pad: int, cutforcesq: float, poly,
+                                share: int = 2, buckets=None, bpairs=None):
+    """Plain torch pass 2 from an fp plane whose ghost rows are filled:
+    (fx, fy, fz), each (n_clusters_pad, 8); bucketed as
+    `eam_cluster_density_ref`."""
     if buckets is not None:
-        fx, fy, fz = eam_force_buckets_ref(
-            xc, yc, zc, fp_plane, bijlist, bcrows, binv, n_clusters_pad,
-            cutforcesq, poly, buckets, share)
-    else:
-        fx, fy, fz = eam_force_ilist_ref(xc, yc, zc, fp_plane, ijlist,
-                                         n_clusters_pad, cutforcesq, poly,
-                                         share)
+        return eam_force_buckets_ref(xc, yc, zc, fp_plane, *bpairs,
+                                     n_clusters_pad, cutforcesq, poly, buckets,
+                                     share)
+    return eam_force_ilist_ref(xc, yc, zc, fp_plane, ijlist, n_clusters_pad,
+                               cutforcesq, poly, share)
+
+
+def eam_cluster_force_ref(xc, yc, zc, ijlist, border_map,
+                          n_clusters_pad: int, cutforcesq: float,
+                          eam: EamDevice, poly, share: int = 2,
+                          buckets=None, bpairs=None):
+    """Plain torch cluster EAM force, the literal twin of mdbench_tpu's
+    `eam_cluster_force_xla`: `eam_cluster_density_ref`, the ghost refresh
+    through `border_map`, `eam_cluster_pair_forces_ref`. Returns (fx, fy,
+    fz, fp_plane)."""
+    fp_plane = eam_cluster_density_ref(xc, yc, zc, ijlist, n_clusters_pad,
+                                       cutforcesq, eam, poly, share, buckets,
+                                       bpairs)
+    _fp_ghost_refresh(fp_plane, border_map, n_clusters_pad)
+    fx, fy, fz = eam_cluster_pair_forces_ref(
+        xc, yc, zc, fp_plane, ijlist, n_clusters_pad, cutforcesq, poly, share,
+        buckets, bpairs)
     return fx, fy, fz, fp_plane
 
 
@@ -364,35 +384,56 @@ def eam_force_buckets(xc, yc, zc, fp_plane, bijlist, bcrows, binv, nji,
         n_clusters_pad, _bucket_scalars(bijlist, nji, share, table, coefs)))
 
 
-def eam_cluster_force(xc, yc, zc, ijlist, nji, border_map,
-                      n_clusters_pad: int, cutforcesq: float,
-                      eam: EamDevice, poly, share: int = 2,
-                      buckets=None, bpairs=None, fp_exchange=None):
-    """Cluster EAM force, (fx, fy, fz, fp_plane): the contract of
-    `eam_cluster_force_ref`, bucketed with `buckets` and `bpairs`
-    (bijlist, bcrows, binv), the ghost fp by `fp_exchange` when it is
-    given. On a CPU tensor it is the plain version. On a CUDA tensor:
-    kernel pass 1 (K2, or K2b bucketed), the frho spline and ghost refresh
-    (or fp_exchange) as torch ops on the current stream (so they precede
-    pass 2 there), kernel pass 2 (K3, or K3b). Other devices raise
-    ValueError."""
+def eam_cluster_density(xc, yc, zc, ijlist, nji, n_clusters_pad: int,
+                        cutforcesq: float, eam: EamDevice, poly,
+                        share: int = 2, buckets=None, bpairs=None):
+    """Pass 1 and the frho spline, the contract of
+    `eam_cluster_density_ref` (ghost rows 0). On a CPU tensor it is the
+    plain version; on a CUDA tensor the density kernel (K2, or K2b with
+    `buckets` and `bpairs`), then the spline as torch ops on the current
+    stream. Other devices raise ValueError."""
     if xc.device.type == "cpu":
-        return eam_cluster_force_ref(xc, yc, zc, ijlist, border_map,
-                                     n_clusters_pad, cutforcesq, eam, poly,
-                                     share, buckets, bpairs, fp_exchange)
+        return eam_cluster_density_ref(xc, yc, zc, ijlist, n_clusters_pad,
+                                       cutforcesq, eam, poly, share, buckets,
+                                       bpairs)
     if buckets is not None:
-        lists = (*bpairs, nji)
-        rho = eam_rho_buckets(xc, yc, zc, *lists, n_clusters_pad, cutforcesq,
-                              poly, buckets, share)
+        rho = eam_rho_buckets(xc, yc, zc, *bpairs, nji, n_clusters_pad,
+                              cutforcesq, poly, buckets, share)
     else:
         rho = eam_rho_ilist(xc, yc, zc, ijlist, nji, n_clusters_pad,
                             cutforcesq, poly, share)
-    fp_plane = fp_plane_from_rho(rho, eam, border_map, xc.shape[0], fp_exchange)
+    return fp_plane_from_rho(rho, eam, None, xc.shape[0])
+
+
+def eam_cluster_pair_forces(xc, yc, zc, fp_plane, ijlist, nji,
+                            n_clusters_pad: int, cutforcesq: float, poly,
+                            share: int = 2, buckets=None, bpairs=None):
+    """Pass 2, the contract of `eam_cluster_pair_forces_ref`: on a CUDA
+    tensor the force kernel (K3, or K3b with `buckets` and `bpairs`)."""
+    if xc.device.type == "cpu":
+        return eam_cluster_pair_forces_ref(xc, yc, zc, fp_plane, ijlist,
+                                           n_clusters_pad, cutforcesq, poly,
+                                           share, buckets, bpairs)
     if buckets is not None:
-        fx, fy, fz = eam_force_buckets(xc, yc, zc, fp_plane, *lists,
-                                       n_clusters_pad, cutforcesq, poly,
-                                       buckets, share)
-    else:
-        fx, fy, fz = eam_force_ilist(xc, yc, zc, fp_plane, ijlist, nji,
-                                     n_clusters_pad, cutforcesq, poly, share)
+        return eam_force_buckets(xc, yc, zc, fp_plane, *bpairs, nji,
+                                 n_clusters_pad, cutforcesq, poly, buckets,
+                                 share)
+    return eam_force_ilist(xc, yc, zc, fp_plane, ijlist, nji, n_clusters_pad,
+                           cutforcesq, poly, share)
+
+
+def eam_cluster_force(xc, yc, zc, ijlist, nji, border_map,
+                      n_clusters_pad: int, cutforcesq: float,
+                      eam: EamDevice, poly, share: int = 2,
+                      buckets=None, bpairs=None):
+    """Cluster EAM force on one device, (fx, fy, fz, fp_plane):
+    `eam_cluster_density`, the ghost refresh through `border_map` (torch
+    ops on the current stream, so it precedes pass 2 there),
+    `eam_cluster_pair_forces`; the contract of `eam_cluster_force_ref`."""
+    fp_plane = eam_cluster_density(xc, yc, zc, ijlist, nji, n_clusters_pad,
+                                   cutforcesq, eam, poly, share, buckets, bpairs)
+    _fp_ghost_refresh(fp_plane, border_map, n_clusters_pad)
+    fx, fy, fz = eam_cluster_pair_forces(xc, yc, zc, fp_plane, ijlist, nji,
+                                         n_clusters_pad, cutforcesq, poly, share,
+                                         buckets, bpairs)
     return fx, fy, fz, fp_plane

@@ -1,8 +1,9 @@
 """Helpers the domain engines share (the port of
-``mdbench_tpu.parallel.common``): the per-domain spatial resort with a
-device-side atom count, the row-list layout rules, and the melted-probe
-capacity calibration. Every number is mdbench_tpu's for every input; the
-resort breaks ties by row id (below)."""
+``mdbench_tpu.parallel.common``, and the y/z wrap and atom migration that
+mdbench_tpu's verlet and cluster slab engines each carry): the per-domain
+spatial resort with a device-side atom count, the row-list layout rules,
+and the melted-probe capacity calibration. Every number is mdbench_tpu's
+for every input; the resort breaks ties by row id (below)."""
 
 from __future__ import annotations
 
@@ -10,8 +11,93 @@ import numpy as np
 import torch
 
 from mdbench_tpu_torch.ops.cluster import plan_capacity_buckets
+from mdbench_tpu_torch.state import SENTINEL_COORD
 
 BIG = 2**31 - 1  # the padding rows' bin key (they sort last)
+
+
+def live_rows(nloc, n: int):
+    """(n,) bool: rows below the 0-d atom count `nloc`."""
+    return torch.arange(n, device=nloc.device) < nloc
+
+
+def wrap_yz(x, nloc, yprd: float, zprd: float):
+    """Wrap y/z of the live rows into the box, in place; x is left to the
+    migration. Returns x."""
+    live = live_rows(nloc, x.shape[0])
+    for d, prd in ((1, yprd), (2, zprd)):
+        c = x[:, d]
+        c = torch.where(live & (c < 0), c + prd, c)
+        c = torch.where(live & (c >= prd), c - prd, c)
+        x[:, d] = c
+    return x
+
+
+def _pack_leavers(x, v, nloc, acap: int, migcap: int, slab_w: float):
+    """The migration's first half on one domain (the multi-device
+    updateAtomsPbc, pbc.c:59-84): the leavers packed into two (migcap, 6)
+    [x | v] buffers in the receiver's frame, the stayers compacted to the
+    front. Returns (buf_l, buf_r, x2, v2, n_stay, overflow), x2 and v2 one
+    row longer than acap (the dropped scatters' row)."""
+    dtype, dev = x.dtype, x.device
+    live = live_rows(nloc, acap)
+    xl = x[:acap]
+    go_l = live & (xl[:, 0] < 0.0)
+    go_r = live & (xl[:, 0] >= slab_w)
+    ovf_drift = torch.any(live & ((xl[:, 0] < -slab_w) | (xl[:, 0] >= 2 * slab_w)))
+    stay = live & ~go_l & ~go_r
+
+    def pack(mask, dx_shift):
+        pos = torch.cumsum(mask, 0) - 1
+        cnt = mask.sum()
+        pos = torch.where(mask & (pos < migcap), pos, migcap)
+        payload = torch.cat([xl, v[:acap]], dim=1)
+        payload[:, 0] += dx_shift
+        buf = torch.full((migcap + 1, 6), SENTINEL_COORD, dtype=dtype, device=dev)
+        buf[pos] = payload
+        return buf[:migcap], cnt
+
+    # leavers to the left arrive at the left neighbour's right edge
+    buf_l, cnt_l = pack(go_l, +slab_w)
+    buf_r, cnt_r = pack(go_r, -slab_w)
+    ovf = (cnt_l > migcap) | (cnt_r > migcap) | ovf_drift
+    pos = torch.where(stay, torch.cumsum(stay, 0) - 1, acap)
+    x2 = torch.full((acap + 1, 3), SENTINEL_COORD, dtype=dtype, device=dev)
+    v2 = torch.zeros((acap + 1, 3), dtype=dtype, device=dev)
+    x2[pos] = xl
+    v2[pos] = v[:acap]
+    return buf_l, buf_r, x2, v2, stay.sum(), ovf
+
+
+def _append(x2, v2, n, buf, acap: int):
+    """Append a received buffer's valid rows after the first n rows."""
+    valid = buf[:, 0].abs() < SENTINEL_COORD * 0.5
+    pos = torch.cumsum(valid, 0) - 1 + n
+    pos = torch.where(valid & (pos < acap), pos, acap)
+    x2[pos] = buf[:, 0:3]
+    v2[pos] = buf[:, 3:6]
+    return n + valid.sum()
+
+
+def migrate(exchange, xs, vs, ns, acap: int, migcap: int, slab_w: float):
+    """Move the atoms that crossed a slab face to the neighbouring domain
+    (mdbench_tpu's _migrate: pack, shift left and right, merge), for every
+    domain `exchange` holds. Returns lists (xs, vs, ns, overflow flags):
+    each domain's (acap, 3) atoms (sentinel padded) and velocities, its
+    0-d atom count and its migration flag (a buffer or the local region
+    overflowed, or an atom drifted more than a slab)."""
+    packs = [_pack_leavers(x, v, n, acap, migcap, slab_w) for x, v, n in zip(xs, vs, ns)]
+    from_right = exchange.shift([pk[0] for pk in packs], -1)
+    from_left = exchange.shift([pk[1] for pk in packs], +1)
+    out_x, out_v, out_n, ovfs = [], [], [], []
+    for (_, _, x2, v2, n, ovf), bl, br in zip(packs, from_left, from_right):
+        n = _append(x2, v2, n, bl, acap)
+        n = _append(x2, v2, n, br, acap)
+        out_x.append(x2[:acap])
+        out_v.append(v2[:acap])
+        out_n.append(n)
+        ovfs.append(ovf | (n > acap))
+    return out_x, out_v, out_n, ovfs
 
 
 def resort_by_cell(grid, x, v, nloc, acap: int):

@@ -91,8 +91,11 @@ from mdbench_tpu_torch.parallel.common import (
     align_acap,
     apply_rowlist_caps,
     calibrated_block_cap,
+    live_rows,
+    migrate,
     resort_by_cell,
     round16,
+    wrap_yz,
 )
 from mdbench_tpu_torch.parallel.exchange import InProcessMesh
 from mdbench_tpu_torch.state import SENTINEL_COORD, Halo, NeighborList
@@ -300,66 +303,7 @@ class DomainSimulation:
     # ---- per-domain phases --------------------------------------------------
 
     def _live(self, nloc, n: int):
-        return torch.arange(n, device=nloc.device) < nloc
-
-    def _wrap_yz(self, x, nloc):
-        """Wrap y/z of the live rows into the box, in place; x is left to
-        the migration."""
-        p = self.params
-        live = self._live(nloc, x.shape[0])
-        for d, prd in ((1, p.yprd), (2, p.zprd)):
-            c = x[:, d]
-            c = torch.where(live & (c < 0), c + prd, c)
-            c = torch.where(live & (c >= prd), c - prd, c)
-            x[:, d] = c
-        return x
-
-    def _pack_leavers(self, x, v, nloc):
-        """The migration's first half on one domain (the multi-device
-        updateAtomsPbc, pbc.c:59-84): the leavers packed into two (migcap,
-        6) [x | v] buffers in the receiver's frame, the stayers compacted
-        to the front. Returns (buf_l, buf_r, x2, v2, n_stay, overflow), x2
-        and v2 one row longer than acap (the dropped scatters' row)."""
-        acap, migcap = self.acap, self.migcap
-        dtype, dev = x.dtype, x.device
-        live = self._live(nloc, acap)
-        xl = x[:acap]
-        go_l = live & (xl[:, 0] < 0.0)
-        go_r = live & (xl[:, 0] >= self.slab_w)
-        ovf_drift = torch.any(
-            live & ((xl[:, 0] < -self.slab_w) | (xl[:, 0] >= 2 * self.slab_w)))
-        stay = live & ~go_l & ~go_r
-
-        def pack(mask, dx_shift):
-            pos = torch.cumsum(mask, 0) - 1
-            cnt = mask.sum()
-            pos = torch.where(mask & (pos < migcap), pos, migcap)
-            payload = torch.cat([xl, v], dim=1)
-            payload[:, 0] += dx_shift
-            buf = torch.full((migcap + 1, 6), SENTINEL_COORD, dtype=dtype, device=dev)
-            buf[pos] = payload
-            return buf[:migcap], cnt
-
-        # leavers to the left arrive at the left neighbour's right edge
-        buf_l, cnt_l = pack(go_l, +self.slab_w)
-        buf_r, cnt_r = pack(go_r, -self.slab_w)
-        ovf = (cnt_l > migcap) | (cnt_r > migcap) | ovf_drift
-        pos = torch.where(stay, torch.cumsum(stay, 0) - 1, acap)
-        x2 = torch.full((acap + 1, 3), SENTINEL_COORD, dtype=dtype, device=dev)
-        v2 = torch.zeros((acap + 1, 3), dtype=dtype, device=dev)
-        x2[pos] = xl
-        v2[pos] = v
-        return buf_l, buf_r, x2, v2, stay.sum(), ovf
-
-    def _append(self, x2, v2, n, buf):
-        """Append a received buffer's valid rows after the first n rows."""
-        acap = self.acap
-        valid = buf[:, 0].abs() < SENTINEL_COORD * 0.5
-        pos = torch.cumsum(valid, 0) - 1 + n
-        pos = torch.where(valid & (pos < acap), pos, acap)
-        x2[pos] = buf[:, 0:3]
-        v2[pos] = buf[:, 3:6]
-        return n + valid.sum()
+        return live_rows(nloc, n)
 
     def _build_halo(self, x, nloc):
         """Local y/z ghosts (setup_pbc with pbc = (0, y, z)) and the two
@@ -439,22 +383,17 @@ class DomainSimulation:
 
     def _migrate(self, xs, vs, ns):
         """Move the atoms that crossed a slab face to the neighbouring
-        domain. Returns new (xs, vs, ns, overflow flags)."""
-        packs = [self._pack_leavers(x, v, n) for x, v, n in zip(xs, vs, ns)]
-        from_right = self.exchange.shift([pk[0] for pk in packs], -1)
-        from_left = self.exchange.shift([pk[1] for pk in packs], +1)
-        out_x, out_v, out_n, ovfs = [], [], [], []
-        for (_, _, x2, v2, n, ovf), bl, br in zip(packs, from_left, from_right):
-            n = self._append(x2, v2, n, bl)
-            n = self._append(x2, v2, n, br)
-            x_full = torch.full((self.nrows, 3), SENTINEL_COORD, dtype=x2.dtype,
-                                device=x2.device)
-            x_full[: self.acap] = x2[: self.acap]
+        domain (parallel/common.migrate). Returns new (xs, vs, ns, overflow
+        flags), each x of the full row layout."""
+        xs, vs, ns, ovfs = migrate(self.exchange, xs, vs, ns, self.acap, self.migcap,
+                                   self.slab_w)
+        out_x = []
+        for x in xs:
+            x_full = torch.full((self.nrows, 3), SENTINEL_COORD, dtype=x.dtype,
+                                device=x.device)
+            x_full[: self.acap] = x
             out_x.append(x_full)
-            out_v.append(v2[: self.acap])
-            out_n.append(n)
-            ovfs.append(ovf | (n > self.acap))
-        return out_x, out_v, out_n, ovfs
+        return out_x, vs, ns, ovfs
 
     def _exchange_borders(self, xs, bls, brs):
         """The per-step x-ghost refresh: gather the exported rows, move them
@@ -495,8 +434,9 @@ class DomainSimulation:
         """The rebuild of every held domain. Returns a list of _Dom with f
         None and the rebuild's flags as ovf; with_stats also the per-domain
         (numrows, build stats, nghost, border count) of the calibration."""
+        p = self.params
         with region("reneighbor"):
-            xs = [self._wrap_yz(x, n) for x, n in zip(xs, ns)]
+            xs = [wrap_yz(x, n, p.yprd, p.zprd) for x, n in zip(xs, ns)]
             xs, vs, ns, ovf_m = self._migrate(xs, vs, ns)
             if self._rowlist:
                 xv = [resort_by_cell(self.grid, x, v, n, self.acap)

@@ -1,12 +1,15 @@
-"""One rank of a gloo run of the slab engine (tests/test_torch_exchange.py
+"""One rank of a gloo run of a slab engine (tests/test_torch_exchange.py
 starts two of them):
 
-    python tests/domain_dist_worker.py RANK WORLD PORT OUT.npz
+    python tests/domain_dist_worker.py RANK WORLD PORT OUT.npz [SCHEME]
 
 Joins a gloo group at tcp://localhost:PORT, checks DistExchange's shift,
-psum and all_gather on rank-tagged buffers, runs the planar DP slab
-engine (8x4x4, 10 steps, a rebuild every 5) with one domain on this rank,
-and writes the temperatures and the domain's final state to OUT.npz.
+psum and all_gather on rank-tagged buffers, runs a DP slab engine (8x4x4,
+10 steps, a rebuild every 5) with one domain on this rank, and writes the
+temperatures and the domain's final state to OUT.npz. SCHEME "verlet"
+(the default) runs the verlet slab engine on its planar path; "cluster"
+the cluster slab engine on its exact-list plain path (its calibration
+gathers the melt's maxima over the group).
 """
 
 import sys
@@ -20,14 +23,29 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 from mdbench_tpu_torch.config import Params  # noqa: E402
+from mdbench_tpu_torch.parallel.cluster_domain import ClusterDomainSimulation  # noqa: E402
 from mdbench_tpu_torch.parallel.exchange import DistExchange  # noqa: E402
 from mdbench_tpu_torch.parallel.verlet_domain import DomainSimulation  # noqa: E402
 
 DOMAIN_KW = dict(nx=8, ny=4, nz=4, ntimes=10, reneigh_every=5, kernel="xla",
                  precision="dp")
+CLUSTER_KW = dict(nx=8, ny=4, nz=4, ntimes=10, reneigh_every=5, kernel="ilist",
+                  precision="dp", scheme="cluster")
 
 
-def main(rank: int, world: int, port: int, out: str) -> None:
+def final_state(scheme: str, res, i: int = 0) -> dict:
+    """The arrays of the final state of the i-th held domain that the test
+    compares."""
+    if scheme == "verlet":
+        s = res.state
+        return dict(x=s.x[i].numpy(), v=s.v[i].numpy(), f=s.f[i].numpy(),
+                    nlocal=s.nlocal[i].numpy())
+    d = res.state[i]
+    return dict(xc=d.cl.xc.numpy(), vxc=d.vxc.numpy(), fxc=d.fxc.numpy(),
+                fzc=d.fzc.numpy(), nlocal=d.nloc.numpy())
+
+
+def main(rank: int, world: int, port: int, out: str, scheme: str = "verlet") -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=world, rank=rank,
@@ -39,14 +57,17 @@ def main(rank: int, world: int, port: int, out: str) -> None:
         got = {f"shift{step:+d}": ex.shift([tag], step)[0].numpy() for step in (1, -1)}
         got["psum"] = ex.psum([torch.tensor(rank + 1.0)])[0].numpy()
         got["gather"] = torch.stack(ex.all_gather([torch.tensor([rank, 2 * rank])])).numpy()
-        dom = DomainSimulation(Params(**DOMAIN_KW), ndev=world, device="cpu", exchange=ex)
+        if scheme == "verlet":
+            dom = DomainSimulation(Params(**DOMAIN_KW), ndev=world, device="cpu",
+                                   exchange=ex)
+        else:
+            dom = ClusterDomainSimulation(Params(**CLUSTER_KW), ndev=world, device="cpu",
+                                          exchange=ex)
         res = dom.run(repeats=0)
-        s = res.state
-        np.savez(out, temps=res.temps, x=s.x[0].numpy(), v=s.v[0].numpy(),
-                 f=s.f[0].numpy(), nlocal=s.nlocal[0].numpy(), **got)
+        np.savez(out, temps=res.temps, **final_state(scheme, res), **got)
     finally:
         dist.destroy_process_group()
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], *sys.argv[5:])

@@ -5,8 +5,9 @@ exact-list kernels flat and over capacity buckets, exact and with the
 approximate reciprocal, on the cluster lists and on the verlet scheme's
 16-atom row lists) and the probes' kernels (the bf16 form of
 csrc/lj_cluster_ilist.cu, the row fetch of csrc/row_fetch.cu)
-against their plain torch versions, on a CUDA card; and the verlet engine
-on the card against its CPU run. This file imports no jax, so
+against their plain torch versions, on a CUDA card; the cluster EAM's
+split passes against the composed force; and the verlet engine and the
+slab engines on the card against their CPU runs. This file imports no jax, so
 it runs on a machine that has torch and a card but no jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -828,10 +829,11 @@ def test_cuda_cli_run(cuda, scheme, capsys):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bucketed", [False, True])
 def test_cuda_eam_fp_exchange_default_bits(cuda, eam_file, bucketed):
-    """The cluster EAM wrapper on the card with an fp_exchange that does the
-    default ghost refresh gives the bits of no fp_exchange (K2/K3, or
-    K2b/K3b over a hand plan), and a callable that halves the ghost fp
-    gives the plain version's forces for the same callable."""
+    """The cluster EAM split at the fp plane on the card: the density
+    wrapper (K2, or K2b over a hand plan) leaves the ghost rows 0, and with
+    the default ghost refresh between it and the pair-force wrapper (K3 or
+    K3b) the two give eam_cluster_force's bits; another fill (the ghost fp
+    halved) gives the plain split's forces for the same fill."""
     cl, pairs, border_map, _, npad, share = synthetic_eam_case(seed=3, share=2)
     c = clusters_from_numpy(cl, cuda, torch.float64)
     pr = pairs_from_numpy(pairs, cuda)
@@ -845,27 +847,37 @@ def test_cuda_eam_fp_exchange_default_bits(cuda, eam_file, bucketed):
         plan = hand_plan(pr.nji.cpu().numpy(), pr.ijlist.shape[1])
         kw.update(buckets=plan, bpairs=bucket_maps_core(
             pr.ijlist, pr.nji, npad, share, c.xc.shape[0], *plan)[:3])
-    args = (npad, poly.cut**2, eam, poly)
+    cut2 = poly.cut**2
+
+    def split(fill, wrapper=True):
+        if wrapper:
+            fp = tec.eam_cluster_density(*planes, pr.ijlist, pr.nji, npad, cut2, eam,
+                                         poly, **kw)
+        else:
+            fp = tec.eam_cluster_density_ref(*planes, pr.ijlist, npad, cut2, eam, poly,
+                                             **kw)
+        assert not fp[npad:].any()
+        fill(fp)
+        if wrapper:
+            return tec.eam_cluster_pair_forces(*planes, fp, pr.ijlist, pr.nji, npad,
+                                               cut2, poly, **kw)
+        return tec.eam_cluster_pair_forces_ref(*planes, fp, pr.ijlist, npad, cut2, poly,
+                                               **kw)
 
     def halve(fp):
-        fp = tec._fp_ghost_refresh(fp, bm, npad)
+        tec._fp_ghost_refresh(fp, bm, npad)
         fp[npad:] *= 0.5
-        return fp
 
     before = dict(tec.LAUNCHES)
-    want = tec.eam_cluster_force(*planes, pr.ijlist, pr.nji, bm, *args, **kw)
-    got = tec.eam_cluster_force(*planes, pr.ijlist, pr.nji, bm, *args,
-                                fp_exchange=lambda fp: tec._fp_ghost_refresh(fp, bm, npad),
-                                **kw)
+    want = tec.eam_cluster_force(*planes, pr.ijlist, pr.nji, bm, npad, cut2, eam, poly,
+                                 **kw)
+    got = split(lambda fp: tec._fp_ghost_refresh(fp, bm, npad))
     torch.cuda.synchronize()
     assert sum(tec.LAUNCHES.values()) - sum(before.values()) == 4
-    for x, y in zip(got, want):
+    for x, y in zip(got, want[:3]):
         assert torch.equal(x, y)
-    f_k = tec.eam_cluster_force(*planes, pr.ijlist, pr.nji, bm, *args,
-                                fp_exchange=halve, **kw)
-    f_r = tec.eam_cluster_force_ref(*planes, pr.ijlist, bm, *args, fp_exchange=halve,
-                                    **kw)
-    assert _rel(f_k[:3], f_r[:3]) <= TOL[torch.float64]
+    f_k, f_r = split(halve), split(halve, wrapper=False)
+    assert _rel(f_k, f_r) <= TOL[torch.float64]
     assert not torch.equal(f_k[0], want[0])
 
 
@@ -906,4 +918,71 @@ def test_cuda_domain_rowlist_launches_k1_without_sync(cuda):
     torch.cuda.synchronize()
     before = tlj.LAUNCHES
     assert sync_count(torch, lambda: sim._run_steps(s0, 20)) == 0
+    assert tlj.LAUNCHES - before == 2 * 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["lj", "eam", "pallas"])
+def test_cuda_cluster_domain_matches_cpu(cuda, eam_file, case):
+    """The cluster slab engine on two slabs, card against CPU in float64:
+    a jittered 8^3 LJ box (exact lists: K1; kernel="pallas": K4) and a
+    6^3 EAM box (K2/K3), a full rebuild every other interval. Step-0
+    forces within 1e-12 of max |f| (each slab's atom window in order) and
+    40-step temperatures within rel 1e-9; only the path's kernels
+    launch."""
+    from chip_smoke import domain_first_forces
+    from mdbench_tpu_torch.parallel.cluster_domain import ClusterDomainSimulation
+
+    kw = dict(nx=8, ny=8, nz=8, ntimes=40, reneigh_every=10, resort_every=20,
+              precision="dp", scheme="cluster")
+    if case == "eam":
+        kw.update(nx=6, ny=6, nz=6, force_field=FF_EAM, eam_file=eam_file)
+    if case == "pallas":
+        kw.update(kernel="pallas")
+    p0 = Params(**kw)
+    if case == "eam":
+        apply_eam_overrides(p0, load_eam(eam_file))
+    x, v, _ = create_fcc_lattice(p0)
+    x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
+    f_cpu = domain_first_forces(ClusterDomainSimulation(Params(**kw), ndev=2, x=x, v=v,
+                                                        device="cpu"))
+    lj_before = {n: getattr(tlj, n) for n in LJ_COUNTS}
+    ec_before = dict(tec.LAUNCHES)
+    f_gpu = domain_first_forces(ClusterDomainSimulation(Params(**kw), ndev=2, x=x, v=v,
+                                                        device=cuda))
+    r_gpu = ClusterDomainSimulation(Params(**kw), ndev=2, device=cuda).run(repeats=0)
+    lj_grew = {n: getattr(tlj, n) - lj_before[n] for n in LJ_COUNTS
+               if getattr(tlj, n) != lj_before[n]}
+    ec_grew = {n: tec.LAUNCHES[n] - ec_before[n] for n in tec.LAUNCHES
+               if tec.LAUNCHES[n] != ec_before[n]}
+    want = {"lj": ({"LAUNCHES"}, set()), "pallas": ({"STREAM_LAUNCHES"}, set()),
+            "eam": (set(), {"eam_rho_ilist", "eam_force_ilist"})}[case]
+    assert (set(lj_grew), set(ec_grew)) == want
+    r_cpu = ClusterDomainSimulation(Params(**kw), ndev=2, device="cpu").run(repeats=0)
+    scale = max(np.abs(a).max() for a in f_cpu)
+    for a, b in zip(f_gpu, f_cpu):
+        assert a.shape == b.shape
+        assert np.abs(a - b).max() <= 1e-12 * scale
+    np.testing.assert_array_equal(r_gpu.nlocal, r_cpu.nlocal)
+    np.testing.assert_allclose(r_gpu.temps, r_cpu.temps, rtol=1e-9)
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_domain_launches_without_sync(cuda):
+    """An SP exact-list run on two slabs: each step's force launches K1
+    once per slab, and nothing of the domain engine's own synchronises the
+    host with the card (the shared cluster ops' rebuild tables may)."""
+    from chip_smoke import sync_sites
+    from mdbench_tpu_torch.parallel.cluster_domain import ClusterDomainSimulation
+
+    sim = ClusterDomainSimulation(Params(nx=16, ny=8, nz=8, ntimes=20, reneigh_every=10,
+                                         precision="sp", scheme="cluster"),
+                                  ndev=2, device=cuda)
+    sim.run(repeats=0)
+    assert sim.buckets is None  # too few units a slab for a plan
+    s0 = sim.initial_state()
+    torch.cuda.synchronize()
+    before = tlj.LAUNCHES
+    sites = sync_sites(torch, lambda: sim._run_steps(s0, 20))
+    assert not [w for w in sites if w.startswith("parallel/")], sites
     assert tlj.LAUNCHES - before == 2 * 20

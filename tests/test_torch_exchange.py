@@ -3,9 +3,10 @@ psum against lax.ppermute / lax.psum under shard_map on the virtual CPU
 mesh of tests/conftest.py, for 1, 2, 4 and 8 domains (one domain sends
 to itself); and DistExchange over a two-process gloo group
 (tests/domain_dist_worker.py): its shift, psum and all_gather on
-rank-tagged buffers, and the planar DP slab engine (8x4x4, 10 steps),
-which must equal the in-process mesh bit for bit. The two workers have a
-hard time limit: on expiry they are killed and the test fails."""
+rank-tagged buffers, and the DP slab engines (8x4x4, 10 steps: the
+verlet engine's planar path, the cluster engine's exact-list path), which
+must equal the in-process mesh bit for bit. The two workers have a hard
+time limit: on expiry they are killed and the test fails."""
 
 import os
 import socket
@@ -64,13 +65,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_gloo_run_equals_in_process_mesh(tmp_path):
+def _gloo_run(tmp_path, scheme: str) -> list:
+    """Two gloo workers of `scheme`; returns each rank's saved arrays."""
     world, port = 2, _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1")
     outs = [tmp_path / f"rank{r}.npz" for r in range(world)]
     procs = [subprocess.Popen(
         [sys.executable, str(TESTS / "domain_dist_worker.py"), str(r), str(world),
-         str(port), str(outs[r])], env=env, stdout=subprocess.PIPE,
+         str(port), str(outs[r]), scheme], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
     logs = []
     try:
@@ -85,15 +87,19 @@ def test_gloo_run_equals_in_process_mesh(tmp_path):
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log
     got = [dict(np.load(o)) for o in outs]
-
     for r, g in enumerate(got):
         np.testing.assert_array_equal(g["shift+1"], np.full((3, 2), (r - 1) % world))
         np.testing.assert_array_equal(g["shift-1"], np.full((3, 2), (r + 1) % world))
         assert float(g["psum"]) == sum(range(1, world + 1))
         np.testing.assert_array_equal(g["gather"], [[q, 2 * q] for q in range(world)])
+    return got
 
+
+def test_gloo_run_equals_in_process_mesh(tmp_path):
     from domain_dist_worker import DOMAIN_KW
 
+    got = _gloo_run(tmp_path, "verlet")
+    world = len(got)
     dom = DomainSimulation(Params(**DOMAIN_KW), ndev=world, device="cpu")
     want = dom.run(repeats=0)
     for r, g in enumerate(got):
@@ -101,4 +107,21 @@ def test_gloo_run_equals_in_process_mesh(tmp_path):
         assert int(g["nlocal"]) == int(want.state.nlocal[r])
         for key in ("x", "v", "f"):
             np.testing.assert_array_equal(g[key], getattr(want.state, key)[r].numpy())
+    assert sum(int(g["nlocal"]) for g in got) == dom.natoms
+
+
+def test_gloo_cluster_run_equals_in_process_mesh(tmp_path):
+    from domain_dist_worker import CLUSTER_KW, final_state
+
+    from mdbench_tpu_torch.parallel.cluster_domain import ClusterDomainSimulation
+
+    got = _gloo_run(tmp_path, "cluster")
+    world = len(got)
+    dom = ClusterDomainSimulation(Params(**CLUSTER_KW), ndev=world, device="cpu")
+    want = dom.run(repeats=0)
+    assert dom._calibrated
+    for r, g in enumerate(got):
+        np.testing.assert_array_equal(g["temps"], want.temps)
+        for key, val in final_state("cluster", want, r).items():
+            np.testing.assert_array_equal(g[key], val)
     assert sum(int(g["nlocal"]) for g in got) == dom.natoms

@@ -1,12 +1,15 @@
-"""The cluster EAM force's ghost-fp hook (ops/eam_cluster fp_exchange, the
-hook mdbench_tpu's eam_cluster_force_xla and eam_cluster_force_pallas
-take for its cluster domain engine), and the type-table cutoff check of
+"""The cluster EAM force split at the fp plane (ops/eam_cluster:
+`eam_cluster_density`, the caller's ghost fp, `eam_cluster_pair_forces`;
+the cluster slab engine fills the ghost rows by its own exchange between
+the passes, where mdbench_tpu's eam_cluster_force_xla takes an
+fp_exchange callable), and the type-table cutoff check of
 ClusterSimulation, on the CPU in float64:
 
-- a callable that does the default refresh gives the same bits as no
-  callable, through the plain version and the wrapper, flat and bucketed;
-- another callable (the ghost rows' fp halved) gives mdbench_tpu's forces
-  for the same callable on a jittered 4^3 box (rel 1e-12);
+- the two passes with the default fill (the owners' fp through the
+  border map) give eam_cluster_force's bits, through the plain versions
+  and the wrappers, flat and bucketed; pass 1 leaves the ghost rows 0;
+- another fill (the ghost rows' fp halved) gives mdbench_tpu's forces for
+  the same fill as its fp_exchange on a jittered 4^3 box (rel 1e-12);
 - tables whose cutoff exceeds cutforce raise ValueError (mdbench_tpu
   accepts them and loses the pairs past cutneigh)."""
 
@@ -42,32 +45,48 @@ def case(tmp_path_factory):
                 cut2=tables.cut**2, eam=eam_t, poly=poly_t, tables=tables, poly_np=poly)
 
 
+def _split(a, fill, wrapper, **kw):
+    """The two passes through the plain versions or the wrappers, the
+    ghost rows filled by fill(fp) in between: (fx, fy, fz, fp)."""
+    npad, cut2 = a["npad"], a["cut2"]
+    if wrapper:
+        fp = tec.eam_cluster_density(*a["planes"], a["ijlist"], a["nji"], npad, cut2,
+                                     a["eam"], a["poly"], **kw)
+        assert not fp[npad:].any()
+        fill(fp)
+        f = tec.eam_cluster_pair_forces(*a["planes"], fp, a["ijlist"], a["nji"], npad,
+                                        cut2, a["poly"], **kw)
+    else:
+        fp = tec.eam_cluster_density_ref(*a["planes"], a["ijlist"], npad, cut2, a["eam"],
+                                         a["poly"], **kw)
+        assert not fp[npad:].any()
+        fill(fp)
+        f = tec.eam_cluster_pair_forces_ref(*a["planes"], fp, a["ijlist"], npad, cut2,
+                                            a["poly"], **kw)
+    return (*f, fp)
+
+
 def _halve_ghosts_t(bm, npad):
-    def fp_exchange(fp):
-        fp = tec._fp_ghost_refresh(fp, bm, npad)
+    def fill(fp):
+        tec._fp_ghost_refresh(fp, bm, npad)
         fp[npad:] *= 0.5
-        return fp
-    return fp_exchange
+    return fill
 
 
 @pytest.mark.parametrize("bucketed", [False, True])
 def test_default_callable_gives_the_same_bits(case, bucketed):
     a = case
-    args = (a["npad"], a["cut2"], a["eam"], a["poly"])
     kw = dict(share=a["share"])
     if bucketed:
         plan = hand_plan(a["nji"].numpy(), a["ijlist"].shape[1])
         maps = bucket_maps_core(a["ijlist"], a["nji"], a["npad"], a["share"],
                                 a["planes"][0].shape[0], *plan)
         kw.update(buckets=plan, bpairs=maps[:3])
-    default = lambda fp: tec._fp_ghost_refresh(fp, a["bm"], a["npad"])  # noqa: E731
-    want = tec.eam_cluster_force_ref(*a["planes"], a["ijlist"], a["bm"], *args, **kw)
-    for got in (
-        tec.eam_cluster_force_ref(*a["planes"], a["ijlist"], a["bm"], *args,
-                                  fp_exchange=default, **kw),
-        tec.eam_cluster_force(*a["planes"], a["ijlist"], a["nji"], a["bm"], *args,
-                              fp_exchange=default, **kw),
-    ):
+    want = tec.eam_cluster_force_ref(*a["planes"], a["ijlist"], a["bm"], a["npad"],
+                                     a["cut2"], a["eam"], a["poly"], **kw)
+    for wrapper in (False, True):
+        got = _split(a, lambda fp: tec._fp_ghost_refresh(fp, a["bm"], a["npad"]),
+                     wrapper, **kw)
         for x, y in zip(got, want):
             assert torch.equal(x, y)
 
@@ -90,14 +109,16 @@ def test_other_callable_matches_jax(case):
     *f_j, fp_j = jax.jit(lambda *arr: eam_cluster_force_xla(
         *arr, npad, a["cut2"], jeam, a["poly_np"], share=a["share"],
         fp_exchange=halve_j))(*jp, jnp.asarray(a["pairs"]["ijlist"]), bm_j)
-    *f_t, fp_t = tec.eam_cluster_force_ref(
-        *a["planes"], a["ijlist"], a["bm"], npad, a["cut2"], a["eam"], a["poly"],
-        share=a["share"], fp_exchange=_halve_ghosts_t(a["bm"], npad))
     scale = max(np.abs(np.asarray(f)).max() for f in f_j)
+    *f_t, fp_t = _split(a, _halve_ghosts_t(a["bm"], npad), False, share=a["share"])
     for x, y in zip(f_t, f_j):
         assert np.abs(x.numpy() - np.asarray(y)).max() <= 1e-12 * scale
     np.testing.assert_allclose(fp_t.numpy(), np.asarray(fp_j), rtol=1e-12, atol=1e-14)
-    # the hook took effect: the default refresh gives other forces
+    # the wrappers take the same fill to the same bits on the CPU
+    for x, y in zip(_split(a, _halve_ghosts_t(a["bm"], npad), True, share=a["share"]),
+                    (*f_t, fp_t)):
+        assert torch.equal(x, y)
+    # the fill took effect: the default refresh gives other forces
     *f_d, _ = tec.eam_cluster_force_ref(*a["planes"], a["ijlist"], a["bm"], npad,
                                         a["cut2"], a["eam"], a["poly"], share=a["share"])
     assert max(float((x - y).abs().max()) for x, y in zip(f_t, f_d)) > 1e-6 * scale
