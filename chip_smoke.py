@@ -213,11 +213,13 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      region's kind: K1b launched once a step (K1 0), no host
      synchronisation (torch.cuda.set_sync_debug_mode);
  35. the same on two and four slabs (26.9 and 13.4 sigma wide, above
-     cutneigh 2.8): golden-gated, atoms conserved across the migrations,
+     cutneigh 2.8), one timed run each: golden-gated, atoms conserved across the migrations,
      the timed run's launches (two slabs: K1b if their units get a plan;
      four slabs: K1, 2,304 units a slab being too few for one) and no
-     host synchronisation; the dry run (parallel/dryrun: 4 slabs of an
-     8x2x2 box, planar and row lists, against engine.Simulation); then
+     host synchronisation; the dry run (parallel/dryrun: 1, 4 and 8 slabs
+     of an 8x2x2 box or longer, planar and row lists, against
+     engine.Simulation; at 4 and 8 domains also its pencil leg, at 8 its
+     brick leg); then
      K1b on the one-slab run's final row lists and K1 on the four-slab
      run's, as phase 28 (error against the plain twins, K1b equal to K1,
      times, sweep counts, bound);
@@ -262,10 +264,37 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      40-step temperatures <= 1e-9; the cluster leg of the dry run on 1
      and 4 slabs runs in phase 35's dry-run step.
 
+ 42. the pencil engine (parallel/verlet_domain2d.Domain2DSimulation) on a
+     (2, 2) in-process mesh: run_bench_domain(mesh=(2, 2)), 131,072 atoms,
+     200 SP steps on the row lists (one timed run), gated on the C
+     reference's temperature trace, TOTAL beside phase 27's single engine
+     and phase 35's four slabs; every atom on some pencil; K1 (K1b after a
+     bucket plan, which a pencil's units, under the planner's 4096, are
+     too few for: the phase prints why) covers every force evaluation of
+     the checked and timed runs and nothing else launches; then one more
+     run of the timed region's kind: K1 once a step a pencil, and its
+     host synchronisations by site, none in the engine's own code
+     (parallel/); one torch.profiler pass;
+ 43. the brick engine (parallel/verlet_domain3d.Domain3DSimulation) on
+     (2, 2, 2) (26.9 sigma a brick) and on (2, 2, 1), whose z seam goes
+     through a self-send (the phase prints the rows it carries), with the
+     same gates;
+ 44. EAM 131k/60 on phase 8's stand-in potential on (2, 2) pencils and
+     (2, 2, 2) bricks, SP poly and DP poly: no hand kernel launches, SP
+     within EAM_SP_TOL of DP at steps 20/40/60, DP within rel 1e-6 of
+     phase 30's single-engine DP poly run;
+ 45. small inputs, card against the CPU: a jittered 8^3 DP box on the
+     row lists on (2, 2) and (2, 2, 2) (20-step temperatures <= 1e-12,
+     the same atoms per domain); then K1 on one pencil's and one brick's
+     final row lists of phases 42-43, as phase 28 (error against the
+     plain twin in float32 and float64, times back to back and on the
+     device, sweep counts, bound): the JSON rows "K1 on pencil rows" and
+     "K1 on brick rows".
+
 Every kernel count is set to 0 just before each main path (phases 4, 8,
 12, both runs of 17, the probes' runs in 25 and 26, both runs of 27,
 phase 30's SP run and each stub of 32, where it must stay 0, each run of
-34-36 and 37-40) and read just after it. Then it prints the script's wall
+34-36, 37-40 and 42-44) and read just after it. Then it prints the script's wall
 time, a JSON line of the kernels, nvidia-smi's line, and {"ok": true,
 "device": {...}} as the last line.
 
@@ -2578,7 +2607,9 @@ def run_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict, eam_verlet_
     for ndev in (1, 2, 4):
         reset_counts(lj, ec)
         t0 = time.perf_counter()
-        sim, out, rate = run_bench_domain(ndev=ndev, repeats=REPEATS, chain=CHAIN)
+        # the bench's 3 x 3 timed runs on one slab, one timed run on more
+        reps, chain = (REPEATS, CHAIN) if ndev == 1 else (1, 1)
+        sim, out, rate = run_bench_domain(ndev=ndev, repeats=reps, chain=chain)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {name: getattr(lj, name) for name in LJ_COUNTS}
@@ -2592,8 +2623,8 @@ def run_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict, eam_verlet_
               f"{sim.acap}, gcap {sim.gcap}, bcap {sim.bcap}, rcap {sim.rcap}, ccap "
               f"{sim.ccap}, buckets {sim.rbuckets}, grows {sim.grows or 'none'}; atoms per "
               f"slab {nloc}; golden gate "
-              f"passed; TOTAL {out.total_time:.6f} s per run, {rate:.6e} atom-updates/s "
-              f"(single-engine verlet, phase 27: TOTAL flat "
+              f"passed; TOTAL {out.total_time:.6f} s per run ({reps} x {chain} timed), "
+              f"{rate:.6e} atom-updates/s (single-engine verlet, phase 27: TOTAL flat "
               f"{verlet_totals['flat']:.6f} s, bucketed {verlet_totals['bucketed']:.6f} "
               f"s), run() wall {wall:.2f} s; launches K1 {k1}, K1b {k1b}, others "
               f"{others}, EAM {dict(ec.LAUNCHES)} on {smi}", flush=True)
@@ -2636,14 +2667,17 @@ def run_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict, eam_verlet_
         runs[ndev] = (sim, out, k1b if sim.rbuckets is not None else k1)
     if runs[1][0].rbuckets is None or runs[4][0].rbuckets is not None:
         fail("the 1-slab run must plan capacity buckets and the 4-slab run none")
-    # the dry run on the card: 1 and 4 slabs of a box thinner than 2
+    # the dry run on the card: 1, 4 and 8 slabs of a box thinner than 2
     # cutneigh in y and z (1024-atom local blocks, mostly padding, on the
     # verlet leg), against the single engines (it raises on a mismatch)
-    # (with phase 41: the cluster slab engine's leg, on 1 and 4 slabs)
-    for n in (1, 4):
+    # (with phase 41: the cluster slab engine's leg; with phase 45: the
+    # pencil leg at 4 and 8 domains, the brick leg at 8)
+    for n in (1, 4, 8):
         t0 = time.perf_counter()
         dryrun_multichip(n, device=dev)
-        print(f"dryrun_multichip({n}) on the card (verlet and cluster legs): OK "
+        legs = ("verlet, cluster" + (", pencils" if n >= 4 else "")
+                + (", bricks" if n >= 8 else ""))
+        print(f"dryrun_multichip({n}) on the card ({legs} legs): OK "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
     rows = []
     for ndev, bucketed in ((1, True), (4, False)):
@@ -2705,7 +2739,7 @@ def run_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict, eam_verlet_
               f"{trel:.3e} (tol 1e-12)", flush=True)
         if not trel <= 1e-12:
             fail(f"the card's domain EAM ({eam_eval}) disagrees with the CPU")
-    return rows
+    return rows, {ndev: out.total_time for ndev, (_, out, _) in runs.items()}
 
 
 # the cluster slab engine's kernels on one slab's final lists (phases 37-40)
@@ -3051,6 +3085,189 @@ def run_cluster_domain_phases(torch, dev, smi: str, ec, single_total: float,
     return rows
 
 
+def mesh_tag(dims) -> str:
+    return f"{'pencil' if len(dims) == 2 else 'brick'} mesh{tuple(dims)}"
+
+
+def run_mesh_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict,
+                           slab_totals: dict, eam_verlet_dp) -> list:
+    """Phases 42-45 (the pencil and brick engines, parallel/verlet_domain2d
+    and parallel/verlet_domain3d, on in-process meshes on the card).
+    `verlet_totals` are phase 27's single-engine TOTALs, `slab_totals`
+    phases 34-35's slab TOTALs by slab count, `eam_verlet_dp` phase 30's
+    single-engine verlet DP poly run (sim, result). Returns the JSON rows
+    of K1 (or K1b) on one pencil's and one brick's final row lists."""
+    from mdbench_tpu_torch import _build
+    from mdbench_tpu_torch.bench import run_bench_domain
+    from mdbench_tpu_torch.config import FF_EAM, Params
+    from mdbench_tpu_torch.models.lattice import create_fcc_lattice
+    from mdbench_tpu_torch.ops import lj_cluster as lj
+    from mdbench_tpu_torch.parallel.verlet_domain2d import Domain2DSimulation
+    from mdbench_tpu_torch.parallel.verlet_domain3d import Domain3DSimulation
+
+    def engine(dims):
+        return Domain2DSimulation if len(dims) == 2 else Domain3DSimulation
+
+    # 42. pencils (2, 2); 43. bricks (2, 2, 2) and (2, 2, 1), whose z axis
+    # of size 1 sends to itself: 131k/200 SP on the row lists, one timed
+    # run each, golden-gated
+    runs = {}
+    for dims in ((2, 2), (2, 2, 2), (2, 2, 1)):
+        tag = mesh_tag(dims)
+        reset_counts(lj, ec)
+        t0 = time.perf_counter()
+        sim, out, rate = run_bench_domain(mesh=dims, repeats=1, chain=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: getattr(lj, name) for name in LJ_COUNTS}
+        p, st = sim.params, out.state
+        main = "BUCKET_LAUNCHES" if sim.rbuckets is not None else "LAUNCHES"
+        setup = "LAUNCHES" if main == "BUCKET_LAUNCHES" else None
+        others = {k: v for k, v in counts.items() if k not in (main, setup) and v}
+        need = sim.ndev * 2 * (p.ntimes + 1)  # the checked and the timed run's forces
+        nloc = [int(n) for n in st.nlocal]
+        units = sim.acap // 16
+        print(f"{tag}: {sim.natoms} atoms, domain "
+              f"{' x '.join(f'{w:.4f}' for w in sim.w)} (cutneigh {p.cutneigh}), "
+              f"{p.ntimes} steps, {p.precision}, acap {sim.acap} ({units} units a "
+              f"domain), gcap {sim.gcap}, bcaps {sim.bcaps}, migcap {sim.migcap}, rcap "
+              f"{sim.rcap}, ccap {sim.ccap}, buckets {sim.rbuckets}, grows "
+              f"{sim.grows or 'none'}; atoms per domain {nloc}; golden gate passed; "
+              f"TOTAL {out.total_time:.6f} s (one timed run), {rate:.6e} atom-updates/s "
+              f"(single-engine verlet, phase 27: TOTAL flat {verlet_totals['flat']:.6f} "
+              f"s, bucketed {verlet_totals['bucketed']:.6f} s; four slabs, phase 35: "
+              f"{slab_totals[4]:.6f} s; mesh / single flat "
+              f"{out.total_time / verlet_totals['flat']:.4f}), run() wall {wall:.2f} s; "
+              f"launches K1 {counts['LAUNCHES']}, K1b {counts['BUCKET_LAUNCHES']} (>= "
+              f"{need} force evaluations of the checked and timed runs), others "
+              f"{others}, EAM {dict(ec.LAUNCHES)} on {smi}", flush=True)
+        if sim.rbuckets is None:
+            print(f"{tag}: no bucket plan: {units} units a domain, below the planner's "
+                  f"4096 (ops/cluster.plan_capacity_buckets); K1 runs every force",
+                  flush=True)
+        if counts[main] < need or others or any(ec.LAUNCHES.values()):
+            fail(f"{tag} launched {counts} (EAM {dict(ec.LAUNCHES)}): K1/K1b must cover "
+                 f"its {need} force evaluations, and nothing else launch")
+        if setup and counts[setup] < 1:
+            fail(f"{tag}: K1 never ran the set-up forces before the plan")
+        if sum(nloc) != sim.natoms:
+            fail(f"{tag}: the domains hold {sum(nloc)} atoms, not {sim.natoms}")
+        if not (np.isfinite(out.temps).all()
+                and all(bool(torch.isfinite(v).all()) for v in st.v)):
+            fail(f"{tag}: the state is not finite")
+        print(f"{tag} temps: " + " ".join(f"{s_}:{out.temps[s_ - 1]:.6e}"
+                                          for s_ in range(20, p.ntimes + 1, 20)),
+              flush=True)
+        if dims == (2, 2, 1):
+            sent = st.x[0].shape[0] - 1
+            nz = [int((m != sent).sum()) for m in st.maps[0][2]]
+            every = slice(p.reneigh_every - 1, None, p.reneigh_every)
+            a, b = out.temps[every], runs[(2, 2)][1].temps[every]
+            print(f"{tag}: the z stage's self-send carries {nz} rows (left, right) "
+                  f"on domain 0; temperatures at the rebuild steps against the (2, 2) "
+                  f"pencils' max rel "
+                  f"{float(np.max(np.abs(a - b) / np.abs(b))):.3e} (SP, other summation "
+                  f"orders)", flush=True)
+            if sim.exchange.shape[2] != 1 or min(nz) == 0:
+                fail(f"{tag}: the z seam did not go through the self-send")
+        # one more run of the timed region's kind (the initial state built
+        # before): its launches and host synchronisations by site
+        s0 = sim.initial_state()
+        torch.cuda.synchronize()
+        reset_counts(lj, ec)
+        sites = sync_sites(torch, lambda: sim._run_steps(s0, p.ntimes))
+        got = {k: getattr(lj, k) for k in LJ_COUNTS if getattr(lj, k)}
+        own = {w: n for w, n in sites.items() if w.startswith("parallel/")}
+        shared = {w: n for w, n in sites.items() if w not in own}
+        print(f"{tag} timed run: launches {got} (want {main} {sim.ndev * p.ntimes}); "
+              f"host synchronisations: the domain engine's own {sum(own.values())} "
+              f"{own}, the shared ops' {sum(shared.values())} {shared}", flush=True)
+        if got != {main: sim.ndev * p.ntimes} or any(ec.LAUNCHES.values()):
+            fail(f"{tag}: the timed run launched {got}")
+        if own:
+            fail(f"{tag}: the domain engine synchronises the host with the card")
+        if dims != (2, 2, 1):
+            prof = device_profile(torch, lambda: sim._run_steps(sim.initial_state(),
+                                                                p.ntimes))
+            top = sorted(prof["ms"].items(), key=lambda kv: -kv[1])[:8]
+            print(f"{tag} profile of one {p.ntimes}-step _run_steps (initial state "
+                  f"included): wall {prof['wall_s']:.4f} s (profiled), device busy "
+                  f"{prof['busy']:.4f}, {prof['spans']} spans, device ms "
+                  f"{sum(prof['ms'].values()):.4f}; top kernels (ms): " + "; ".join(
+                      f"{name[:90]} {ms:.4f}" for name, ms in top) + f" on {smi}",
+                  flush=True)
+        runs[dims] = (sim, out, counts[main])
+
+    # 44. EAM 131k/60 on phase 8's stand-in potential, pencils (2, 2) and
+    # bricks (2, 2, 2): SP poly against DP poly, DP poly against phase 30's
+    # single engine; no hand kernel (the verlet EAM is torch ops)
+    eam_file = str(_build.BUILD_DIR / "standin_cu.eam")
+    kw = dict(scheme="verlet", dense_thermo=False, force_field=FF_EAM, eam_file=eam_file,
+              ntimes=60)
+    out_v = eam_verlet_dp[1]
+    for dims in ((2, 2), (2, 2, 2)):
+        tag = f"EAM {mesh_tag(dims)}"
+        eruns = {}
+        for prec in ("sp", "dp"):
+            reset_counts(lj, ec)
+            sim = engine(dims)(Params(precision=prec, eam_eval="poly", **kw), *dims,
+                               device=dev)
+            out = sim.run(repeats=1, chain=1)
+            hand = {**{n: getattr(lj, n) for n in LJ_COUNTS}, **ec.LAUNCHES}
+            nloc = sum(int(n) for n in out.state.nlocal)
+            print(f"{tag} {prec} poly: {sim.natoms} atoms, {sim.params.ntimes} steps, "
+                  f"maxneighs {sim.maxneighs}, acap {sim.acap}, bcaps {sim.bcaps}, grows "
+                  f"{sim.grows or 'none'}, TOTAL {out.total_time:.6f} s (one timed run) "
+                  f"on {smi}", flush=True)
+            if any(hand.values()) or nloc != sim.natoms or not np.isfinite(out.temps).all():
+                fail(f"the {tag} run ({prec}) launched {hand} or lost atoms ({nloc})")
+            eruns[prec] = out
+        for step, tol in EAM_SP_TOL.items():
+            t_sp = float(eruns["sp"].temps[step - 1])
+            t_dp = float(eruns["dp"].temps[step - 1])
+            t_1 = float(out_v.temps[step - 1])
+            rel, rel1 = abs(t_sp - t_dp) / abs(t_dp), abs(t_dp - t_1) / abs(t_1)
+            print(f"{tag} step {step}: SP {t_sp:.6e} against DP {t_dp:.12e}, rel "
+                  f"{rel:.3e} (tol {tol:.0e}); DP against the single engine's verlet "
+                  f"EAM DP poly (phase 30) {t_1:.12e}, rel {rel1:.3e} (tol 1e-6)",
+                  flush=True)
+            if not (rel <= tol and rel1 <= 1e-6):
+                fail(f"the {tag} run departs at step {step}")
+
+    # 45. small inputs, card against the CPU: a jittered 8^3 DP box on the
+    # row lists; then K1 (K1b after a plan) on one pencil's and one
+    # brick's final row lists of phases 42-43
+    kw8 = dict(nx=8, ny=8, nz=8, ntimes=20, reneigh_every=10, precision="dp")
+    x, v, _ = create_fcc_lattice(Params(**kw8))
+    x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
+    for dims in ((2, 2), (2, 2, 2)):
+        r = {d: engine(dims)(Params(**kw8), *dims, x=x, v=v, device=d).run(repeats=0)
+             for d in ("cpu", dev)}
+        trel = float(np.max(np.abs(r[dev].temps - r["cpu"].temps)
+                            / np.abs(r["cpu"].temps)))
+        n_dev = [int(n) for n in r[dev].state.nlocal]
+        n_cpu = [int(n) for n in r["cpu"].state.nlocal]
+        print(f"{mesh_tag(dims)} small input: jittered 8^3 dp on the row lists, 20-step "
+              f"temperature rel err {trel:.3e} (tol 1e-12); atoms per domain {n_dev} "
+              f"(CPU {n_cpu})", flush=True)
+        if not (trel <= 1e-12 and n_dev == n_cpu):
+            fail(f"the card's {mesh_tag(dims)} run disagrees with the CPU")
+    rows = []
+    for dims, what in (((2, 2), "pencil"), ((2, 2, 2), "brick")):
+        sim, out, launches = runs[dims]
+        st = out.state
+        bucketed = sim.rbuckets is not None
+        # the lists of the final atoms (one rebuild of the final state)
+        d = sim.initial_state(list(st.x), list(st.v), list(st.nlocal))[0]
+        kid = "K1b" if bucketed else "K1"
+        meta = (BUCKET_KERNELS["lj_cluster_ilist_buckets"] if bucketed else KERNEL)
+        rows.append(rowlist_kernel_row(
+            torch, lj, sim.params, d.x, d.nlist, sim.acap, sim.rbuckets, smi, launches,
+            bucketed, f"{kid} ({what} rows, {mesh_tag(dims)})",
+            {**meta, "name": f"{kid} on {what} rows"}))
+    return rows
+
+
 def run_cli_phase(torch, smi: str) -> None:
     """Phase 33: `python -m mdbench_tpu_torch.cli` in subprocesses (the
     machine has no jax, so each run also shows that the entry point needs
@@ -3325,11 +3542,16 @@ def main() -> int:
     run_cli_phase(torch, smi)
 
     # 34-36. the slab engine on an in-process mesh
-    domain_rows = run_domain_phases(torch, dev, smi, ec, verlet_totals, eam_verlet_dp)
+    domain_rows, slab_totals = run_domain_phases(torch, dev, smi, ec, verlet_totals,
+                                                 eam_verlet_dp)
 
     # 37-41. the cluster slab engine on an in-process mesh
     cluster_domain_rows = run_cluster_domain_phases(torch, dev, smi, ec, single_total,
                                                     eam_dp)
+
+    # 42-45. the pencil and brick engines on in-process meshes
+    mesh_rows = run_mesh_domain_phases(torch, dev, smi, ec, verlet_totals, slab_totals,
+                                       eam_verlet_dp)
 
     wall = time.perf_counter() - t_start
     print(f"chip_smoke wall {wall:.1f} s (limit 1200 s)", flush=True)
@@ -3338,7 +3560,7 @@ def main() -> int:
                    exact_ms=res[torch.float32][4], device_ms=res[torch.float32][5]),
         *eam_rows, stream_row,
         *typed_rows, *bucket_rows, bf16_row, *fetch_rows, *verlet_rows, *domain_rows,
-        *cluster_domain_rows,
+        *cluster_domain_rows, *mesh_rows,
     ]}))
     print(f"chip_smoke wall {wall:.1f} s", file=sys.stderr)
     print(smi)

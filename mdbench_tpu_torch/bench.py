@@ -22,11 +22,14 @@ gate.
 (tools/r4_vbench.py's run: 16-atom row lists, K1 or K1b on the card),
 gated on the same golden trace.
 
-`run_bench_domain` runs the LJ workload on a slab engine over an
-in-process mesh of `ndev` slabs on the one card (the verlet scheme on
-parallel/verlet_domain.DomainSimulation, or with scheme="cluster" the
-cluster scheme on parallel/cluster_domain.ClusterDomainSimulation),
-gated on the same golden trace.
+`run_bench_domain` runs the LJ workload on a domain engine over an
+in-process mesh on the one card (the verlet scheme on `ndev` slabs,
+parallel/verlet_domain.DomainSimulation, or with mesh=(px, py) on
+pencils, parallel/verlet_domain2d.Domain2DSimulation, or with
+mesh=(px, py, pz) on bricks, parallel/verlet_domain3d.Domain3DSimulation;
+with scheme="cluster" the cluster scheme on `ndev` slabs,
+parallel/cluster_domain.ClusterDomainSimulation), gated on the same
+golden trace.
 
 `run_bench_file` runs the same LJ workload from an atom file
 (`Params(input_file=...)`: positions, velocities, box and types of the
@@ -88,27 +91,39 @@ def run_bench_verlet(repeats: int = 3, chain: int = 3, kernel: str = "auto"):
 
 
 def run_bench_domain(ndev: int = 1, kernel: str = "auto", repeats: int = 3,
-                     chain: int = 3, scheme: str = "verlet"):
-    """The benchmark run on a slab engine: `ndev` slabs of an in-process
-    mesh on the CUDA card, measured as run_bench and gated on the golden
-    trace. scheme "verlet": the verlet slab engine (the row lists with K1,
-    or K1b once the melt calibration plans buckets, for "auto"/"rowlist";
-    the planar force for "xla"); "cluster": the cluster slab engine with
-    the force kernel `kernel` ("auto": the exact lists, K1, or K1b after
-    the plan; "pallas": the group windows, K4). Returns (sim, result,
-    atom-updates per second)."""
+                     chain: int = 3, scheme: str = "verlet", mesh=None):
+    """The benchmark run on a domain engine: an in-process mesh on the CUDA
+    card, measured as run_bench and gated on the golden trace. scheme
+    "verlet": `ndev` slabs of the verlet slab engine, or with `mesh` (px,
+    py) the pencil engine, (px, py, pz) the brick engine (each the row
+    lists with K1, or K1b once the melt calibration plans buckets, for
+    "auto"/"rowlist"; the planar force for "xla"); "cluster": `ndev` slabs
+    of the cluster slab engine with the force kernel `kernel` ("auto": the
+    exact lists, K1, or K1b after the plan; "pallas": the group windows,
+    K4). Returns (sim, result, atom-updates per second)."""
     from mdbench_tpu_torch.config import Params
 
     check_golden = root_bench().check_golden
     params = Params(precision="sp", scheme=scheme, kernel=kernel, dense_thermo=False)
+    if mesh is not None and (scheme != "verlet" or len(mesh) not in (2, 3)):
+        raise ValueError(f"mesh={mesh!r}: the verlet scheme's pencils (px, py) or "
+                         "bricks (px, py, pz)")
     if scheme == "cluster":
         from mdbench_tpu_torch.parallel.cluster_domain import ClusterDomainSimulation
 
         sim = ClusterDomainSimulation(params, ndev=ndev, device="cuda")
-    else:
+    elif mesh is None:
         from mdbench_tpu_torch.parallel.verlet_domain import DomainSimulation
 
         sim = DomainSimulation(params, ndev=ndev, device="cuda")
+    elif len(mesh) == 2:
+        from mdbench_tpu_torch.parallel.verlet_domain2d import Domain2DSimulation
+
+        sim = Domain2DSimulation(params, *mesh, device="cuda")
+    else:
+        from mdbench_tpu_torch.parallel.verlet_domain3d import Domain3DSimulation
+
+        sim = Domain3DSimulation(params, *mesh, device="cuda")
     out = sim.run(repeats=repeats, chain=chain)
     check_golden(out.temps, params.reneigh_every)
     return sim, out, sim.natoms * params.ntimes / out.total_time

@@ -109,7 +109,7 @@ from mdbench_tpu_torch.ops.lj_cluster import (
     lj_cluster_force_ilist_ref,
     lj_cluster_force_stream,
 )
-from mdbench_tpu_torch.parallel.common import migrate, wrap_yz
+from mdbench_tpu_torch.parallel.common import migrate, wrap_dims
 from mdbench_tpu_torch.parallel.exchange import InProcessMesh
 from mdbench_tpu_torch.state import SENTINEL_COORD
 from mdbench_tpu_torch.thermo import adjust_thermo, adjusted_dtforce, setup_thermo
@@ -197,9 +197,9 @@ class ClusterDomainSimulation:
                              "use fewer domains or a larger box")
         if exchange is None:
             exchange = InProcessMesh(ndev, self.device)
-        if exchange.ndev != ndev:
-            raise ValueError(f"the exchange holds a mesh of {exchange.ndev} domains, "
-                             f"not {ndev}")
+        if exchange.shape != (ndev,):
+            raise ValueError(f"the exchange holds a mesh of {exchange.ndev} domains in "
+                             f"shape {exchange.shape}, not {ndev} slabs")
         self.exchange = exchange
         if x is None:
             x, v, _ = create_fcc_lattice(params)
@@ -455,7 +455,7 @@ class ClusterDomainSimulation:
         flags."""
         p = self.params
         with region("reneighbor"):
-            xs = [wrap_yz(x, n, p.yprd, p.zprd) for x, n in zip(xs, ns)]
+            xs = [wrap_dims(x, n, ((1, p.yprd), (2, p.zprd))) for x, n in zip(xs, ns)]
             xs, vs, ns, ovf_m = migrate(self.exchange, xs, vs, ns, self.acap,
                                         self.migcap, self.slab_w)
             built = []

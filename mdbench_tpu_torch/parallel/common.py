@@ -1,9 +1,10 @@
 """Helpers the domain engines share (the port of
-``mdbench_tpu.parallel.common``, and the y/z wrap and atom migration that
-mdbench_tpu's verlet and cluster slab engines each carry): the per-domain
-spatial resort with a device-side atom count, the row-list layout rules,
-and the melted-probe capacity calibration. Every number is mdbench_tpu's
-for every input; the resort breaks ties by row id (below)."""
+``mdbench_tpu.parallel.common``, and the wrap and the atom migration along
+one mesh axis that each of mdbench_tpu's domain engines carries): the
+per-domain spatial resort with a device-side atom count, the row-list
+layout rules, and the melted-probe capacity calibration. Every number
+is mdbench_tpu's for every input; the resort breaks ties by row id
+(below)."""
 
 from __future__ import annotations
 
@@ -21,11 +22,12 @@ def live_rows(nloc, n: int):
     return torch.arange(n, device=nloc.device) < nloc
 
 
-def wrap_yz(x, nloc, yprd: float, zprd: float):
-    """Wrap y/z of the live rows into the box, in place; x is left to the
-    migration. Returns x."""
+def wrap_dims(x, nloc, dims):
+    """Wrap the live rows into the box along each (dim, prd) of `dims`, in
+    place: the dimensions no mesh axis cuts (a slab's y and z); the cut
+    ones are left to the migration. Returns x."""
     live = live_rows(nloc, x.shape[0])
-    for d, prd in ((1, yprd), (2, zprd)):
+    for d, prd in dims:
         c = x[:, d]
         c = torch.where(live & (c < 0), c + prd, c)
         c = torch.where(live & (c >= prd), c - prd, c)
@@ -33,33 +35,36 @@ def wrap_yz(x, nloc, yprd: float, zprd: float):
     return x
 
 
-def _pack_leavers(x, v, nloc, acap: int, migcap: int, slab_w: float):
-    """The migration's first half on one domain (the multi-device
-    updateAtomsPbc, pbc.c:59-84): the leavers packed into two (migcap, 6)
-    [x | v] buffers in the receiver's frame, the stayers compacted to the
-    front. Returns (buf_l, buf_r, x2, v2, n_stay, overflow), x2 and v2 one
-    row longer than acap (the dropped scatters' row)."""
+def _pack_leavers(x, v, nloc, acap: int, migcap: int, width: float, dim: int):
+    """The migration's first half on one domain along box dimension `dim`
+    (the multi-device updateAtomsPbc, pbc.c:59-84; mdbench_tpu's
+    _migrate_axis, verlet_domain2d.py:206-268): the leavers packed into two
+    (migcap, 6) [x | v] buffers in the receiver's frame, the stayers
+    compacted to the front. Returns (buf_l, buf_r, x2, v2, n_stay,
+    overflow), x2 and v2 one row longer than acap (the dropped scatters'
+    row); the overflow flag also marks an atom that drifted more than one
+    domain `width` (verlet_domain3d.py:192-194)."""
     dtype, dev = x.dtype, x.device
     live = live_rows(nloc, acap)
     xl = x[:acap]
-    go_l = live & (xl[:, 0] < 0.0)
-    go_r = live & (xl[:, 0] >= slab_w)
-    ovf_drift = torch.any(live & ((xl[:, 0] < -slab_w) | (xl[:, 0] >= 2 * slab_w)))
+    go_l = live & (xl[:, dim] < 0.0)
+    go_r = live & (xl[:, dim] >= width)
+    ovf_drift = torch.any(live & ((xl[:, dim] < -width) | (xl[:, dim] >= 2 * width)))
     stay = live & ~go_l & ~go_r
 
-    def pack(mask, dx_shift):
+    def pack(mask, shift):
         pos = torch.cumsum(mask, 0) - 1
         cnt = mask.sum()
         pos = torch.where(mask & (pos < migcap), pos, migcap)
         payload = torch.cat([xl, v[:acap]], dim=1)
-        payload[:, 0] += dx_shift
+        payload[:, dim] += shift
         buf = torch.full((migcap + 1, 6), SENTINEL_COORD, dtype=dtype, device=dev)
         buf[pos] = payload
         return buf[:migcap], cnt
 
     # leavers to the left arrive at the left neighbour's right edge
-    buf_l, cnt_l = pack(go_l, +slab_w)
-    buf_r, cnt_r = pack(go_r, -slab_w)
+    buf_l, cnt_l = pack(go_l, +width)
+    buf_r, cnt_r = pack(go_r, -width)
     ovf = (cnt_l > migcap) | (cnt_r > migcap) | ovf_drift
     pos = torch.where(stay, torch.cumsum(stay, 0) - 1, acap)
     x2 = torch.full((acap + 1, 3), SENTINEL_COORD, dtype=dtype, device=dev)
@@ -79,16 +84,19 @@ def _append(x2, v2, n, buf, acap: int):
     return n + valid.sum()
 
 
-def migrate(exchange, xs, vs, ns, acap: int, migcap: int, slab_w: float):
-    """Move the atoms that crossed a slab face to the neighbouring domain
-    (mdbench_tpu's _migrate: pack, shift left and right, merge), for every
-    domain `exchange` holds. Returns lists (xs, vs, ns, overflow flags):
-    each domain's (acap, 3) atoms (sentinel padded) and velocities, its
-    0-d atom count and its migration flag (a buffer or the local region
-    overflowed, or an atom drifted more than a slab)."""
-    packs = [_pack_leavers(x, v, n, acap, migcap, slab_w) for x, v, n in zip(xs, vs, ns)]
-    from_right = exchange.shift([pk[0] for pk in packs], -1)
-    from_left = exchange.shift([pk[1] for pk in packs], +1)
+def migrate(exchange, xs, vs, ns, acap: int, migcap: int, width: float, dim: int = 0):
+    """Move the atoms that crossed a domain face along box dimension `dim`
+    to the neighbouring domain along mesh axis `dim` (mdbench_tpu's
+    _migrate: pack, shift left and right, merge; one staged hop of the
+    pencil and brick engines), for every domain `exchange` holds; `width`
+    is the domain's extent along `dim`. Returns lists (xs, vs, ns,
+    overflow flags): each domain's (acap, 3) atoms (sentinel padded) and
+    velocities, its 0-d atom count and its migration flag (a buffer or the
+    local region overflowed, or an atom drifted more than a domain)."""
+    packs = [_pack_leavers(x, v, n, acap, migcap, width, dim)
+             for x, v, n in zip(xs, vs, ns)]
+    from_right = exchange.shift([pk[0] for pk in packs], -1, dim)
+    from_left = exchange.shift([pk[1] for pk in packs], +1, dim)
     out_x, out_v, out_n, ovfs = [], [], [], []
     for (_, _, x2, v2, n, ovf), bl, br in zip(packs, from_left, from_right):
         n = _append(x2, v2, n, bl, acap)

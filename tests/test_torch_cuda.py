@@ -7,8 +7,9 @@ approximate reciprocal, on the cluster lists and on the verlet scheme's
 csrc/lj_cluster_ilist.cu, the row fetch of csrc/row_fetch.cu)
 against their plain torch versions, on a CUDA card; the cluster EAM's
 split passes against the composed force; and the verlet engine and the
-slab engines on the card against their CPU runs. This file imports no jax, so
-it runs on a machine that has torch and a card but no jax:
+slab, pencil and brick engines on the card against their CPU runs. This
+file imports no jax, so it runs on a machine that has torch and a card
+but no jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -986,3 +987,69 @@ def test_cuda_cluster_domain_launches_without_sync(cuda):
     sites = sync_sites(torch, lambda: sim._run_steps(s0, 20))
     assert not [w for w in sites if w.startswith("parallel/")], sites
     assert tlj.LAUNCHES - before == 2 * 20
+
+
+def _mesh_engine(dims):
+    from mdbench_tpu_torch.parallel.verlet_domain2d import Domain2DSimulation
+    from mdbench_tpu_torch.parallel.verlet_domain3d import Domain3DSimulation
+
+    return Domain2DSimulation if len(dims) == 2 else Domain3DSimulation
+
+
+def _mesh_matches_cpu(cuda, eam_file, dims, case, box):
+    """A DP run on the mesh `dims`, card against CPU: 20-step temperatures
+    within rel 1e-12 and the same atoms per domain; the row lists launch
+    K1 (or K1b) and no other kernel, EAM no hand kernel."""
+    engine = _mesh_engine(dims)
+    kw = dict(box, ntimes=20, reneigh_every=10, precision="dp")
+    if case == "eam":
+        kw.update(force_field=FF_EAM, eam_file=eam_file)
+    lj_before = {n: getattr(tlj, n) for n in LJ_COUNTS}
+    ec_before = dict(tec.LAUNCHES)
+    r_gpu = engine(Params(**kw), *dims, device=cuda).run(repeats=0)
+    lj_grew = {n for n in LJ_COUNTS if getattr(tlj, n) != lj_before[n]}
+    assert dict(tec.LAUNCHES) == ec_before
+    assert lj_grew == (set() if case == "eam" else {"LAUNCHES"})
+    r_cpu = engine(Params(**kw), *dims, device="cpu").run(repeats=0)
+    assert [int(n) for n in r_gpu.state.nlocal] == [int(n) for n in r_cpu.state.nlocal]
+    np.testing.assert_allclose(r_gpu.temps, r_cpu.temps, rtol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,box", [("lj", dict(nx=8, ny=8, nz=4)),
+                                      ("eam", dict(nx=6, ny=6, nz=4))])
+def test_cuda_domain2d_matches_cpu(cuda, eam_file, case, box):
+    """The pencil engine on (2, 2): the row lists (K1) and EAM (torch ops)."""
+    _mesh_matches_cpu(cuda, eam_file, (2, 2), case, box)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,case,box", [
+    ((2, 2, 2), "lj", dict(nx=8, ny=8, nz=8)),
+    ((2, 2, 1), "lj", dict(nx=8, ny=8, nz=4)),
+    ((2, 2, 2), "eam", dict(nx=4, ny=4, nz=4)),
+])
+def test_cuda_domain3d_matches_cpu(cuda, eam_file, dims, case, box):
+    """The brick engine on (2, 2, 2) and (2, 2, 1) (the z seam by a
+    self-send): the row lists (K1) and EAM (torch ops)."""
+    _mesh_matches_cpu(cuda, eam_file, dims, case, box)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,box", [((2, 2), dict(nx=16, ny=16, nz=8)),
+                                      ((2, 2, 2), dict(nx=16, ny=16, nz=16))])
+def test_cuda_mesh_domain_launches_without_sync(cuda, dims, box):
+    """An SP row-list run on pencils and on bricks: each step's force
+    launches K1 (or K1b, after a plan) once per domain, and nothing of the
+    engine's own synchronises the host with the card."""
+    from chip_smoke import sync_sites
+
+    sim = _mesh_engine(dims)(Params(**box, ntimes=20, reneigh_every=10,
+                                    precision="sp"), *dims, device=cuda)
+    sim.run(repeats=0)
+    s0 = sim.initial_state()
+    torch.cuda.synchronize()
+    before = tlj.LAUNCHES + tlj.BUCKET_LAUNCHES
+    sites = sync_sites(torch, lambda: sim._run_steps(s0, 20))
+    assert not [w for w in sites if w.startswith("parallel/")], sites
+    assert tlj.LAUNCHES + tlj.BUCKET_LAUNCHES - before == sim.ndev * 20

@@ -160,6 +160,8 @@ def test_construction_rules():
 
 def test_dryrun_on_cpu():
     dryrun_multichip(2, device="cpu")
+    # eight domains: the pencil leg on (4, 2) and the brick leg on (2, 2, 2)
+    dryrun_multichip(8, device="cpu")
 
 
 # ---- parallel/common.py against mdbench_tpu -----------------------------------
