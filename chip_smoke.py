@@ -178,31 +178,43 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      (torch.cuda.set_sync_debug_mode), and one torch.profiler pass over a
      200-step run (device ms by kernel, busy share).
 
- 30. the verlet scheme's EAM path: run_bench_eam(scheme="verlet")
-     (131,072 atoms, 60 SP steps, per-atom lists, the two-pass EAM force
-     in torch ops; eam_eval auto takes the polynomials on the card) on
-     phase 8's stand-in potential: no hand kernel launches; TOTAL,
-     FORCE and NEIGH (measure_phases), the calibrated list width K, the
-     force's bound and one torch.profiler pass over a 60-step run (device
-     busy share, device ms by kernel); an SP spline run and DP poly and spline runs, each
-     SP run within EAM_SP_TOL of the DP run of its evaluation at steps
-     20/40/60, and the DP poly run within rel 1e-6 of phase 8's cluster
-     DP run (poly) at every 20th step (step 0's temperatures within rel
-     1e-14);
+ 30. the verlet scheme's EAM path: first K5 and K6 (csrc/eam_verlet.cu)
+     on their edge cases (verlet_eam_case: numneigh 0 over real entries,
+     sentinel and NaN rows in lists, a pair at the cutoff and one ulp
+     inside, padding rows, lists past their width) against their plain
+     versions, float32 (<= 1e-5 of max |value|) and float64 (<= 1e-12),
+     spline and poly: rows without a pair inside exactly 0, two launches
+     the same bits; then run_bench_eam(scheme="verlet") (131,072 atoms, 60
+     SP steps, per-atom lists; eam_eval auto takes the polynomials on the
+     card) on phase 8's stand-in potential: K5 then K6 once each for every
+     force evaluation (Simulation._force calls) and no other hand kernel;
+     TOTAL, FORCE and NEIGH (measure_phases), the calibrated list width
+     K, the force's bound and one torch.profiler pass over a 60-step run
+     (device busy share, device ms by kernel); an SP spline run and DP
+     poly and spline runs (K5/K6 on every force), each SP run within
+     EAM_SP_TOL of the DP run of its evaluation at steps 20/40/60, and the
+     DP poly run within rel 1e-6 of phase 8's cluster DP run (poly) at
+     every 20th step (step 0's temperatures within rel 1e-14); then K5 and
+     K6 on the SP poly run's final 131k lists against their plain versions
+     (float32 and float64, poly and spline, two launches the same bits),
+     median ms back to back and on the device alone, bounds, the -Xptxas
+     -v lines;
  31. verlet EAM on a jittered 8^3 DP box, spline and poly, card against
-     the CPU plain path (step-0 forces and 20-step temperatures <= 1e-12)
-     and no host synchronisation in a 20-step run;
+     the CPU plain path (step-0 forces and 20-step temperatures <= 1e-12),
+     K5 and K6 on every card force, and no host synchronisation in a
+     20-step run;
  32. the verlet stub (run_stub: 65,536 atoms, 76 neighbours, 200 SP
-     steps) for LJ full and half lists and EAM spline and poly: Mega atom
-     updates/s, and the DP first force on the card against the CPU (<=
-     1e-12 of the largest finite value, non-finite entries equal);
+     steps) for LJ full and half lists (no hand kernel) and EAM spline and
+     poly (K5 and K6 on each of the 400 forces): Mega atom updates/s, and
+     the DP first force on the card against the CPU (<= 1e-12 of the
+     largest finite value, non-finite entries equal);
  33. the command line (`python -m mdbench_tpu_torch.cli`) in
      subprocesses: verlet and cluster LJ at 131k/200 SP with nstat 20,
      gated on the golden trace, each naming the card and K1b; on an 8^3
      box --vtk, --xtc, -w and --checkpoint, then --trace-index,
      --trace-mem and --timers diff (cluster), then --restore, each
      writing its files; and -f eam on both schemes (131k/60 SP, naming
-     the torch ops and K2b/K3b).
+     K5/K6 and K2b/K3b).
 
  34. the slab engine (parallel/verlet_domain.DomainSimulation) on an
      in-process mesh of one slab: run_bench_domain(ndev=1), 131,072 atoms,
@@ -225,11 +237,13 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      times, sweep counts, bound);
  36. EAM on two slabs at 131k/60 on phase 8's stand-in potential: SP
      poly against DP poly within EAM_SP_TOL at steps 20/40/60 (the ghost
-     fp exchanged between the slabs between the passes), no hand kernel;
+     fp exchanged between the slabs between the passes), K5 and K6 once
+     each for every slab force (StagedDomainEngine._forces) and no other
+     kernel;
      DP poly against phase 30's single-engine DP poly run (rel 1e-6 at
      steps 20/40/60);
      an 8^3 DP box on two slabs, spline and poly, card against the CPU
-     (20-step temperatures <= 1e-12).
+     (20-step temperatures <= 1e-12; K5/K6 on every slab force).
 
  37. the cluster slab engine (parallel/cluster_domain.
      ClusterDomainSimulation) on one slab: run_bench_domain(ndev=1,
@@ -280,7 +294,8 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      through a self-send (the phase prints the rows it carries), with the
      same gates;
  44. EAM 131k/60 on phase 8's stand-in potential on (2, 2) pencils and
-     (2, 2, 2) bricks, SP poly and DP poly: no hand kernel launches, SP
+     (2, 2, 2) bricks, SP poly and DP poly: K5 and K6 once each for
+     every domain force and no other kernel, SP
      within EAM_SP_TOL of DP at steps 20/40/60, DP within rel 1e-6 of
      phase 30's single-engine DP poly run;
  45. small inputs, card against the CPU: a jittered 8^3 DP box on the
@@ -292,9 +307,9 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      "K1 on brick rows".
 
 Every kernel count is set to 0 just before each main path (phases 4, 8,
-12, both runs of 17, the probes' runs in 25 and 26, both runs of 27,
-phase 30's SP run and each stub of 32, where it must stay 0, each run of
-34-36, 37-40 and 42-44) and read just after it. Then it prints the script's wall
+12, both runs of 17, the probes' runs in 25 and 26, both runs of 27, each
+131k run of 30, the card's runs of 31, each stub of 32 (LJ: where it must
+stay 0), each run of 34-36, 37-40 and 42-44) and read just after it. Then it prints the script's wall
 time, a JSON line of the kernels, nvidia-smi's line, and {"ok": true,
 "device": {...}} as the last line.
 
@@ -305,9 +320,12 @@ SXM data sheet) and its bytes over 3.35 TB/s, each input read once and
 each output written once. An LJ pair costs 8 operations for the distance
 test and 15 more inside the cutoff (the divide counted as one); an EAM
 pair 8, and inside the cutoff 6 + 2d (density) or 10 + 4d (force) for
-Horner polynomials of degree d. The pairs are the kernel's work on these
-lists (stats.compute_cluster_stats): the exact-list kernels' listed
-pairs, and for the group-window kernels the window pairs that their
+Horner polynomials of degree d; the verlet EAM passes' spline form
+counts its rows as polynomials of degree 3 (density) and 2 + 2 + 3
+(force), with 8 more for the force's 1/r chain (eam_verlet_bounds). The
+pairs are the kernel's work on these lists (stats.compute_cluster_stats;
+for K5 and K6 each per-atom list up to min(numneigh, K)): the exact-list
+kernels' listed pairs, and for the group-window kernels the window pairs that their
 contract asks for, whatever they cull (the pairs the kernel evaluates
 are printed beside). The bf16 kernel evaluates
 every listed pair without a branch: per pair 9 float32 operations
@@ -323,6 +341,7 @@ exact_ms.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -397,6 +416,23 @@ EAM_KERNELS = {
         "route": "cuda",
         "source": "mdbench_tpu_torch/csrc/eam_cluster.cu",
         "replaces": "mdbench_tpu/ops/pallas/eam_cluster.py:86",
+    },
+}
+# the verlet EAM passes (K5, K6): XLA in mdbench_tpu, not a Pallas kernel;
+# the lines are its poly forms' passes (the main path's; the spline forms'
+# are :79-130 and :142-153)
+VERLET_EAM_KERNELS = {
+    "eam_rho_nlist": {
+        "name": "eam_rho_nlist",
+        "route": "cuda",
+        "source": "mdbench_tpu_torch/csrc/eam_verlet.cu",
+        "replaces": "mdbench_tpu/ops/eam.py:166",
+    },
+    "eam_force_nlist": {
+        "name": "eam_force_nlist",
+        "route": "cuda",
+        "source": "mdbench_tpu_torch/csrc/eam_verlet.cu",
+        "replaces": "mdbench_tpu/ops/eam.py:222",
     },
 }
 REPEATS, CHAIN = 3, 3  # as python -m mdbench_tpu_torch.bench
@@ -803,6 +839,68 @@ def boundary_ilist_case(np_dtype, share: int = 2, nan: bool = True):
     return planes, ijl, nji, npad
 
 
+VERLET_EAM_CUTSQ = 4.5**2  # the edge case's cutoff: 4.5 is exact in both types
+
+
+def verlet_eam_case(np_dtype, seed: int = 0) -> dict:
+    """A numpy case for the verlet EAM kernels (K5, K6) at their edges,
+    for cutforcesq = VERLET_EAM_CUTSQ: per-atom lists over a jittered
+    6^3 cubic lattice of spacing 2.0 A (150 random points local, the rest
+    ghosts), list width k = 72 (some lists overflow it), the sentinel row
+    at the end. Edge rows: rows 0 and 1 have numneigh 0 over real
+    entries; a few lists hold the sentinel row mid-list, some of them
+    also one of two NaN ghost rows; row `at` lists one partner exactly at
+    the cutoff (dy = 4.5), row `inside` one partner one ulp of `np_dtype`
+    closer, row `nan` is NaN and lists five lattice rows, and the rows
+    past the locals up to nlocal_pad are padding (sentinel coordinates,
+    numneigh 0). Returns x (nrows, 3), neighbors and numneigh (int64),
+    border_map (every ghost's owner: a random local, the sentinel for
+    the NaN ghosts), nlocal_pad, `empty` (the rows that get rho and force
+    exactly 0) and `nan_rows` (the rows whose pairs touch a NaN row,
+    where mdbench_tpu's force is NaN: it multiplies by a masked 0)."""
+    from mdbench_tpu_torch.state import SENTINEL_COORD
+
+    rng = np.random.default_rng(seed)
+    g = np.stack(np.meshgrid(*[np.arange(6)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    pts = g[rng.permutation(216)] * 2.0 + rng.normal(0.0, 0.08, (216, 3))
+    nlat, k = 150, 72
+    below = float(np.nextafter(np_dtype(4.5), np_dtype(0.0)))
+    at, inside, nan_i, npad = nlat, nlat + 1, nlat + 2, 160
+    special_l = [[60.0, 0.0, 0.0], [80.0, 0.0, 0.0], [np.nan] * 3]
+    ghosts = [*pts[nlat:], [60.0, 4.5, 0.0], [80.0, below, 0.0], [np.nan] * 3, [np.nan] * 3]
+    rank = np.arange(npad - nan_i - 1, dtype=np.float64)[:, None]
+    pad = np.broadcast_to(SENTINEL_COORD * (1.0 + rank * 1e-6), (npad - nan_i - 1, 3))
+    x = np.concatenate([pts[:nlat], special_l, pad, ghosts,
+                        [[SENTINEL_COORD] * 3]]).astype(np_dtype)
+    nrows, sentinel = x.shape[0], x.shape[0] - 1
+    g_at, g_nan = npad + (216 - nlat), npad + (216 - nlat) + 2
+    lat = np.r_[0:nlat, npad : npad + 216 - nlat]  # the lattice rows
+    neighbors = np.full((npad, k), sentinel, np.int64)
+    numneigh = np.zeros(npad, np.int64)
+    xd = x.astype(np.float64)
+    for i in range(nlat):
+        d2 = ((xd[lat] - xd[i]) ** 2).sum(1)
+        cand = np.sort(lat[(d2 <= 25.0) & (lat != i)])
+        numneigh[i] = len(cand)
+        neighbors[i, : min(len(cand), k)] = cand[:k]
+    neighbors[at, 0], numneigh[at] = g_at, 1
+    neighbors[inside, 0], numneigh[inside] = g_at + 1, 1
+    neighbors[nan_i, :5], numneigh[nan_i] = lat[:5], 5
+    nan_rows = {nan_i}
+    for i in rng.choice(np.arange(2, nlat), 12, replace=False):
+        n = min(int(numneigh[i]), k)
+        neighbors[i, rng.integers(n)] = sentinel
+        if i % 3 == 0:
+            neighbors[i, rng.integers(n)] = g_nan + int(i % 2)
+            nan_rows.add(int(i))
+    numneigh[:2] = 0
+    border_map = rng.integers(0, nlat, nrows - 1 - npad)
+    border_map[-2:] = sentinel
+    return dict(x=x, neighbors=neighbors, numneigh=numneigh, border_map=border_map,
+                nlocal_pad=npad, empty=[0, 1, at, nan_i, *range(nan_i + 1, npad)],
+                inside=inside, nan_rows=sorted(nan_rows))
+
+
 def sweep_edge_calls(torch, dev, np_dtype, share: int, nan: bool, poly) -> tuple:
     """The exact-list kernels and their plain versions on
     boundary_ilist_case(np_dtype, share, nan): (calls, planes, plain
@@ -1016,10 +1114,50 @@ def device_profile(torch, fn) -> dict:
 
 def reset_counts(lj, ec) -> None:
     """Every kernel's launch count to 0."""
+    from mdbench_tpu_torch.ops import eam as ev
+
     for name in LJ_COUNTS:
         setattr(lj, name, 0)
-    for name in ec.LAUNCHES:
-        ec.LAUNCHES[name] = 0
+    for counts in (ec.LAUNCHES, ev.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def hand_launches(lj, ec) -> dict:
+    """Every kernel's launch count by name."""
+    from mdbench_tpu_torch.ops import eam as ev
+
+    return {**{name: getattr(lj, name) for name in LJ_COUNTS}, **ec.LAUNCHES,
+            **ev.LAUNCHES}
+
+
+@contextlib.contextmanager
+def counted(cls, method: str, per_call=lambda *args: 1):
+    """Counts the calls of cls.method while the block runs, each call
+    weighted by per_call(*its arguments): yields a one-element list."""
+    real, calls = getattr(cls, method), [0]
+
+    def wrapped(self, *args, **kw):
+        calls[0] += per_call(*args)
+        return real(self, *args, **kw)
+
+    setattr(cls, method, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(cls, method, real)
+
+
+def check_verlet_eam_launches(lj, ec, evals: int, what: str) -> dict:
+    """K5 (eam_rho_nlist) then K6 (eam_force_nlist) once each for each of
+    the `evals` force evaluations (or domain forces) of `what`, and no
+    other hand kernel; returns the counts."""
+    counts = hand_launches(lj, ec)
+    k5, k6 = counts.pop("eam_rho_nlist"), counts.pop("eam_force_nlist")
+    if not (k5 == k6 == evals > 0) or any(counts.values()):
+        fail(f"{what}: K5 {k5} and K6 {k6} launches for {evals} force evaluations, "
+             f"other kernels {counts}")
+    return {"K5": k5, "K6": k6}
 
 
 def run_eam_phases(torch, dev, smi: str, ec) -> tuple:
@@ -2428,30 +2566,174 @@ def run_verlet_phases(torch, dev, smi: str, ec) -> list:
     return rows, {side: r[3] for side, r in runs.items()}
 
 
-def eam_verlet_bound(torch, sim, st) -> tuple:
-    """(bound, listed pairs, pairs inside) of one verlet EAM force (poly)
-    on `st`'s lists: 8 operations a listed pair, 6 + 2d (density) and 10 +
-    2(d1 + d2) (force) more inside the cutoff (§ kernel bound); bytes: x,
-    the lists, border_map and frho read once, the forces written once."""
+def eam_verlet_bounds(torch, sim, st, dtype, poly: bool) -> tuple:
+    """(K5 bound, K6 bound, the whole force's bound, listed pairs, pairs
+    inside) of one verlet EAM force in `dtype` on `st`'s lists. Operations:
+    8 a listed pair (each list up to min(numneigh, K)); inside the cutoff 6 +
+    2d (density) and 10 + 2(d1 + d2) (force) for the polynomials' degrees;
+    the spline form counts its rows as polynomials of degree 3 (density)
+    and 2 + 2 + 3 (force), and 8 more for the force's 1/r chain. Bytes: x,
+    numneigh, the listed entries and the tables each pass reads, once; K5
+    writes fp, K6 reads fp and writes f; the whole force reads border_map
+    and writes f."""
     p, nl = sim.params, st.nlist
     n = sim.caps.nlocal_pad
     k = nl.neighbors.shape[1]
     valid = torch.arange(k, device=st.x.device)[None, :] < nl.numneigh[:, None]
     xi, xj = st.x[:n].double(), st.x.double()[nl.neighbors]
     rsq = ((xi[:, None, :] - xj) ** 2).sum(-1)
-    listed = int(nl.numneigh.sum())
+    listed = int(valid.sum())
     inside = int((valid & (rsq < p.cutforce**2)).sum())
-    deg = {name: len(getattr(sim.eam_poly, name)) - 1 for name in ("dens", "g1", "g2")}
-    ops = 8 * listed + (6 + 2 * deg["dens"] + 10 + 2 * (deg["g1"] + deg["g2"])) * inside
-    moved = nbytes_of(st.x, nl.neighbors, nl.numneigh, st.halo.border_map,
-                      sim.eam_dev.frho, st.f)
-    return bound_of(ops, moved, p.dtype), listed, inside
+    del xj, rsq
+    if poly:
+        deg = {name: len(getattr(sim.eam_poly, name)) - 1 for name in ("dens", "g1", "g2")}
+        in5, in6 = 6 + 2 * deg["dens"], 10 + 2 * (deg["g1"] + deg["g2"])
+        names5, names6 = ("frho",), ()
+    else:
+        in5, in6 = 6 + 2 * 3, 10 + 2 * (2 + 2 + 3) + 8
+        names5, names6 = ("frho", "rhor"), ("rhor", "z2r")
+    ops5, ops6 = 8 * listed + in5 * inside, 8 * listed + in6 * inside
+    x = st.x.to(dtype)
+    fp = torch.empty((x.shape[0],), dtype=dtype, device=x.device)
+    f = torch.empty((n, 3), dtype=dtype, device=x.device)
+    tab = {name: getattr(sim.eam_dev, name).to(dtype) for name in ("frho", "rhor", "z2r")}
+    # the lists: numneigh and the listed entries (the kernels read no others)
+    lists = nbytes_of(nl.numneigh) + listed * nl.neighbors.element_size()
+    both = sorted(set(names5 + names6))
+    return (bound_of(ops5, lists + nbytes_of(x, *(tab[q] for q in names5), fp), dtype),
+            bound_of(ops6, lists + nbytes_of(x, *(tab[q] for q in names6), fp, f), dtype),
+            bound_of(ops5 + ops6, lists + nbytes_of(x, st.halo.border_map,
+                                                    *(tab[q] for q in both), f), dtype),
+            listed, inside)
+
+
+def verlet_eam_pair(torch, x, nb, nn, npad, cutsq, eam, poly, border_map=None) -> dict:
+    """K5 twice and K6 twice against their plain versions on one set of
+    operands: K6 takes the plain pass 1's fp with its ghost rows refreshed
+    through `border_map` (left 0 without one). Returns the outputs by
+    name, each (kernel, second launch, plain)."""
+    from mdbench_tpu_torch.ops import eam as ev
+
+    fp_r, rho_r = ev.eam_rho_nlist_ref(x, nb, nn, npad, cutsq, eam, poly)
+    k5 = [ev.eam_rho_nlist(x, nb, nn, npad, cutsq, eam, poly, want_rho=True)
+          for _ in range(2)]
+    fp = fp_r.clone() if border_map is None else ev.ghost_fp_refresh(
+        fp_r.clone(), border_map, npad)
+    f_r = ev.eam_force_nlist_ref(x, nb, nn, fp[:npad], fp, cutsq, eam, poly)
+    f_k = [ev.eam_force_nlist(x, nb, nn, fp[:npad], fp, cutsq, eam, poly)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    return {"rho": (k5[0][1], k5[1][1], rho_r), "fp": (k5[0][0], k5[1][0], fp_r),
+            "f": (*f_k, f_r), "fp_in": fp}
+
+
+def check_verlet_eam_pair(torch, outs: dict, dtype, what: str) -> dict:
+    """Each output within tol_of(dtype) of max |plain| and the same bits from
+    both launches; returns name -> (max abs err, rel)."""
+    errs = {}
+    for name in ("rho", "fp", "f"):
+        got, again, want = outs[name]
+        errs[name] = rel_err(torch, (got,), (want,))
+        if not torch.equal(got, again):
+            fail(f"{what}: two launches gave different {name} bits")
+        if not errs[name][1] <= tol_of(torch, dtype):
+            fail(f"{what}: {name} disagrees with its plain version (rel {errs[name][1]:.3e})")
+    return errs
+
+
+def check_verlet_eam_edges(torch, dev, eam_file: str) -> None:
+    """Phase 30's edge cases (verlet_eam_case): K5 and K6 against their
+    plain versions on the card in float32 and float64, spline and poly;
+    rows without a listed pair inside the cutoff get rho and force exactly
+    0, the row one ulp inside does not, two launches the same bits."""
+    from mdbench_tpu_torch.models.eam_tables import fit_eam_poly, load_eam
+    from mdbench_tpu_torch.ops.eam import EamDevice
+
+    t = load_eam(eam_file)
+    for np_dtype, dtype in ((np.float32, torch.float32), (np.float64, torch.float64)):
+        case = verlet_eam_case(np_dtype)
+        x, nb, nn, bmap = (torch.tensor(case[k], device=dev)
+                           for k in ("x", "neighbors", "numneigh", "border_map"))
+        eam = EamDevice.from_tables(t, dev, dtype)
+        for form, poly in (("spline", None), ("poly", fit_eam_poly(t))):
+            what = f"K5/K6 edge cases ({form}, {str(dtype)[6:]})"
+            outs = verlet_eam_pair(torch, x, nb, nn, case["nlocal_pad"], VERLET_EAM_CUTSQ,
+                                   eam, poly, bmap)
+            errs = check_verlet_eam_pair(torch, outs, dtype, what)
+            rho, f = outs["rho"][0], outs["f"][0]
+            empty, inside = case["empty"], case["inside"]
+            if bool((rho[empty] != 0).any()) or bool((f[empty] != 0).any()):
+                fail(f"{what}: a row without a pair inside got a density or a force")
+            if not (float(rho[inside]) > 0 and float(f[inside, 1]) != 0):
+                fail(f"{what}: the pair one ulp inside the cutoff was dropped")
+            print(f"{what}: rel err rho {errs['rho'][1]:.3e}, fp {errs['fp'][1]:.3e}, "
+                  f"f {errs['f'][1]:.3e} (tol {tol_of(torch, dtype):.0e}); empty rows "
+                  f"exactly 0, the pair one ulp inside kept, two launches equal",
+                  flush=True)
+
+
+def verlet_eam_kernel_rows(torch, sim, st, launches: dict, smi: str) -> list:
+    """Phase 30's kernel check on the final 131k SP state's lists: K5 and
+    K6 against their plain versions in float32 and float64, poly (the main
+    path's form) and spline, two launches the same bits; median ms back to
+    back and on the device alone; bounds; the -Xptxas -v lines. Returns
+    the JSON rows of K5 and K6 (the float32 poly form's numbers; the f64
+    and spline times beside)."""
+    from mdbench_tpu_torch.ops import eam as ev
+    from mdbench_tpu_torch.probes import graph_ms
+
+    p, nl, npad = sim.params, st.nlist, sim.caps.nlocal_pad
+    cutsq, nb, nn = p.cutforce**2, nl.neighbors, nl.numneigh
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        x = st.x.to(dtype).contiguous()
+        eam = ev.EamDevice.from_tables(sim.eam_tables, x.device, dtype)
+        for form, poly in (("poly", sim.eam_poly), ("spline", None)):
+            what = f"K5/K6 at 131k ({form}, {str(dtype)[6:]})"
+            outs = verlet_eam_pair(torch, x, nb, nn, npad, cutsq, eam, poly,
+                                   st.halo.border_map)
+            errs = check_verlet_eam_pair(torch, outs, dtype, what)
+            fp = outs["fp_in"]
+            calls = {
+                "K5": (lambda: ev.eam_rho_nlist(x, nb, nn, npad, cutsq, eam, poly),
+                       lambda: ev.eam_rho_nlist_ref(x, nb, nn, npad, cutsq, eam, poly)),
+                "K6": (lambda: ev.eam_force_nlist(x, nb, nn, fp[:npad], fp, cutsq, eam, poly),
+                       lambda: ev.eam_force_nlist_ref(x, nb, nn, fp[:npad], fp, cutsq, eam,
+                                                      poly)),
+            }
+            b5, b6, _, listed, inside = eam_verlet_bounds(torch, sim, st, dtype,
+                                                          poly is not None)
+            times = {kid: (median_ms(torch, kern, 50), graph_ms(kern, 50),
+                           median_ms(torch, plain, 3))
+                     for kid, (kern, plain) in calls.items()}
+            print(f"{what} ({npad} rows x K {nb.shape[1]}, {listed} listed pairs, {inside} "
+                  f"inside): rel err rho {errs['rho'][1]:.3e}, fp {errs['fp'][1]:.3e}, f "
+                  f"{errs['f'][1]:.3e} (tol {tol_of(torch, dtype):.0e}), two launches "
+                  f"equal; K5 {times['K5'][0]:.4f} ms back to back, {times['K5'][1]:.4f} "
+                  f"on the device, plain {times['K5'][2]:.4f}, bound {b5[0]:.4f} ({b5[1]}); "
+                  f"K6 {times['K6'][0]:.4f} / {times['K6'][1]:.4f} ms, plain "
+                  f"{times['K6'][2]:.4f}, bound {b6[0]:.4f} ({b6[1]}) on {smi}", flush=True)
+            res[dtype, form] = (errs, times, {"K5": b5, "K6": b6})
+    for kernel in ("eam_rho_nlist_kernel", "eam_force_nlist_kernel"):
+        for line in kernel_ptxas_lines(kernel):
+            print("  " + line)
+    rows = []
+    for kid, name, out in (("K5", "eam_rho_nlist", "fp"), ("K6", "eam_force_nlist", "f")):
+        errs, times, bounds = res[torch.float32, "poly"]
+        row = kernel_row(VERLET_EAM_KERNELS[name], launches[kid], errs[out][0],
+                         times[kid][0], times[kid][2], bounds[kid], device_ms=times[kid][1])
+        row["f64_ms"] = res[torch.float64, "poly"][1][kid][0]
+        row["spline_ms"] = res[torch.float32, "spline"][1][kid][0]
+        row["spline_f64_ms"] = res[torch.float64, "spline"][1][kid][0]
+        rows.append(row)
+    return rows
 
 
 def run_verlet_eam_phases(torch, dev, smi: str, ec, eam_dp) -> tuple:
     """Phases 30-32 (the verlet scheme's EAM force and the verlet stub).
     `eam_dp` is phase 8's cluster DP run (sim, result) on the same box.
-    Returns phase 30's verlet DP poly run (sim, result)."""
+    Returns phase 30's verlet DP poly run (sim, result) and the JSON rows
+    of K5 and K6."""
     from mdbench_tpu_torch import _build
     from mdbench_tpu_torch.bench import run_bench_eam
     from mdbench_tpu_torch.config import FF_EAM, Params
@@ -2463,26 +2745,24 @@ def run_verlet_eam_phases(torch, dev, smi: str, ec, eam_dp) -> tuple:
 
     eam_file = str(_build.BUILD_DIR / "standin_cu.eam")  # phase 8's
 
-    def hand_launches():
-        return {**{name: getattr(lj, name) for name in LJ_COUNTS}, **ec.LAUNCHES}
-
     # 30. verlet EAM at full width: SP auto (poly on the card), SP spline,
-    # DP poly; no hand kernel runs on this path
+    # DP poly and spline; K5 then K6 for every force evaluation
+    check_verlet_eam_edges(torch, dev, eam_file)
     reset_counts(lj, ec)
     t0 = time.perf_counter()
-    sim, out, rate = run_bench_eam(eam_file, "sp", repeats=REPEATS, chain=CHAIN,
-                                   scheme="verlet")
+    with counted(Simulation, "_force") as n_force:
+        sim, out, rate = run_bench_eam(eam_file, "sp", repeats=REPEATS, chain=CHAIN,
+                                       scheme="verlet")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if any(hand_launches().values()):
-        fail(f"the verlet EAM run launched a hand kernel: {hand_launches()}")
+    launches = check_verlet_eam_launches(lj, ec, n_force[0], "the verlet EAM run")
     st, p = out.state, sim.params
     if sim.eam_poly is None:
         fail("eam_eval auto did not take the polynomials in SP on the card")
     if not (np.isfinite(out.temps).all() and bool(torch.isfinite(st.v).all())):
         fail("the verlet EAM run's state is not finite")
     t_force, t_neigh = sim.measure_phases(st)
-    bound, listed, inside = eam_verlet_bound(torch, sim, st)
+    bound, listed, inside = eam_verlet_bounds(torch, sim, st, p.dtype, True)[2:]
     nn = st.nlist.numneigh[: sim.nlocal].float()
     print(f"verlet EAM main path: {sim.natoms} atoms, {p.ntimes} steps, {p.precision}, "
           f"poly, cutforce {p.cutforce}, cutneigh {p.cutneigh}, caps {tuple(sim.caps)} "
@@ -2492,7 +2772,8 @@ def run_verlet_eam_phases(torch, dev, smi: str, ec, eam_dp) -> tuple:
           f"{t_force * 1e3:.4f} ms per call, NEIGH {t_neigh * 1e3:.4f} ms per rebuild "
           f"({p.ntimes + 1} forces and {p.ntimes // p.reneigh_every} rebuilds a run); "
           f"force bound {bound[0]:.4f} ms ({bound[1]}; {listed} listed pairs, {inside} "
-          f"inside); hand-kernel launches 0; on {smi}", flush=True)
+          f"inside); K5 {launches['K5']} and K6 {launches['K6']} launches for "
+          f"{n_force[0]} force evaluations, no other hand kernel; on {smi}", flush=True)
     prof = device_profile(torch, lambda: sim._run_steps(sim.initial_state(), p.ntimes))
     top = sorted(prof["ms"].items(), key=lambda kv: -kv[1])[:8]
     print(f"verlet EAM profile of one {p.ntimes}-step _run_steps (initial state "
@@ -2504,10 +2785,14 @@ def run_verlet_eam_phases(torch, dev, smi: str, ec, eam_dp) -> tuple:
               ntimes=60)
     runs = {("sp", "poly"): (sim, out)}
     for prec, ev in (("sp", "spline"), ("dp", "poly"), ("dp", "spline")):
-        s_ = Simulation(Params(precision=prec, eam_eval=ev, **kw), device=dev)
-        runs[prec, ev] = (s_, s_.run(repeats=1, chain=1))
+        reset_counts(lj, ec)
+        with counted(Simulation, "_force") as n_force:
+            s_ = Simulation(Params(precision=prec, eam_eval=ev, **kw), device=dev)
+            runs[prec, ev] = (s_, s_.run(repeats=1, chain=1))
+        k56 = check_verlet_eam_launches(lj, ec, n_force[0], f"the verlet EAM {prec} {ev} run")
         print(f"verlet EAM {prec} {ev}: TOTAL {runs[prec, ev][1].total_time:.6f} s (one "
-              f"timed run) on {smi}", flush=True)
+              f"timed run), K5 {k56['K5']} and K6 {k56['K6']} launches for {n_force[0]} force "
+              f"evaluations on {smi}", flush=True)
     for step, tol in EAM_SP_TOL.items():
         for ev in ("poly", "spline"):
             t_sp = float(runs["sp", ev][1].temps[step - 1])
@@ -2534,37 +2819,51 @@ def run_verlet_eam_phases(torch, dev, smi: str, ec, eam_dp) -> tuple:
               f"{rel:.3e} (tol 1e-6)", flush=True)
         if not rel <= 1e-6:
             fail(f"verlet EAM DP departs from the cluster DP run at step {step}")
+    rows = verlet_eam_kernel_rows(torch, sim, st, launches, smi)
 
-    # 31. verlet EAM card against CPU, float64, 8^3; no host synchronisation
+    # 31. verlet EAM card against CPU, float64, 8^3; K5/K6 on every card
+    # force; no host synchronisation
     for eam_eval in ("spline", "poly"):
         kw = dict(nx=8, ny=8, nz=8, ntimes=20, reneigh_every=10, precision="dp",
                   force_field=FF_EAM, eam_file=eam_file, eam_eval=eam_eval)
         x, v, _ = create_fcc_lattice(apply_eam_overrides(Params(**kw),
                                                          load_eam(eam_file)))
         x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
-        f_c, f_g = (Simulation(Params(**kw), x=x, v=v, device=d).first_force()
-                    for d in ("cpu", dev))
+        reset_counts(lj, ec)
+        with counted(Simulation, "_force") as n_force:
+            f_g = Simulation(Params(**kw), x=x, v=v, device=dev).first_force()
+            r_g = Simulation(Params(**kw), device=dev).run(repeats=0)
+        k56 = check_verlet_eam_launches(lj, ec, n_force[0], f"verlet EAM 8^3 {eam_eval}")
+        f_c = Simulation(Params(**kw), x=x, v=v, device="cpu").first_force()
+        r_c = Simulation(Params(**kw), device="cpu").run(repeats=0)
         frel = np.abs(f_g - f_c).max() / np.abs(f_c).max()
-        r_c, r_g = (Simulation(Params(**kw), device=d).run(repeats=0)
-                    for d in ("cpu", dev))
         trel = float(np.max(np.abs(r_g.temps - r_c.temps) / np.abs(r_c.temps)))
         sim8 = Simulation(Params(**kw), device=dev)
         n_sync = sync_count(torch, lambda: sim8._run_steps(sim8.initial_state(), 20))
         print(f"verlet EAM 8^3 dp {eam_eval}: step-0 force rel err {frel:.3e} (tol "
               f"1e-12), 20-step temperature rel err {trel:.3e} (tol 1e-12), host "
-              f"synchronisations in a 20-step run {n_sync}", flush=True)
+              f"synchronisations in a 20-step run {n_sync}; K5 {k56['K5']} and K6 "
+              f"{k56['K6']} launches for the card's {n_force[0]} force evaluations",
+              flush=True)
         if not (frel <= 1e-12 and trel <= 1e-12):
             fail(f"the card's verlet EAM ({eam_eval}) disagrees with the CPU")
         if n_sync:
             fail("a verlet EAM run synchronises the host with the card")
 
-    # 32. the verlet stub on the card; first force against the CPU in float64
+    # 32. the verlet stub on the card (EAM: K5 and K6 on each of its 2 x 200
+    # forces); first force against the CPU in float64
     stubs = {"LJ full": {}, "LJ half": {"half": True},
              "EAM spline": {"force_field": "eam", "eam_file": eam_file},
              "EAM poly": {"force_field": "eam", "eam_file": eam_file, "eam_eval": "poly"}}
     for name, kw in stubs.items():
         reset_counts(lj, ec)
         res = run_stub(natoms=65536, nneighs=76, ntimes=200, device=dev, **kw)
+        if name.startswith("EAM"):
+            counts = check_verlet_eam_launches(lj, ec, 2 * 200, f"the verlet stub {name}")
+        else:
+            counts = hand_launches(lj, ec)
+            if any(counts.values()):
+                fail(f"the verlet stub {name} launched a hand kernel: {counts}")
         f = [run_stub(natoms=65536, nneighs=76, ntimes=1, precision="dp", device=d,
                       **kw)["first_force"].cpu() for d in (dev, "cpu")]
         fin = torch.isfinite(f[1])
@@ -2575,10 +2874,10 @@ def run_verlet_eam_phases(torch, dev, smi: str, ec, eam_dp) -> tuple:
               f"{res['cycles_per_neighbor']:.4f} cycles per neighbour at 2.4 GHz; DP "
               f"first force card against CPU rel {err:.3e} (tol 1e-12), non-finite "
               f"entries equal: {same_nf}; hand-kernel launches "
-              f"{sum(hand_launches().values())}; on {smi}", flush=True)
+              f"{ {k: v for k, v in counts.items() if v} }; on {smi}", flush=True)
         if not (err <= 1e-12 and same_nf and bool(fin.any())):
             fail(f"the verlet stub's {name} first force on the card disagrees")
-    return runs["dp", "poly"]
+    return runs["dp", "poly"], rows
 
 
 DOMAIN_KERNELS = {
@@ -2600,6 +2899,7 @@ def run_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict, eam_verlet_
     from mdbench_tpu_torch.config import FF_EAM, Params
     from mdbench_tpu_torch.ops import lj_cluster as lj
     from mdbench_tpu_torch.parallel.dryrun import dryrun_multichip
+    from mdbench_tpu_torch.parallel.staged import StagedDomainEngine
     from mdbench_tpu_torch.parallel.verlet_domain import DomainSimulation
 
     # 34. one slab; 35. two and four slabs: 131k/200 SP, golden-gated
@@ -2699,16 +2999,18 @@ def run_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict, eam_verlet_
     eruns = {}
     for prec in ("sp", "dp"):
         reset_counts(lj, ec)
-        sim = DomainSimulation(Params(precision=prec, eam_eval="poly", **kw), ndev=2,
-                               device=dev)
-        out = sim.run(repeats=1, chain=1)
-        hand = {**{n: getattr(lj, n) for n in LJ_COUNTS}, **ec.LAUNCHES}
+        with counted(StagedDomainEngine, "_forces", len) as n_force:
+            sim = DomainSimulation(Params(precision=prec, eam_eval="poly", **kw), ndev=2,
+                                   device=dev)
+            out = sim.run(repeats=1, chain=1)
+        k56 = check_verlet_eam_launches(lj, ec, n_force[0], f"the domain EAM run ({prec})")
         nloc = sum(int(n) for n in out.state.nlocal)
         print(f"domain EAM mesh(2) {prec} poly: {sim.natoms} atoms, {sim.params.ntimes} "
               f"steps, maxneighs {sim.maxneighs}, TOTAL {out.total_time:.6f} s (one timed "
-              f"run) on {smi}", flush=True)
-        if any(hand.values()) or nloc != sim.natoms or not np.isfinite(out.temps).all():
-            fail(f"the domain EAM run ({prec}) launched {hand} or lost atoms ({nloc})")
+              f"run), K5 {k56['K5']} and K6 {k56['K6']} launches for {n_force[0]} slab "
+              f"forces on {smi}", flush=True)
+        if nloc != sim.natoms or not np.isfinite(out.temps).all():
+            fail(f"the domain EAM run ({prec}) lost atoms ({nloc}) or is not finite")
         eruns[prec] = out
     for step, tol in EAM_SP_TOL.items():
         t_sp = float(eruns["sp"].temps[step - 1])
@@ -2732,11 +3034,15 @@ def run_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict, eam_verlet_
     for eam_eval in ("spline", "poly"):
         kw8 = dict(nx=8, ny=8, nz=8, ntimes=20, reneigh_every=10, precision="dp",
                    force_field=FF_EAM, eam_file=eam_file, eam_eval=eam_eval)
-        r_c, r_g = (DomainSimulation(Params(**kw8), ndev=2, device=d).run(repeats=0)
-                    for d in ("cpu", dev))
+        reset_counts(lj, ec)
+        with counted(StagedDomainEngine, "_forces", len) as n_force:
+            r_g = DomainSimulation(Params(**kw8), ndev=2, device=dev).run(repeats=0)
+        k56 = check_verlet_eam_launches(lj, ec, n_force[0], f"domain EAM 8^3 {eam_eval}")
+        r_c = DomainSimulation(Params(**kw8), ndev=2, device="cpu").run(repeats=0)
         trel = float(np.max(np.abs(r_g.temps - r_c.temps) / np.abs(r_c.temps)))
         print(f"domain EAM 8^3 dp {eam_eval} mesh(2): 20-step temperature rel err "
-              f"{trel:.3e} (tol 1e-12)", flush=True)
+              f"{trel:.3e} (tol 1e-12); K5 {k56['K5']} and K6 {k56['K6']} launches for "
+              f"{n_force[0]} slab forces", flush=True)
         if not trel <= 1e-12:
             fail(f"the card's domain EAM ({eam_eval}) disagrees with the CPU")
     return rows, {ndev: out.total_time for ndev, (_, out, _) in runs.items()}
@@ -3102,6 +3408,7 @@ def run_mesh_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict,
     from mdbench_tpu_torch.config import FF_EAM, Params
     from mdbench_tpu_torch.models.lattice import create_fcc_lattice
     from mdbench_tpu_torch.ops import lj_cluster as lj
+    from mdbench_tpu_torch.parallel.staged import StagedDomainEngine
     from mdbench_tpu_torch.parallel.verlet_domain2d import Domain2DSimulation
     from mdbench_tpu_torch.parallel.verlet_domain3d import Domain3DSimulation
 
@@ -3200,7 +3507,7 @@ def run_mesh_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict,
 
     # 44. EAM 131k/60 on phase 8's stand-in potential, pencils (2, 2) and
     # bricks (2, 2, 2): SP poly against DP poly, DP poly against phase 30's
-    # single engine; no hand kernel (the verlet EAM is torch ops)
+    # single engine; K5 and K6 for every domain force
     eam_file = str(_build.BUILD_DIR / "standin_cu.eam")
     kw = dict(scheme="verlet", dense_thermo=False, force_field=FF_EAM, eam_file=eam_file,
               ntimes=60)
@@ -3210,17 +3517,19 @@ def run_mesh_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict,
         eruns = {}
         for prec in ("sp", "dp"):
             reset_counts(lj, ec)
-            sim = engine(dims)(Params(precision=prec, eam_eval="poly", **kw), *dims,
-                               device=dev)
-            out = sim.run(repeats=1, chain=1)
-            hand = {**{n: getattr(lj, n) for n in LJ_COUNTS}, **ec.LAUNCHES}
+            with counted(StagedDomainEngine, "_forces", len) as n_force:
+                sim = engine(dims)(Params(precision=prec, eam_eval="poly", **kw), *dims,
+                                   device=dev)
+                out = sim.run(repeats=1, chain=1)
+            k56 = check_verlet_eam_launches(lj, ec, n_force[0], f"the {tag} run ({prec})")
             nloc = sum(int(n) for n in out.state.nlocal)
             print(f"{tag} {prec} poly: {sim.natoms} atoms, {sim.params.ntimes} steps, "
                   f"maxneighs {sim.maxneighs}, acap {sim.acap}, bcaps {sim.bcaps}, grows "
-                  f"{sim.grows or 'none'}, TOTAL {out.total_time:.6f} s (one timed run) "
+                  f"{sim.grows or 'none'}, TOTAL {out.total_time:.6f} s (one timed run), "
+                  f"K5 {k56['K5']} and K6 {k56['K6']} launches for {n_force[0]} domain forces "
                   f"on {smi}", flush=True)
-            if any(hand.values()) or nloc != sim.natoms or not np.isfinite(out.temps).all():
-                fail(f"the {tag} run ({prec}) launched {hand} or lost atoms ({nloc})")
+            if nloc != sim.natoms or not np.isfinite(out.temps).all():
+                fail(f"the {tag} run ({prec}) lost atoms ({nloc}) or is not finite")
             eruns[prec] = out
         for step, tol in EAM_SP_TOL.items():
             t_sp = float(eruns["sp"].temps[step - 1])
@@ -3333,7 +3642,7 @@ def run_cli_phase(torch, smi: str) -> None:
     out = cli(f"{small} --restore {work}/ck.npz")
     if "restored 2048 atoms at step 40" not in out:
         fail("cli --restore did not resume from the checkpoint")
-    for scheme, force in (("verlet", "torch ops (EAM poly)"), ("cluster", "K2b/K3b")):
+    for scheme, force in (("verlet", "K5/K6 (EAM poly)"), ("cluster", "K2b/K3b")):
         out = cli(f"-f eam -e {eam_file} -n 60 --precision sp --scheme {scheme}")
         if f"force: {force}" not in out:
             fail(f"cli EAM {scheme} did not run {force}")
@@ -3536,7 +3845,7 @@ def main() -> int:
     verlet_rows, verlet_totals = run_verlet_phases(torch, dev, smi, ec)
 
     # 30-32. the verlet scheme's EAM path and the verlet stub
-    eam_verlet_dp = run_verlet_eam_phases(torch, dev, smi, ec, eam_dp)
+    eam_verlet_dp, verlet_eam_rows = run_verlet_eam_phases(torch, dev, smi, ec, eam_dp)
 
     # 33. the command line, as subprocesses
     run_cli_phase(torch, smi)
@@ -3559,8 +3868,8 @@ def main() -> int:
         kernel_row(KERNEL, launches, *res[torch.float32][:4],
                    exact_ms=res[torch.float32][4], device_ms=res[torch.float32][5]),
         *eam_rows, stream_row,
-        *typed_rows, *bucket_rows, bf16_row, *fetch_rows, *verlet_rows, *domain_rows,
-        *cluster_domain_rows, *mesh_rows,
+        *typed_rows, *bucket_rows, bf16_row, *fetch_rows, *verlet_rows, *verlet_eam_rows,
+        *domain_rows, *cluster_domain_rows, *mesh_rows,
     ]}))
     print(f"chip_smoke wall {wall:.1f} s", file=sys.stderr)
     print(smi)

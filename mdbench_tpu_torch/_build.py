@@ -76,6 +76,14 @@ _SIGNATURES = {
     #  n_units, share, nbuckets, ends, caps, coefs, stream)
     "eam_force_buckets_f32": ([_P] * 10 + [_I] * 5 + [_P] * 4, ctypes.c_int),
     "eam_force_buckets_f64": ([_P] * 10 + [_I] * 5 + [_P] * 4, ctypes.c_int),
+    # the verlet EAM passes (K5, K6): (x, neighbors, numneigh, rhor, frho,
+    #  fp, rho, nrows, nlocal_pad, k, nr, nrho, poly, scalars, stream) and
+    #  (x, neighbors, numneigh, rhor, z2r, fp_local, fp, f, nrows,
+    #  nlocal_pad, k, nr, nrho, poly, scalars, stream)
+    "eam_rho_nlist_f32": ([_P] * 7 + [_I] * 6 + [_P] * 2, ctypes.c_int),
+    "eam_rho_nlist_f64": ([_P] * 7 + [_I] * 6 + [_P] * 2, ctypes.c_int),
+    "eam_force_nlist_f32": ([_P] * 8 + [_I] * 6 + [_P] * 2, ctypes.c_int),
+    "eam_force_nlist_f64": ([_P] * 8 + [_I] * 6 + [_P] * 2, ctypes.c_int),
     # the bf16 probe (T2): (xc, yc, zc, ijlist, nji, fx, fy, fz, n_units,
     #  icap, share, cutforcesq, sigma6 and 48*epsilon rounded to bfloat16,
     #  stream)

@@ -132,8 +132,8 @@ def run_bench_domain(ndev: int = 1, kernel: str = "auto", repeats: int = 3,
 def run_bench_eam(eam_file: str, precision: str = "sp", repeats: int = 3,
                   chain: int = 3, scheme: str = "cluster"):
     """The EAM run on the CUDA card with the potential `eam_file` on
-    `scheme` ("cluster": K2b/K3b after the bucket plan; "verlet": the
-    torch ops of ops/eam.py). Returns (sim, result, atom-updates per
+    `scheme` ("cluster": K2b/K3b after the bucket plan; "verlet": K5 then
+    K6, the passes of ops/eam.py). Returns (sim, result, atom-updates per
     second)."""
     from mdbench_tpu_torch.config import FF_EAM, Params
     from mdbench_tpu_torch.engine import Simulation

@@ -163,8 +163,9 @@ def parse_args(argv) -> Params:
 
 def force_path(sim) -> str:
     """The force the run launched: the kernel (with approx_rcp where the
-    run takes it) on the card, "torch ops (...)" for a path without a
-    hand kernel, "plain torch" for every path on the CPU."""
+    run takes it; "K5/K6 (EAM poly|spline)" for the verlet EAM passes) on
+    the card, "torch ops (...)" for a path without a hand kernel, "plain
+    torch" for every path on the CPU."""
     p = sim.params
     if sim.device.type != "cuda":
         return "plain torch"
@@ -183,7 +184,7 @@ def force_path(sim) -> str:
             return "K4t" if typed else "K4"
         return "plain torch"
     if sim.eam_tables is not None:
-        return "torch ops (EAM %s)" % ("poly" if sim.eam_poly is not None else "spline")
+        return "K5/K6 (EAM %s)" % ("poly" if sim.eam_poly is not None else "spline")
     if sim._rowlist:
         return ("K1b" if sim.rbuckets is not None else "K1") + approx
     return "torch ops (%s lists)" % ("half" if p.half_neigh else "planar")

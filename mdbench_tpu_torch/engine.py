@@ -26,7 +26,9 @@ bin-sorted atoms). Two force paths, as in mdbench_tpu:
   EAM): per-atom lists and the planar torch forces of ops/lj.py, or the
   two-pass EAM force of ops/eam.py (the reference's splines, or with
   eam_eval "poly", or "auto" in SP on the card, the fitted pair
-  polynomials), whose ghost-fp refresh reads the halo's border_map.
+  polynomials): on a CUDA tensor the kernels K5 (density and F'(rho))
+  and K6 (pair force), on the CPU their plain versions, with the ghost-fp
+  refresh between them reading the halo's border_map.
 
 The time-step loop is a Python loop of eager torch ops on `device`
 (mdbench_tpu compiled it into nested lax.scans). The integration and the

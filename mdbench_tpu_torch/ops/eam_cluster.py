@@ -28,11 +28,12 @@ falls back from one to the other.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from mdbench_tpu_torch import _build
-from mdbench_tpu_torch.ops.eam import EamDevice, _grid_index, _horner
+# N_COEF and the scalar block (_coefs) are shared with the verlet EAM kernels
+from mdbench_tpu_torch.ops.eam import N_COEF, EamDevice, _grid_index, _horner  # noqa: F401
+from mdbench_tpu_torch.ops.eam import poly_coefs as _coefs
 from mdbench_tpu_torch.ops.lj_cluster import (
     _check_bucket_args,
     _check_cuda_args,
@@ -48,8 +49,6 @@ from mdbench_tpu_torch.ops.lj_cluster import (
 # went through the CUDA kernels); callers may reset them to 0
 LAUNCHES = {"eam_rho_ilist": 0, "eam_force_ilist": 0,
             "eam_rho_buckets": 0, "eam_force_buckets": 0}
-
-N_COEF = 17  # coefficients per polynomial (degree 16) the kernels take
 
 
 def _pair_geometry(xc, yc, zc, ijlist, n_clusters_pad, cutforcesq, poly,
@@ -250,21 +249,6 @@ def eam_sweep_ref(xc, yc, zc, ijlist, nji, n_clusters_pad: int,
             acc.append(sweep_sum(g, sp.inside))
     return tuple(scatter_rows(torch.cat(a), units, n_clusters_pad, share)
                  for a in sums)
-
-
-def _coefs(poly, cutforcesq: float) -> np.ndarray:
-    """The kernels' scalar block, float64 on the host:
-    [mid, iscale, cutforcesq, dens[17], g1[17], g2[17]]. The C launcher
-    copies it into a by-value kernel argument, rounded to the kernel's
-    type."""
-    polys = [np.asarray(c, np.float64).reshape(-1)
-             for c in (poly.dens, poly.g1, poly.g2)]
-    if any(c.shape != (N_COEF,) for c in polys):
-        raise ValueError(
-            f"the EAM kernels take degree-{N_COEF - 1} polynomials "
-            f"({N_COEF} coefficients each)")
-    return np.ascontiguousarray(np.concatenate(
-        [[float(poly.mid), float(poly.iscale), float(cutforcesq)], *polys]))
 
 
 def _check_fp_plane(fp_plane, xc):

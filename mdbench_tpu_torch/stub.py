@@ -9,8 +9,9 @@ of `nneighs` neighbors repeated `nreps` times (main-stub.c:60-105):
   seq  — neighbors of i are i+1, i+2, ... (mod natoms)
   fix  — every atom's neighbors are 0, 1, ..., nneighs-1
   rand — nneighs distinct random neighbors other than i
-and the planar LJ force (full or half lists, ops/lj.py) or the two-pass
-EAM force (`-f eam -e <funcfl>`, spline or poly, ops/eam.py), torch ops.
+and the planar LJ force (full or half lists, ops/lj.py: torch ops) or the
+two-pass EAM force (`-f eam -e <funcfl>`, spline or poly, ops/eam.py: the
+kernels K5 and K6 on the card, their plain versions on the CPU).
 Cluster scheme: synthetic cluster planes and group-shared j16 lists with
 the same patterns (clusterpair/main-stub.c:61-120), every member's window
 covering the whole list, and the group-window force kernel K4.
@@ -152,10 +153,10 @@ def run_stub(
     f on the atoms; one un-timed run of `ntimes` steps, then the timed run
     from the same atoms. LJ full or half lists, or EAM (the potential's
     cutoff, no ghosts: an empty fp refresh) with the gathered splines or
-    (eam_eval "poly") the fitted polynomials; torch ops on `device`.
-    Prints the reference's two result lines (or the CSV row) and returns
-    the numbers, with `first_force`, the (natoms, 3) forces of the first
-    step."""
+    (eam_eval "poly") the fitted polynomials (on a card: K5 and K6), on
+    `device`. Prints the reference's two result lines (or the CSV row)
+    and returns the numbers, with `first_force`, the (natoms, 3) forces
+    of the first step."""
     device = _device(device)
     dtype = torch.float64 if precision == "dp" else torch.float32
     xh, _ = create_stub_atoms(natoms)

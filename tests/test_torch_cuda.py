@@ -1,6 +1,7 @@
 """The force kernels (the exact-list LJ kernel csrc/lj_cluster_ilist.cu,
-the two EAM passes of csrc/eam_cluster.cu and the group-window LJ kernel
-csrc/lj_cluster_stream.cu, the LJ kernels untyped and typed, the
+the two EAM passes of csrc/eam_cluster.cu, the group-window LJ kernel
+csrc/lj_cluster_stream.cu and the verlet EAM passes of
+csrc/eam_verlet.cu, the LJ kernels untyped and typed, the
 exact-list kernels flat and over capacity buckets, exact and with the
 approximate reciprocal, on the cluster lists and on the verlet scheme's
 16-atom row lists) and the probes' kernels (the bf16 form of
@@ -29,11 +30,14 @@ import torch
 from chip_smoke import (
     BF16_TOL,
     LJ_COUNTS,
+    VERLET_EAM_CUTSQ,
     boundary_group_lists,
     hand_plan,
     random_group_lists,
     random_tables,
     sweep_edge_calls,
+    verlet_eam_case,
+    verlet_eam_pair,
     write_standin_funcfl,
 )
 from mdbench_tpu_torch.config import FF_EAM, Params
@@ -47,6 +51,7 @@ from mdbench_tpu_torch.models.eam_tables import (
 )
 from mdbench_tpu_torch.models.lattice import create_fcc_lattice
 from mdbench_tpu_torch.ops.cluster import attach_bucket_maps, bucket_maps_core
+from mdbench_tpu_torch.ops import eam as tev
 from mdbench_tpu_torch.ops import eam_cluster as tec
 from mdbench_tpu_torch.ops import lj_cluster as tlj
 from mdbench_tpu_torch.ops import row_fetch as trf
@@ -766,20 +771,93 @@ def test_cuda_verlet_engine_matches_cpu(cuda, extra):
     np.testing.assert_allclose(r_gpu.temps, r_cpu.temps, rtol=1e-9)
 
 
+def _verlet_eam_outputs_match(outs, tdtype):
+    """K5's rho and fp and K6's f within TOL of their plain versions, two
+    launches the same bits."""
+    for name in ("rho", "fp", "f"):
+        got, again, want = outs[name]
+        assert torch.equal(got, again), name
+        assert _rel((got,), (want,)) <= TOL[tdtype], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("poly", [False, True], ids=["spline", "poly"])
+@pytest.mark.parametrize("tdtype", [torch.float32, torch.float64])
+def test_cuda_verlet_eam_kernels_on_edge_cases(cuda, eam_file, seed, poly, tdtype):
+    """K5 and K6 against their plain versions on chip_smoke.verlet_eam_case:
+    numneigh 0 over real entries, sentinel and NaN rows in lists, a pair at
+    the cutoff and one ulp inside, padding rows, lists past their width.
+    Rows without a pair inside get rho and force exactly 0."""
+    np_dtype = np.float32 if tdtype == torch.float32 else np.float64
+    case = verlet_eam_case(np_dtype, seed)
+    x, nb, nn, bmap = (torch.tensor(case[k], device=cuda)
+                       for k in ("x", "neighbors", "numneigh", "border_map"))
+    t = load_eam(eam_file)
+    eam = tev.EamDevice.from_tables(t, cuda, tdtype)
+    before = dict(tev.LAUNCHES)
+    outs = verlet_eam_pair(torch, x, nb, nn, case["nlocal_pad"], VERLET_EAM_CUTSQ, eam,
+                           fit_eam_poly(t) if poly else None, bmap)
+    assert tev.LAUNCHES == {k: v + 2 for k, v in before.items()}
+    _verlet_eam_outputs_match(outs, tdtype)
+    rho, f = outs["rho"][0], outs["f"][0]
+    assert bool((rho[case["empty"]] == 0).all()) and bool((f[case["empty"]] == 0).all())
+    assert float(rho[case["inside"]]) > 0 and float(f[case["inside"], 1]) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poly", [False, True], ids=["spline", "poly"])
+@pytest.mark.parametrize("tdtype", [torch.float32, torch.float64])
+def test_cuda_verlet_eam_kernels_on_engine_lists(cuda, eam_file, poly, tdtype):
+    """K5 and K6 on a jittered 8^3 verlet EAM engine's lists and halo,
+    built on the card, against their plain versions."""
+    kw = dict(nx=8, ny=8, nz=8, precision="dp", force_field=FF_EAM, eam_file=eam_file)
+    x, v, _ = create_fcc_lattice(apply_eam_overrides(Params(**kw), load_eam(eam_file)))
+    x = x + np.random.default_rng(5).normal(0.0, 0.15, x.shape)
+    sim = Simulation(Params(**kw), x=x, v=v, device=cuda)
+    st = sim.initial_state()
+    eam = tev.EamDevice.from_tables(sim.eam_tables, cuda, tdtype)
+    outs = verlet_eam_pair(torch, st.x.to(tdtype), st.nlist.neighbors, st.nlist.numneigh,
+                           sim.caps.nlocal_pad, sim.params.cutforce**2, eam,
+                           fit_eam_poly(sim.eam_tables) if poly else None,
+                           st.halo.border_map)
+    _verlet_eam_outputs_match(outs, tdtype)
+
+
+@pytest.mark.cuda
+def test_cuda_verlet_eam_wrappers_raise(cuda, eam_file):
+    """On a CUDA tensor the wrappers check the operands and raise; they do
+    not fall back to the plain version."""
+    case = verlet_eam_case(np.float64)
+    x, nb, nn = (torch.tensor(case[k], device=cuda) for k in ("x", "neighbors", "numneigh"))
+    eam = tev.EamDevice.from_tables(load_eam(eam_file), cuda, torch.float64)
+    npad = case["nlocal_pad"]
+    with pytest.raises(TypeError):
+        tev.eam_rho_nlist(x, nb.int(), nn, npad, VERLET_EAM_CUTSQ, eam)
+    with pytest.raises(ValueError):
+        tev.eam_rho_nlist(x, nb, nn, npad, VERLET_EAM_CUTSQ, eam._replace(frho=eam.frho.cpu()))
+    fp = torch.zeros(x.shape[0], dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):
+        tev.eam_force_nlist(x, nb, nn, fp[:npad].float(), fp, VERLET_EAM_CUTSQ, eam)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("eam_eval", ["spline", "poly"])
 def test_cuda_verlet_eam_matches_cpu(cuda, eam_file, eam_eval):
     """A jittered 6^3 DP verlet EAM box, card against the CPU plain path:
-    step-0 forces <= 1e-12 of max |f| (the same torch ops; only reduction
-    orders differ), 20-step temperatures <= 1e-12; no hand kernel
-    launches (verlet EAM is torch ops)."""
+    step-0 forces <= 1e-12 of max |f| (only reduction orders differ),
+    20-step temperatures <= 1e-12; each card force launches K5 and K6
+    once, and no LJ kernel launches."""
     kw = dict(nx=6, ny=6, nz=6, ntimes=20, reneigh_every=10, precision="dp",
               force_field=FF_EAM, eam_file=eam_file, eam_eval=eam_eval)
     x, v, _ = create_fcc_lattice(apply_eam_overrides(Params(**kw), load_eam(eam_file)))
     x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
     before = {n: getattr(tlj, n) for n in LJ_COUNTS}
+    k56 = dict(tev.LAUNCHES)
     f_gpu = Simulation(Params(**kw), x=x, v=v, device=cuda).first_force()
     assert all(getattr(tlj, n) == before[n] for n in LJ_COUNTS)
+    d5, d6 = (tev.LAUNCHES[k] - k56[k] for k in ("eam_rho_nlist", "eam_force_nlist"))
+    assert d5 == d6 >= 1
     f_cpu = Simulation(Params(**kw), x=x, v=v, device="cpu").first_force()
     assert np.abs(f_gpu - f_cpu).max() <= 1e-12 * np.abs(f_cpu).max()
     r_gpu = Simulation(Params(**kw), device=cuda).run(repeats=0)
