@@ -179,12 +179,14 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      200-step run (device ms by kernel, busy share).
 
  30. the verlet scheme's EAM path: first K5 and K6 (csrc/eam_verlet.cu)
-     on their edge cases (verlet_eam_case: numneigh 0 over real entries,
-     sentinel and NaN rows in lists, a pair at the cutoff and one ulp
-     inside, padding rows, lists past their width) against their plain
-     versions, float32 (<= 1e-5 of max |value|) and float64 (<= 1e-12),
-     spline and poly: rows without a pair inside exactly 0, two launches
-     the same bits; then run_bench_eam(scheme="verlet") (131,072 atoms, 60
+     on their edge cases (verlet_eam_edge_cases: numneigh 0 over real
+     entries, sentinel and NaN rows in lists, a pair at the cutoff and one
+     ulp inside, padding rows, lists past their width; an odd width over
+     53 atoms with a block of 16 empty rows and rows at and past the
+     width; a single local atom) against their plain versions bit for
+     bit, float32 and float64, spline and poly: rows without a pair
+     inside exactly 0, two launches the same bits; then
+     run_bench_eam(scheme="verlet") (131,072 atoms, 60
      SP steps, per-atom lists; eam_eval auto takes the polynomials on the
      card) on phase 8's stand-in potential: K5 then K6 once each for every
      force evaluation (Simulation._force calls) and no other hand kernel;
@@ -196,9 +198,10 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      DP poly run within rel 1e-6 of phase 8's cluster DP run (poly) at
      every 20th step (step 0's temperatures within rel 1e-14); then K5 and
      K6 on the SP poly run's final 131k lists against their plain versions
-     (float32 and float64, poly and spline, two launches the same bits),
-     median ms back to back and on the device alone, bounds, the -Xptxas
-     -v lines;
+     bit for bit (float32 and float64, poly and spline, two launches the
+     same bits), median ms back to back and on the device alone, bounds
+     and the share of them, the list entries' rate, the blocks an SM
+     holds, the -Xptxas -v lines;
  31. verlet EAM on a jittered 8^3 DP box, spline and poly, card against
      the CPU plain path (step-0 forces and 20-step temperatures <= 1e-12),
      K5 and K6 on every card force, and no host synchronisation in a
@@ -899,6 +902,59 @@ def verlet_eam_case(np_dtype, seed: int = 0) -> dict:
     return dict(x=x, neighbors=neighbors, numneigh=numneigh, border_map=border_map,
                 nlocal_pad=npad, empty=[0, 1, at, nan_i, *range(nan_i + 1, npad)],
                 inside=inside, nan_rows=sorted(nan_rows))
+
+
+def verlet_eam_block_case(np_dtype, k: int, nlocal: int, seed: int = 0) -> dict:
+    """A numpy case for K5 and K6 at the edges of a list layout, in the
+    form of verlet_eam_case: `nlocal` local atoms (= nlocal_pad) and as
+    many ghosts plus 40 at random in a 9 A cube, lists of width `k` of
+    random rows (never the atom itself; repeats allowed, as the contract
+    does not forbid them) with the sentinel row mid-list. Local row 0
+    lists exactly k entries, row 1 k + 5 (past the width), rows 16 to 31
+    none (a block of 16 empty rows), the others 1 to k; the last local
+    row lists first a ghost 1.0 A away along y (`inside`). Every entry
+    past a row's count is the sentinel."""
+    from mdbench_tpu_torch.state import SENTINEL_COORD
+
+    rng = np.random.default_rng(seed)
+    nghost = nlocal + 40
+    nrows = nlocal + nghost + 1
+    sentinel = nrows - 1
+    x = np.concatenate([rng.uniform(0.0, 9.0, (nlocal + nghost, 3)),
+                        [[SENTINEL_COORD] * 3]]).astype(np_dtype)
+    inside = nlocal - 1
+    x[nlocal] = x[inside] + np.array([0.0, 1.0, 0.0], np_dtype)
+    numneigh = rng.integers(1, k + 1, nlocal).astype(np.int64) if k else np.zeros(
+        nlocal, np.int64)
+    numneigh[0] = k
+    if nlocal > 1:
+        numneigh[1] = k + 5
+    numneigh[16:32] = 0
+    neighbors = np.full((nlocal, k), sentinel, np.int64)
+    for i in range(nlocal):
+        rows = rng.integers(0, nrows - 1, k)
+        rows[rows == i] = sentinel
+        if k > 2:
+            rows[k // 2] = sentinel
+        neighbors[i, : min(int(numneigh[i]), k)] = rows[: min(int(numneigh[i]), k)]
+    if k:
+        neighbors[inside, 0] = nlocal
+        numneigh[inside] = max(int(numneigh[inside]), 1)
+    border_map = rng.integers(0, nlocal, nghost)
+    return dict(x=x, neighbors=neighbors, numneigh=numneigh, border_map=border_map,
+                nlocal_pad=nlocal, empty=[i for i in range(nlocal) if numneigh[i] == 0],
+                inside=inside, nan_rows=[])
+
+
+def verlet_eam_edge_cases(np_dtype, seed: int = 0) -> dict:
+    """Every edge case of K5 and K6 by name: verlet_eam_case ("lattice"),
+    and verlet_eam_block_case with an odd width (rows start 8 bytes off a
+    16-byte boundary) over 53 atoms (no multiple of a block's 8 warps, a
+    block of 16 empty rows, rows at and past the width) and with a single
+    local atom (one block, one warp busy)."""
+    return {"lattice": verlet_eam_case(np_dtype, seed),
+            "odd k": verlet_eam_block_case(np_dtype, 37, 53, seed),
+            "one atom": verlet_eam_block_case(np_dtype, 5, 1, seed)}
 
 
 def sweep_edge_calls(torch, dev, np_dtype, share: int, nan: bool, poly) -> tuple:
@@ -2628,8 +2684,11 @@ def verlet_eam_pair(torch, x, nb, nn, npad, cutsq, eam, poly, border_map=None) -
 
 
 def check_verlet_eam_pair(torch, outs: dict, dtype, what: str) -> dict:
-    """Each output within tol_of(dtype) of max |plain| and the same bits from
-    both launches; returns name -> (max abs err, rel)."""
+    """Each output equal to its plain version bit for bit (torch's row sum
+    on the card adds a row of fewer than 128 entries in the kernels'
+    order, and every pair's arithmetic is the same), so within tol_of(dtype)
+    of max |plain| too, and the same bits from both launches; returns name
+    -> (max abs err, rel)."""
     errs = {}
     for name in ("rho", "fp", "f"):
         got, again, want = outs[name]
@@ -2638,47 +2697,54 @@ def check_verlet_eam_pair(torch, outs: dict, dtype, what: str) -> dict:
             fail(f"{what}: two launches gave different {name} bits")
         if not errs[name][1] <= tol_of(torch, dtype):
             fail(f"{what}: {name} disagrees with its plain version (rel {errs[name][1]:.3e})")
+        if not torch.equal(got, want):
+            fail(f"{what}: {name} is not its plain version bit for bit (rel "
+                 f"{errs[name][1]:.3e})")
     return errs
 
 
 def check_verlet_eam_edges(torch, dev, eam_file: str) -> None:
-    """Phase 30's edge cases (verlet_eam_case): K5 and K6 against their
-    plain versions on the card in float32 and float64, spline and poly;
-    rows without a listed pair inside the cutoff get rho and force exactly
-    0, the row one ulp inside does not, two launches the same bits."""
+    """Phase 30's edge cases (verlet_eam_edge_cases): K5 and K6 against
+    their plain versions on the card in float32 and float64, spline and
+    poly, bit for bit; rows without a listed pair inside the cutoff get rho
+    and force exactly 0, the row with a pair just inside does not, two
+    launches the same bits."""
     from mdbench_tpu_torch.models.eam_tables import fit_eam_poly, load_eam
     from mdbench_tpu_torch.ops.eam import EamDevice
 
     t = load_eam(eam_file)
     for np_dtype, dtype in ((np.float32, torch.float32), (np.float64, torch.float64)):
-        case = verlet_eam_case(np_dtype)
-        x, nb, nn, bmap = (torch.tensor(case[k], device=dev)
-                           for k in ("x", "neighbors", "numneigh", "border_map"))
-        eam = EamDevice.from_tables(t, dev, dtype)
-        for form, poly in (("spline", None), ("poly", fit_eam_poly(t))):
-            what = f"K5/K6 edge cases ({form}, {str(dtype)[6:]})"
-            outs = verlet_eam_pair(torch, x, nb, nn, case["nlocal_pad"], VERLET_EAM_CUTSQ,
-                                   eam, poly, bmap)
-            errs = check_verlet_eam_pair(torch, outs, dtype, what)
-            rho, f = outs["rho"][0], outs["f"][0]
-            empty, inside = case["empty"], case["inside"]
-            if bool((rho[empty] != 0).any()) or bool((f[empty] != 0).any()):
-                fail(f"{what}: a row without a pair inside got a density or a force")
-            if not (float(rho[inside]) > 0 and float(f[inside, 1]) != 0):
-                fail(f"{what}: the pair one ulp inside the cutoff was dropped")
-            print(f"{what}: rel err rho {errs['rho'][1]:.3e}, fp {errs['fp'][1]:.3e}, "
-                  f"f {errs['f'][1]:.3e} (tol {tol_of(torch, dtype):.0e}); empty rows "
-                  f"exactly 0, the pair one ulp inside kept, two launches equal",
-                  flush=True)
+        for case_name, case in verlet_eam_edge_cases(np_dtype).items():
+            x, nb, nn, bmap = (torch.tensor(case[k], device=dev)
+                               for k in ("x", "neighbors", "numneigh", "border_map"))
+            eam = EamDevice.from_tables(t, dev, dtype)
+            for form, poly in (("spline", None), ("poly", fit_eam_poly(t))):
+                what = f"K5/K6 edge case {case_name} ({form}, {str(dtype)[6:]})"
+                outs = verlet_eam_pair(torch, x, nb, nn, case["nlocal_pad"],
+                                       VERLET_EAM_CUTSQ, eam, poly, bmap)
+                errs = check_verlet_eam_pair(torch, outs, dtype, what)
+                rho, f = outs["rho"][0], outs["f"][0]
+                empty, inside = case["empty"], case["inside"]
+                if bool((rho[empty] != 0).any()) or bool((f[empty] != 0).any()):
+                    fail(f"{what}: a row without a pair inside got a density or a force")
+                if not (float(rho[inside]) > 0 and float(f[inside, 1]) != 0):
+                    fail(f"{what}: the pair inside the cutoff was dropped")
+                print(f"{what} ({case['nlocal_pad']} rows x k {nb.shape[1]}): max abs err "
+                      f"rho {errs['rho'][0]:.3e}, fp {errs['fp'][0]:.3e}, f "
+                      f"{errs['f'][0]:.3e} (bit for bit); empty rows exactly 0, the pair "
+                      f"inside kept, two launches equal", flush=True)
 
 
 def verlet_eam_kernel_rows(torch, sim, st, launches: dict, smi: str) -> list:
     """Phase 30's kernel check on the final 131k SP state's lists: K5 and
     K6 against their plain versions in float32 and float64, poly (the main
-    path's form) and spline, two launches the same bits; median ms back to
-    back and on the device alone; bounds; the -Xptxas -v lines. Returns
-    the JSON rows of K5 and K6 (the float32 poly form's numbers; the f64
-    and spline times beside)."""
+    path's form) and spline, bit for bit, two launches the same bits;
+    median ms back to back and on the device alone; bounds, the share of
+    them on the device and the listed int64 entries' rate (the list
+    stream); the blocks an SM holds (the kernels use no shared memory and
+    read the spline tables through the read-only cache); the -Xptxas -v
+    lines. Returns the JSON rows of K5 and K6 (the float32 poly form's
+    numbers; the f64 and spline times beside)."""
     from mdbench_tpu_torch.ops import eam as ev
     from mdbench_tpu_torch.probes import graph_ms
 
@@ -2706,25 +2772,34 @@ def verlet_eam_kernel_rows(torch, sim, st, launches: dict, smi: str) -> list:
             times = {kid: (median_ms(torch, kern, 50), graph_ms(kern, 50),
                            median_ms(torch, plain, 3))
                      for kid, (kern, plain) in calls.items()}
+            stream = {kid: listed * nb.element_size() / (times[kid][1] * 1e-3) / 1e12
+                      for kid in times}
+            blocks = {kid: ev.nlist_blocks_per_sm(name, dtype, poly is not None)
+                      for kid, name in (("K5", "eam_rho_nlist"), ("K6", "eam_force_nlist"))}
             print(f"{what} ({npad} rows x K {nb.shape[1]}, {listed} listed pairs, {inside} "
-                  f"inside): rel err rho {errs['rho'][1]:.3e}, fp {errs['fp'][1]:.3e}, f "
-                  f"{errs['f'][1]:.3e} (tol {tol_of(torch, dtype):.0e}), two launches "
-                  f"equal; K5 {times['K5'][0]:.4f} ms back to back, {times['K5'][1]:.4f} "
-                  f"on the device, plain {times['K5'][2]:.4f}, bound {b5[0]:.4f} ({b5[1]}); "
-                  f"K6 {times['K6'][0]:.4f} / {times['K6'][1]:.4f} ms, plain "
-                  f"{times['K6'][2]:.4f}, bound {b6[0]:.4f} ({b6[1]}) on {smi}", flush=True)
-            res[dtype, form] = (errs, times, {"K5": b5, "K6": b6})
+                  f"inside): max abs err rho {errs['rho'][0]:.3e}, fp {errs['fp'][0]:.3e}, f "
+                  f"{errs['f'][0]:.3e} (bit for bit), two launches equal; K5 "
+                  f"{times['K5'][0]:.4f} ms back to back, {times['K5'][1]:.4f} on the device, "
+                  f"plain {times['K5'][2]:.4f}, bound {b5[0]:.4f} ({b5[1]}, "
+                  f"{b5[0] / times['K5'][1]:.1%} of it), list stream {stream['K5']:.3f} TB/s, "
+                  f"{blocks['K5']} blocks of 8 warps an SM; K6 {times['K6'][0]:.4f} / "
+                  f"{times['K6'][1]:.4f} ms, plain {times['K6'][2]:.4f}, bound {b6[0]:.4f} "
+                  f"({b6[1]}, {b6[0] / times['K6'][1]:.1%} of it), list stream "
+                  f"{stream['K6']:.3f} TB/s, {blocks['K6']} blocks an SM; no shared memory, "
+                  f"the spline tables through the read-only cache; on {smi}", flush=True)
+            res[dtype, form] = (errs, times, {"K5": b5, "K6": b6}, stream)
     for kernel in ("eam_rho_nlist_kernel", "eam_force_nlist_kernel"):
         for line in kernel_ptxas_lines(kernel):
             print("  " + line)
     rows = []
     for kid, name, out in (("K5", "eam_rho_nlist", "fp"), ("K6", "eam_force_nlist", "f")):
-        errs, times, bounds = res[torch.float32, "poly"]
+        errs, times, bounds, stream = res[torch.float32, "poly"]
         row = kernel_row(VERLET_EAM_KERNELS[name], launches[kid], errs[out][0],
                          times[kid][0], times[kid][2], bounds[kid], device_ms=times[kid][1])
         row["f64_ms"] = res[torch.float64, "poly"][1][kid][0]
         row["spline_ms"] = res[torch.float32, "spline"][1][kid][0]
         row["spline_f64_ms"] = res[torch.float64, "spline"][1][kid][0]
+        row["list_tb_s"] = stream[kid]
         rows.append(row)
     return rows
 

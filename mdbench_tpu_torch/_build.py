@@ -79,11 +79,13 @@ _SIGNATURES = {
     # the verlet EAM passes (K5, K6): (x, neighbors, numneigh, rhor, frho,
     #  fp, rho, nrows, nlocal_pad, k, nr, nrho, poly, scalars, stream) and
     #  (x, neighbors, numneigh, rhor, z2r, fp_local, fp, f, nrows,
-    #  nlocal_pad, k, nr, nrho, poly, scalars, stream)
+    #  nlocal_pad, k, nr, nrho, poly, scalars, stream); and the blocks of
+    #  one of them an SM holds, (pass, f64, poly)
     "eam_rho_nlist_f32": ([_P] * 7 + [_I] * 6 + [_P] * 2, ctypes.c_int),
     "eam_rho_nlist_f64": ([_P] * 7 + [_I] * 6 + [_P] * 2, ctypes.c_int),
     "eam_force_nlist_f32": ([_P] * 8 + [_I] * 6 + [_P] * 2, ctypes.c_int),
     "eam_force_nlist_f64": ([_P] * 8 + [_I] * 6 + [_P] * 2, ctypes.c_int),
+    "eam_nlist_blocks_per_sm": ([_I] * 3, ctypes.c_int),
     # the bf16 probe (T2): (xc, yc, zc, ijlist, nji, fx, fy, fz, n_units,
     #  icap, share, cutforcesq, sigma6 and 48*epsilon rounded to bfloat16,
     #  stream)
@@ -170,12 +172,15 @@ def load(src_dir: Path | None = None) -> ctypes.CDLL:
     """The kernel library, built if needed, with argtypes declared. With
     `src_dir`, another copy of csrc/ with the same entry points (an
     earlier checkout's or an edited one, for an A/B on the card), the
-    library built from it becomes the one every wrapper launches."""
+    library built from it becomes the one every wrapper launches. An
+    entry point that such a copy lacks is left undeclared."""
     global _lib
     if _lib is None or src_dir is not None:
         lib = ctypes.CDLL(str(build(src_dir)))
         for name, (argtypes, restype) in _SIGNATURES.items():
-            fn = getattr(lib, name)
+            fn = getattr(lib, name, None)
+            if fn is None:  # an earlier checkout's library lacks it
+                continue
             fn.argtypes = argtypes
             fn.restype = restype
         _lib = lib

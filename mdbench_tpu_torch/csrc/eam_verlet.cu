@@ -35,32 +35,44 @@
 // m = clamp(int(floor(p)), 1, n-1), frac = min(p - m, 1). Every multiply,
 // add and subtract is rounded on its own (no fused multiply-add, as in
 // eam_cluster.cu, whose header says why), in the plain version's order;
-// sqrt and 1/r are the IEEE ones. Each pair's value therefore equals the
-// plain torch version's bit for bit; only the order of the sums differs.
+// sqrt and 1/r are the IEEE ones. One warp takes one local atom; lane l
+// keeps its entries l, l + 32, ... and sums their terms in list order, and
+// a fixed shuffle tree adds the 32 lane sums: no atomics, two launches
+// give the same bits, and they are the plain version's, since torch's row
+// sum on the card adds a row of fewer than 128 entries in the same order.
+// A pair outside the cutoff, a sentinel neighbour (rsq inf in float32)
+// and a NaN row (rsq NaN) fail the rsq < cutsq test and are skipped by a
+// branch, never multiplied by a 0/1 mask, so a row without a pair inside
+// gets rho and force exactly 0. Pass 2 recomputes d and r from x rather
+// than keeping (N, K) planes across the ghost-fp refresh.
 //
-// Design: one warp per local atom, the lanes striding over its list (lane
-// l takes entries l, l+32, ...), so a warp reads its list row coalesced
-// and gathers its neighbours' coordinates, which neighbouring atoms share
-// through L1 and L2. Each lane sums its pairs in list order and a fixed
-// shuffle tree adds the 32 lane sums: no atomics, and two launches give
-// the same bits. Pass 2 recomputes d and r from x rather than keeping
-// (N, K) planes across the ghost-fp refresh. The tables (28 KB in float32
-// at nr 500) are read through the read-only cache. A pair outside the
-// cutoff, a sentinel neighbour (rsq inf in float32) and a NaN row (rsq
-// NaN) fail the rsq < cutsq test and are skipped by a branch, never
-// multiplied by a 0/1 mask, so a row without a pair inside gets rho and
-// force exactly 0.
+// What bounds them. By bytes, the listed int64 entries: on the 131k SP
+// EAM run's final lists (K = 88; 8,031,065 listed pairs, 5,054,118 inside
+// the cutoff) a pass reads 64 MB of them beside 1.6 MB of x and 1 MB of
+// numneigh, 0.021 ms at 3.35 TB/s. By instruction issue, the unfused
+// arithmetic: ~36M warp instructions a K6 pass (two degree-16 Horner
+// chains, 64 instructions, on each inside pair, run by the whole warp
+// while 52% of its lane slots hold one), ~39 us at 4 an SM cycle.
 //
-// What bounds it on the card: the bytes. On the 131k SP EAM run's final
-// lists (K = 88; 8,031,065 listed pairs, 5,054,118 inside the cutoff) a
-// pass must read the listed int64 entries (64 MB), numneigh, x and fp:
-// 0.021 ms at 3.35 TB/s, against 0.004 (K5) and 0.007 ms (K6) for the
-// operations at 67 TFLOP/s. On one H100 (NVIDIA H100 80GB HBM3, 700.00 W;
-// chip_smoke.py phase 30) K5 and K6 take 0.062 and 0.059 ms in float32,
-// ~35% of that bound: a warp reads only its atom's listed entries, in
-// one coalesced sweep, and the x_j gathers of neighbouring atoms hit the
-// same L1 and L2 lines. Lists of int32 ids would halve the bytes that
-// bound it.
+// Design. K5 in float32: each lane first loads the list entries of two
+// of its rounds, then the x rows they name, then does their arithmetic,
+// so that a warp has its list and gather loads in flight together rather
+// than one round's chain (entry, then row, then math) after the other,
+// at 32 registers: all 64 warps an SM. K6, and K5 in float64, keep one
+// round at a time: K6 is bound by issue, and every way of putting more
+// loads in flight that was tried cost it warps or instructions. x rows
+// and fp_j by 32-bit index arithmetic. On one H100 (NVIDIA H100 80GB
+// HBM3, 700.00 W; probes/eam_verlet.py, in turns with the one-round
+// kernels that preceded these, on the 131k lists) float32 poly K5 takes
+// 0.047 ms on the device against 0.060 (44% of the bytes' bound), K6
+// 0.056 against 0.057 (37%); the list stream runs at 1.4 and 1.1 TB/s.
+// Lists of int32 ids would halve the bytes that bound them. Measured
+// and left out (PERF.md): a persistent grid whose blocks bring the list
+// rows of tiles of atoms into a ring of shared-memory stages by 1-D bulk
+// copies (TMA) for consumer warps (the ring's copies alone stream ~2
+// TB/s, and its bookkeeping costs registers or L1 locality), per-warp
+// rings, and K6 computing fpair densely over the inside pairs of two
+// atoms in shared memory (the same bits, 44% slower).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,11 +85,21 @@ using ilist_sweep::add_rn;
 using ilist_sweep::mul_rn;
 using ilist_sweep::rsq_rn;
 
-constexpr int kThreads = 256;             // threads per block
-constexpr int kWarps = kThreads / 32;     // local atoms per block
-constexpr int kNCoef = 17;                // degree-16 polynomials
-constexpr int kRow = 7;                   // spline coefficients a row
+constexpr int kThreads = 256;          // threads per block
+constexpr int kWarps = kThreads / 32;  // local atoms per block
+constexpr int kNCoef = 17;             // degree-16 polynomials
+constexpr int kRow = 7;                // spline coefficients a row
 constexpr int kScalars = 3 + 3 * kNCoef + 2;
+
+// the blocks of a pass an SM holds at least, which caps a thread's
+// registers: 8 blocks, 32 registers (all 64 warps an SM); 5 blocks, 48
+// registers, for the float64 K6, which spills below that
+template <typename T, bool kForce>
+constexpr int kMinBlocks = sizeof(T) == 8 && kForce ? 5 : 8;
+// K5: the rounds of list entries a lane loads (and then their x rows)
+// before their arithmetic, two in float32
+template <typename T>
+constexpr int kRhoRounds = sizeof(T) == 4 ? 2 : 1;
 
 template <typename T>
 struct Scalars {
@@ -142,26 +164,48 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
+// row j of x (a row id is below nrows, an int: 32-bit index arithmetic)
 template <typename T>
-__device__ __forceinline__ void load_row(const T* x, int64_t row, T& a, T& b, T& c) {
-  a = x[3 * row];
-  b = x[3 * row + 1];
-  c = x[3 * row + 2];
+__device__ __forceinline__ void load_row(const T* x, int64_t j, T& a, T& b, T& c) {
+  const T* p = x + 3 * static_cast<uint64_t>(static_cast<uint32_t>(j));
+  a = p[0];
+  b = p[1];
+  c = p[2];
 }
 
-// the pairs of local atom i: its list row and min(numneigh[i], k)
+// the pairs of local atom i: min(numneigh[i], k)
 __device__ __forceinline__ int list_length(const int64_t* numneigh, int i, int k) {
   const int64_t nn = numneigh[i];
   return nn < 0 ? 0 : (nn > k ? k : static_cast<int>(nn));
 }
 
+// A lane's batch of its entries q0, q0 + 32, ... (kR of them, those below
+// n): first every entry, then every x row they name, so that the loads
+// of a batch are in flight together; their arithmetic follows in list
+// order.
+template <int kR, typename T>
+struct Batch {
+  int64_t j[kR];
+  T xj[kR], yj[kR], zj[kR];
+
+  __device__ __forceinline__ void load(const T* x, const int64_t* list, int q0, int n) {
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+      if (q0 + 32 * r < n) j[r] = list[q0 + 32 * r];
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+      if (q0 + 32 * r < n) load_row(x, j[r], xj[r], yj[r], zj[r]);
+  }
+};
+
 template <typename T, bool kPoly>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, (kMinBlocks<T, false>))
 eam_rho_nlist_kernel(const T* __restrict__ x, const int64_t* __restrict__ neighbors,
                      const int64_t* __restrict__ numneigh, const T* __restrict__ rhor,
                      const T* __restrict__ frho, T* __restrict__ fp,
                      T* __restrict__ rho, int nrows, int nlocal_pad, int k,
                      const Scalars<T> s) {
+  constexpr int kR = kRhoRounds<T>;
   // the rows past the local ones: fp 0 (the caller fills the ghosts)
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t g = nlocal_pad + static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
@@ -175,22 +219,26 @@ eam_rho_nlist_kernel(const T* __restrict__ x, const int64_t* __restrict__ neighb
   const int n = list_length(numneigh, i, k);
   const int64_t* list = neighbors + static_cast<int64_t>(i) * k;
   T acc = T(0);
-  for (int q = lane; q < n; q += 32) {
-    T xj, yj, zj;
-    load_row(x, list[q], xj, yj, zj);
-    const T dx = xi - xj, dy = yi - yj, dz = zi - zj;
-    const T rsq = rsq_rn(dx, dy, dz);
-    if (rsq < s.cutsq) {
-      const T r = sqrt_rn(rsq);
-      T dens;
-      if constexpr (kPoly) {
-        dens = horner(s.dens, clip1(mul_rn(sub_rn(r, s.mid), s.iscale)));
-      } else {
-        T p;
-        const int m = grid_index(r, s.rdr, s.nr, p);
-        dens = cubic(rhor + static_cast<int64_t>(m) * kRow + 3, p);
+  for (int q0 = lane; q0 < n; q0 += 32 * kR) {
+    Batch<kR, T> b;
+    b.load(x, list, q0, n);
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      if (q0 + 32 * r >= n) break;
+      const T dx = xi - b.xj[r], dy = yi - b.yj[r], dz = zi - b.zj[r];
+      const T rsq = rsq_rn(dx, dy, dz);
+      if (rsq < s.cutsq) {
+        const T rr = sqrt_rn(rsq);
+        T dens;
+        if constexpr (kPoly) {
+          dens = horner(s.dens, clip1(mul_rn(sub_rn(rr, s.mid), s.iscale)));
+        } else {
+          T p;
+          const int m = grid_index(rr, s.rdr, s.nr, p);
+          dens = cubic(rhor + static_cast<int64_t>(m) * kRow + 3, p);
+        }
+        acc = add_rn(acc, dens);
       }
-      acc = add_rn(acc, dens);
     }
   }
   acc = warp_sum(acc);
@@ -203,7 +251,7 @@ eam_rho_nlist_kernel(const T* __restrict__ x, const int64_t* __restrict__ neighb
 }
 
 template <typename T, bool kPoly>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, (kMinBlocks<T, true>))
 eam_force_nlist_kernel(const T* __restrict__ x, const int64_t* __restrict__ neighbors,
                        const int64_t* __restrict__ numneigh, const T* __restrict__ rhor,
                        const T* __restrict__ z2r, const T* __restrict__ fp_local,
@@ -226,7 +274,7 @@ eam_force_nlist_kernel(const T* __restrict__ x, const int64_t* __restrict__ neig
     const T rsq = rsq_rn(dx, dy, dz);
     if (rsq < s.cutsq) {
       const T r = sqrt_rn(rsq);
-      const T fpj = fp[j];
+      const T fpj = fp[static_cast<uint32_t>(j)];
       T fpair;
       if constexpr (kPoly) {
         const T t = clip1(mul_rn(sub_rn(r, s.mid), s.iscale));
@@ -356,4 +404,25 @@ extern "C" int eam_force_nlist_f64(const double* x, const int64_t* neighbors,
                                    const double* scalars, void* stream) {
   return launch_force<double>(x, neighbors, numneigh, rhor, z2r, fp_local, fp, f, nrows,
                               nlocal_pad, k, nr, nrho, poly, scalars, stream);
+}
+
+// the blocks of one instantiation an SM holds (the occupancy API): pass
+// 5 (K5) or 6 (K6), f64 0 or 1, poly 0 or 1; a negative CUDA error code
+// on failure
+extern "C" int eam_nlist_blocks_per_sm(int pass, int f64, int poly) {
+  const void* fn = nullptr;
+  if (pass == 5)
+    fn = f64 ? (poly ? reinterpret_cast<const void*>(&eam_rho_nlist_kernel<double, true>)
+                     : reinterpret_cast<const void*>(&eam_rho_nlist_kernel<double, false>))
+             : (poly ? reinterpret_cast<const void*>(&eam_rho_nlist_kernel<float, true>)
+                     : reinterpret_cast<const void*>(&eam_rho_nlist_kernel<float, false>));
+  else if (pass == 6)
+    fn = f64 ? (poly ? reinterpret_cast<const void*>(&eam_force_nlist_kernel<double, true>)
+                     : reinterpret_cast<const void*>(&eam_force_nlist_kernel<double, false>))
+             : (poly ? reinterpret_cast<const void*>(&eam_force_nlist_kernel<float, true>)
+                     : reinterpret_cast<const void*>(&eam_force_nlist_kernel<float, false>));
+  if (fn == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, 0);
+  return e == cudaSuccess ? blocks : -static_cast<int>(e);
 }

@@ -217,6 +217,16 @@ def _scalars(eam: EamDevice, poly, cutforcesq: float) -> np.ndarray:
     return np.ascontiguousarray(np.concatenate([head, [eam.rdr, eam.rdrho]]))
 
 
+def nlist_blocks_per_sm(name: str, dtype, poly: bool) -> int:
+    """The blocks of K5 (`eam_rho_nlist`) or K6 that an SM of the current
+    card holds (the occupancy API)."""
+    n = _build.load().eam_nlist_blocks_per_sm(
+        5 if name == "eam_rho_nlist" else 6, int(dtype == torch.float64), int(poly))
+    if n < 0:
+        raise RuntimeError(f"{name} occupancy query failed: CUDA error {-n}")
+    return n
+
+
 def _launch(name, x, ptrs, sizes, scalars):
     """Launch kernel `name` (the f32 or f64 entry point by x's dtype) on the
     current stream; raises on a launch error."""

@@ -4,7 +4,10 @@ probes under tools/ that hold Pallas kernels.
 - ``python -m mdbench_tpu_torch.probes.bf16 [golden]``: K1 with bfloat16
   pair math (tools/r3_bf16.py);
 - ``python -m mdbench_tpu_torch.probes.dma``: list-driven row fetch
-  through shared memory (tools/r4_dma.py).
+  through shared memory (tools/r4_dma.py);
+- ``python -m mdbench_tpu_torch.probes.eam_verlet [CSRC_DIR ...]``: the
+  verlet EAM kernels K5 and K6 at 131k, against earlier csrc/ copies in
+  turns.
 
 Each needs a CUDA card and says so when it finds none. The timers here:
 `event_ms` (back-to-back launches, host path included where it is the

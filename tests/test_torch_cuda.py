@@ -37,6 +37,7 @@ from chip_smoke import (
     random_tables,
     sweep_edge_calls,
     verlet_eam_case,
+    verlet_eam_edge_cases,
     verlet_eam_pair,
     write_standin_funcfl,
 )
@@ -803,6 +804,42 @@ def test_cuda_verlet_eam_kernels_on_edge_cases(cuda, eam_file, seed, poly, tdtyp
     rho, f = outs["rho"][0], outs["f"][0]
     assert bool((rho[case["empty"]] == 0).all()) and bool((f[case["empty"]] == 0).all())
     assert float(rho[case["inside"]]) > 0 and float(f[case["inside"], 1]) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lattice", "odd k", "one atom"])
+@pytest.mark.parametrize("poly", [False, True], ids=["spline", "poly"])
+@pytest.mark.parametrize("tdtype", [torch.float32, torch.float64])
+def test_cuda_verlet_eam_kernels_bit_equal_on_edge_cases(cuda, eam_file, name, poly, tdtype):
+    """K5 and K6 equal to their plain versions bit for bit on
+    chip_smoke.verlet_eam_edge_cases (the lattice case; an odd width over
+    53 atoms with a block of 16 empty rows and rows at and past the width;
+    a single local atom): every row has fewer than 128 entries, where
+    torch's row sum on the card adds in the kernels' order. Two launches
+    give the same bits; rows without a pair inside get exactly 0."""
+    np_dtype = np.float32 if tdtype == torch.float32 else np.float64
+    case = verlet_eam_edge_cases(np_dtype)[name]
+    x, nb, nn, bmap = (torch.tensor(case[k], device=cuda)
+                       for k in ("x", "neighbors", "numneigh", "border_map"))
+    t = load_eam(eam_file)
+    outs = verlet_eam_pair(torch, x, nb, nn, case["nlocal_pad"], VERLET_EAM_CUTSQ,
+                           tev.EamDevice.from_tables(t, cuda, tdtype),
+                           fit_eam_poly(t) if poly else None, bmap)
+    for out in ("rho", "fp", "f"):
+        got, again, want = outs[out]
+        assert torch.equal(got, again) and torch.equal(got, want), out
+    rho, f = outs["rho"][0], outs["f"][0]
+    assert bool((rho[case["empty"]] == 0).all()) and bool((f[case["empty"]] == 0).all())
+    assert float(rho[case["inside"]]) > 0 and float(f[case["inside"], 1]) != 0
+
+
+@pytest.mark.cuda
+def test_cuda_verlet_eam_float32_occupancy(cuda):
+    """The float32 K5 and K6 hold 8 blocks of 8 warps an SM, all 64 warps
+    (their launch bounds cap them at 32 registers)."""
+    for name in ("eam_rho_nlist", "eam_force_nlist"):
+        for poly in (False, True):
+            assert tev.nlist_blocks_per_sm(name, torch.float32, poly) == 8, (name, poly)
 
 
 @pytest.mark.cuda

@@ -2,11 +2,13 @@
 passes (eam_density, the ghost fp, eam_pair_forces) against the composed
 compute_force_eam(_poly) bit for bit and against mdbench_tpu's at 1e-12
 (float64) and 1e-5 (float32) of max |value|, on chip_smoke's edge-case
-lists (numneigh 0 over real entries, sentinel and NaN rows in lists,
-pairs at the cutoff and one ulp inside it, padding rows, lists longer
-than their width); CPU tensors never reach the kernel build; the kernel
-operand checks hold for the lists that every verlet EAM path builds;
-ops/eam.py imports no jax.
+lists (verlet_eam_edge_cases: numneigh 0 over real entries, sentinel and
+NaN rows in lists, pairs at the cutoff and one ulp inside it, padding
+rows, lists longer than their width; an odd width over 53 atoms with a
+block of 16 empty rows and rows at and past the width; a single local
+atom); CPU tensors never reach the kernel build; the kernel operand
+checks hold for the lists that every verlet EAM path builds; ops/eam.py
+imports no jax.
 
 mdbench_tpu multiplies d by a masked 0, so a list that holds a NaN row
 gives its atom a NaN force there and 0 here; those rows are compared to
@@ -20,7 +22,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import VERLET_EAM_CUTSQ, verlet_eam_case, write_standin_funcfl
+from chip_smoke import (
+    VERLET_EAM_CUTSQ,
+    verlet_eam_case,
+    verlet_eam_edge_cases,
+    write_standin_funcfl,
+)
 from mdbench_tpu.models import eam_tables as jtab
 from mdbench_tpu.ops import eam as jeam
 from mdbench_tpu_torch import _build
@@ -52,7 +59,11 @@ def _port_args(case, dtype, eam_file):
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("poly", [False, True], ids=["spline", "poly"])
 def test_split_passes_on_edge_cases(eam_file, dtype, poly):
-    case = verlet_eam_case(dtype)
+    for name, case in verlet_eam_edge_cases(dtype).items():
+        _check_split_passes(eam_file, dtype, poly, case, name)
+
+
+def _check_split_passes(eam_file, dtype, poly, case, name):
     x, nb, nn, bmap, _, npad, cutsq, tdev = _port_args(case, dtype, eam_file)
     tpoly = ttab.fit_eam_poly(ttab.load_eam(eam_file)) if poly else None
     st, fp = team.eam_density(x, nb, nn, npad, cutsq, tdev, tpoly)
@@ -61,15 +72,15 @@ def test_split_passes_on_edge_cases(eam_file, dtype, poly):
     composed = (team.compute_force_eam_poly(x, nb, nn, bmap, npad, npad, cutsq, tdev,
                                             tpoly) if poly else
                 team.compute_force_eam(x, nb, nn, bmap, npad, npad, cutsq, tdev))
-    assert torch.equal(f, composed[0]) and torch.equal(fp, composed[1])
-    assert f.dtype == T_OF[dtype] and fp.shape == (x.shape[0],)
+    assert torch.equal(f, composed[0]) and torch.equal(fp, composed[1]), name
+    assert f.dtype == T_OF[dtype] and fp.shape == (x.shape[0],), name
 
     _, rho = team.eam_rho_nlist(x, nb, nn, npad, cutsq, tdev, tpoly)
     empty = case["empty"]
-    assert bool((rho[empty] == 0).all()) and bool((f[empty] == 0).all())
+    assert bool((rho[empty] == 0).all()) and bool((f[empty] == 0).all()), name
     inside = case["inside"]
-    assert float(rho[inside]) > 0 and float(f[inside, 1]) != 0
-    assert bool(torch.isfinite(f).all()) and bool(torch.isfinite(fp).all())
+    assert float(rho[inside]) > 0 and float(f[inside, 1]) != 0, name
+    assert bool(torch.isfinite(f).all()) and bool(torch.isfinite(fp).all()), name
 
     t = jtab.load_eam(eam_file)
     jargs = (jnp.asarray(case["x"]), jnp.asarray(case["neighbors"]),
@@ -79,12 +90,37 @@ def test_split_passes_on_edge_cases(eam_file, dtype, poly):
                  else jeam.compute_force_eam(*jargs))
     f_j, fp_j = np.asarray(f_j, np.float64), np.asarray(fp_j, np.float64)
     nan_rows = case["nan_rows"]
-    assert np.isnan(f_j[nan_rows]).any(axis=1).all()
+    assert np.isnan(f_j[nan_rows]).any(axis=1).all(), name
     keep = np.setdiff1d(np.arange(npad), nan_rows)
     for got, want in ((f.double().numpy()[keep], f_j[keep]), (fp.double().numpy(), fp_j)):
-        assert np.abs(want).max() > 0
+        assert np.abs(want).max() > 0, name
         err = np.abs(got - want).max() / np.abs(want).max()
-        assert err <= TOL[dtype], err
+        assert err <= TOL[dtype], (name, err)
+
+
+def test_edge_cases_cover_the_layouts():
+    """The edge cases hold what the kernels' layout is tested on: an odd
+    width (rows 8 bytes off a 16-byte boundary), a row count no multiple of
+    a block's 8 warps, a block of 16 empty rows, rows at and past the
+    width, a single local atom, the sentinel row mid-list, a row with a
+    pair inside the cutoff; row ids within the rows."""
+    cases = verlet_eam_edge_cases(np.float64)
+    odd, one = cases["odd k"], cases["one atom"]
+    k = odd["neighbors"].shape[1]
+    assert k % 2 == 1 and odd["nlocal_pad"] % 8 != 0
+    assert (odd["numneigh"][16:32] == 0).all() and set(range(16, 32)) <= set(odd["empty"])
+    assert (odd["numneigh"] == k).any() and (odd["numneigh"] > k).any()
+    assert one["nlocal_pad"] == 1 and one["numneigh"][0] > 0
+    for case in cases.values():
+        nrows, sentinel = case["x"].shape[0], case["x"].shape[0] - 1
+        nb, nn = case["neighbors"], case["numneigh"]
+        assert nb.min() >= 0 and nb.max() < nrows
+        assert nb.shape[0] == nn.shape[0] == case["nlocal_pad"]
+        assert case["border_map"].shape == (nrows - 1 - case["nlocal_pad"],)
+        listed = np.arange(nb.shape[1])[None, :] < np.minimum(nn, nb.shape[1])[:, None]
+        assert (nb[listed] == sentinel).any()
+        assert not (nb == np.arange(nb.shape[0])[:, None])[listed].any()
+        assert nn[case["inside"]] > 0
 
 
 def test_cpu_never_builds(eam_file, monkeypatch):

@@ -260,3 +260,44 @@ def test_engine_hands_approx_rcp_to_the_exact_list_kernels(monkeypatch, path, ap
         assert "approx_rcp" not in kwargs
     else:
         assert kwargs["approx_rcp"] is approx
+
+
+def test_eam_verlet_probe_set_up_imports_no_jax():
+    """probes/eam_verlet.py's calls on a 4^3 CPU verlet EAM box (the
+    wrappers' plain versions on the CPU), float32 and float64, poly and
+    spline, in a process that never imports jax or mdbench_tpu: each
+    kernel's outputs are its plain version's bits, and the bounds of the
+    lists count their listed pairs."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import sys, torch\n"
+        "import chip_smoke\n"
+        "from mdbench_tpu_torch.probes import eam_verlet as probe\n"
+        "sim = probe.eam_sim('cpu', nx=4, ny=4, nz=4, ntimes=4, reneigh_every=2,\n"
+        "                    eam_eval='poly')\n"
+        "st = sim.run(repeats=0).state\n"
+        "for dtype in (torch.float32, torch.float64):\n"
+        "    for form in probe.FORMS:\n"
+        "        calls = probe.eam_calls(sim, st.x, st.nlist, st.halo.border_map, dtype,\n"
+        "                                form)\n"
+        "        for kid in probe.NAMES:\n"
+        "            assert probe.bits(calls[kid]()) == probe.bits(calls['plain ' + kid]())\n"
+        "        b5, b6, _, listed, inside = chip_smoke.eam_verlet_bounds(\n"
+        "            torch, sim, st, dtype, form == 'poly')\n"
+        "        valid = (torch.arange(st.nlist.neighbors.shape[1])[None, :]\n"
+        "                 < st.nlist.numneigh[:, None])\n"
+        "        assert listed == int(valid.sum()) > inside > 0\n"
+        "        assert b5[1] == b6[1] == 'bytes'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'mdbench_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code],
+                         cwd=Path(__file__).resolve().parent.parent,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
