@@ -142,8 +142,12 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      (which divide), K1b equal to K1 bit for bit on untruncated plans when
      both take it; float64 bit-equal with the flag and without it;
  25. the bf16 probe (T2, probes/bf16.py): the bf16 kernel against its
-     plain twin on phase 3's random cases (share 1, 2, 4) and on phase 4's
-     final 131k flat lists, within BF16_TOL of max |f|; the probe's force
+     plain twin on phase 3's random cases and on probes.bf16.edge_case
+     (odd inside counts, lists ending mid-chunk, an all-padding unit
+     exactly 0, pairs on both sides of a cutoff that bfloat16 cannot
+     represent), share 1, 2, 4, and on phase 4's final 131k flat lists,
+     within BF16_TOL of max |f|; its bound (bf16_bound) beside the
+     earlier one; the probe's force
      error against exact K1 and the device times (CUDA graph) of K1 exact,
      K1 approximate and the bf16 kernel on those lists (the bf16 JSON
      row's ms); the 131k/200 SP run with the bf16
@@ -330,10 +334,14 @@ pairs are the kernel's work on these lists (stats.compute_cluster_stats;
 for K5 and K6 each per-atom list up to min(numneigh, K)): the exact-list
 kernels' listed pairs, and for the group-window kernels the window pairs that their
 contract asks for, whatever they cull (the pairs the kernel evaluates
-are printed beside). The bf16 kernel evaluates
-every listed pair without a branch: per pair 9 float32 operations
-(subtracts, cutoff test, reciprocal, sums) and 16 bfloat16 ones, the latter
-over 134 TFLOP/s (two per packed bf16x2 instruction at the float32 rate).
+are printed beside). The bf16 kernel follows K1's convention: per listed
+pair the distance test, 6 float32 operations (subtracts, converts to
+bfloat16) and 7 bfloat16 ones (rsq, the two compares); per pair inside
+its bfloat16 cutoff test the pair math, 9 float32 operations (the
+reciprocal, converts, sums) and 10 bfloat16 ones (sr6, gf, d*gf), the
+bfloat16 ones over 134 TFLOP/s (two per packed bf16x2 instruction at the
+float32 rate) (bf16_bound; phase 25 prints the earlier bound, 9 float32
+and 16 bfloat16 operations on every listed pair, beside it).
 A row fetch moves bytes only. No single PyTorch call computes a force
 kernel's function, so their library_ms is null; a row fetch's is
 index_select's, which is also its plain version. The rows of K1, K1t and
@@ -2284,6 +2292,34 @@ def run_approx_phase(torch, dev) -> None:
                 fail(f"K1b with approx_rcp is not K1 with it bit for bit ({dtype})")
 
 
+def bf16_inside(torch, planes, ijlist, npad: int, cutsq: float, share: int):
+    """Per i-atom (unit-major, as the lists' rows), the listed pairs the bf16
+    kernel's sweep A marks: 0 < rsq < cutsq on rsq formed in bfloat16 as
+    its plain twin forms it (float32 distances rounded to bfloat16)."""
+    nu, icap = ijlist.shape
+    jl = ijlist.long()
+
+    def delta(p):
+        pj = p.reshape(-1, 16)[jl].reshape(nu, 1, icap * 16)
+        return (p[:npad].reshape(nu, share * 8, 1) - pj).to(torch.bfloat16)
+
+    dx, dy, dz = (delta(p) for p in planes)
+    rsq = (dx * dx + dy * dy + dz * dz).float()
+    return ((rsq < cutsq) & (rsq > 0)).sum(2).flatten()
+
+
+def bf16_bound(listed: int, inside: int, nbytes: int) -> tuple:
+    """(bound_ms, bound_by) of the bf16 kernel: per listed pair the
+    distance test (6 float32 operations: subtracts and converts; 7
+    bfloat16: rsq and the two compares), per inside pair the pair math (9
+    float32: the reciprocal, converts, sums; 10 bfloat16: sr6, gf, d*gf);
+    and the bytes."""
+    t_ops = ((6 * listed + 9 * inside) / PEAK_FLOPS["float32"]
+             + (7 * listed + 10 * inside) / PEAK_FLOPS["bfloat16"])
+    t_mem = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+
+
 def run_bf16_phase(torch, dev, smi: str, ec, lj_main) -> dict:
     """Phase 25: the bf16 probe (T2). `lj_main` is phase 4's (sim, final
     state, K1b launches). Returns the bf16 kernel's JSON row."""
@@ -2304,6 +2340,16 @@ def run_bf16_phase(torch, dev, smi: str, ec, lj_main) -> dict:
               f"{rel:.3e} (tol {BF16_TOL:.0e})", flush=True)
         if not rel <= BF16_TOL or any(bool((f[8:12] != 0).any()) for f in got):
             fail(f"the bf16 kernel disagrees with its plain twin (share {share})")
+        case = probe.edge_case(share, dev)
+        got = probe.edge_force(case)
+        torch.cuda.synchronize()
+        err, rel = rel_err(torch, got, probe.edge_force(case, plain=True))
+        print(f"bf16 kernel edge case share {share} (cutoff {probe.EDGE_CUTOFF}, nji "
+              f"{case['nji'].tolist()}): max abs err {err:.3e}, rel {rel:.3e} (tol "
+              f"{BF16_TOL:.0e})", flush=True)
+        if not rel <= BF16_TOL or any(bool((f[share:2 * share] != 0).any()) for f in got):
+            fail(f"the bf16 kernel disagrees with its plain twin on the edge case "
+                 f"(share {share})")
 
     sim, st, _ = lj_main
     cl, pr, p = st.clusters, st.pairs, sim.params
@@ -2326,17 +2372,24 @@ def run_bf16_phase(torch, dev, smi: str, ec, lj_main) -> dict:
     t = probe.kernel_times(sim, st)
     cs = compute_cluster_stats(cl, pr, npad, GROUP, p.cutforce**2, p.cutneigh**2)
     pairs = ilist_pairs(cs, share)
-    t_ops = 9 * pairs / PEAK_FLOPS["float32"] + 16 * pairs / PEAK_FLOPS["bfloat16"]
-    t_mem = nbytes_of(*planes, pr.ijlist, pr.nji, *out) / HBM_BYTES_PER_S
-    bound = (max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem else "bytes")
-    print(f"bf16 kernel at 131k (phase 4's final flat lists, {pairs} pairs): max abs "
-          f"err {err:.3e}, rel {rel:.3e} (tol {BF16_TOL:.0e}) against its plain twin")
+    inside = int(bf16_inside(torch, planes, pr.ijlist, npad, cut[0], share).sum())
+    nbytes = nbytes_of(*planes, pr.ijlist, pr.nji, *out)
+    bound = bf16_bound(pairs, inside, nbytes)
+    # the earlier convention: the whole pair math on every listed pair
+    old_ms = max((9 / PEAK_FLOPS["float32"] + 16 / PEAK_FLOPS["bfloat16"]) * pairs,
+                 nbytes / HBM_BYTES_PER_S) * 1e3
+    print(f"bf16 kernel at 131k (phase 4's final flat lists, {pairs} pairs, {inside} "
+          f"inside in bfloat16): max abs err {err:.3e}, rel {rel:.3e} (tol "
+          f"{BF16_TOL:.0e}) against its plain twin")
     print(f"bf16 force err: max/typ {mx:.3e}  mean/typ {mean:.3e} (against exact K1)")
     print(f"force K1 exact: {t['k1_exact']:.4f} ms   K1 approx-rcp: "
           f"{t['k1_approx']:.4f} ms   bf16: {t['bf16']:.4f} ms (bf16 / exact "
           f"{t['bf16'] / t['k1_exact']:.4f}, approx / exact "
           f"{t['k1_approx'] / t['k1_exact']:.4f}); bf16 plain {plain_ms:.4f} ms, "
-          f"bound {bound[0]:.4f} ms ({bound[1]}) on {smi}", flush=True)
+          f"bound {bound[0]:.4f} ms ({bound[1]}: distance test on every listed pair, "
+          f"pair math inside; {bound[0] / t['bf16']:.1%} of it on the device), the "
+          f"earlier bound (pair math on every listed pair) {old_ms:.4f} ms on {smi}",
+          flush=True)
     if not rel <= BF16_TOL:
         fail("the bf16 kernel disagrees with its plain twin at 131k")
 
@@ -2369,6 +2422,8 @@ def run_fetch_phase(torch, dev, smi: str) -> list:
     from mdbench_tpu_torch.ops import row_fetch as rf
     from mdbench_tpu_torch.probes import dma
 
+    for line in kernel_ptxas_lines("row_fetch_tma_kernel"):
+        print(line)
     table, idx, idx8 = dma.make_inputs(dev)
     for mode in rf.MODES:  # id lists that end inside a stage
         for rows_per_id, ids in ((1, idx[:37]), (8, idx8[:5])):

@@ -87,8 +87,8 @@ _SIGNATURES = {
     "eam_force_nlist_f64": ([_P] * 8 + [_I] * 6 + [_P] * 2, ctypes.c_int),
     "eam_nlist_blocks_per_sm": ([_I] * 3, ctypes.c_int),
     # the bf16 probe (T2): (xc, yc, zc, ijlist, nji, fx, fy, fz, n_units,
-    #  icap, share, cutforcesq, sigma6 and 48*epsilon rounded to bfloat16,
-    #  stream)
+    #  icap, share, cutforcesq rounded up to bfloat16, sigma6 and
+    #  48*epsilon rounded to bfloat16, stream)
     "lj_cluster_ilist_bf16": (
         [_P] * 8 + [_I] * 3 + [ctypes.c_float] * 3 + [_P], ctypes.c_int),
     # the row-fetch probe (T1): (table, ids, out, n_ids, n_table_rows,
@@ -173,15 +173,26 @@ def load(src_dir: Path | None = None) -> ctypes.CDLL:
     `src_dir`, another copy of csrc/ with the same entry points (an
     earlier checkout's or an edited one, for an A/B on the card), the
     library built from it becomes the one every wrapper launches. An
-    entry point that such a copy lacks is left undeclared."""
+    entry point that such a copy lacks is left undeclared; the package's
+    own library (no `src_dir`, or `src_dir` the package's csrc/) must have
+    every entry point of _SIGNATURES, or load raises naming the missing
+    ones."""
     global _lib
     if _lib is None or src_dir is not None:
-        lib = ctypes.CDLL(str(build(src_dir)))
+        own = src_dir is None or Path(src_dir).resolve() == SRC_DIR.resolve()
+        path = build(src_dir)
+        lib = ctypes.CDLL(str(path))
+        missing = []
         for name, (argtypes, restype) in _SIGNATURES.items():
             fn = getattr(lib, name, None)
-            if fn is None:  # an earlier checkout's library lacks it
+            if fn is None:  # an earlier checkout's library may lack it
+                missing.append(name)
                 continue
             fn.argtypes = argtypes
             fn.restype = restype
+        if own and missing:
+            raise RuntimeError(
+                f"the kernel library {path.name} lacks entry points of "
+                f"_SIGNATURES: {', '.join(missing)}")
         _lib = lib
     return _lib

@@ -4,6 +4,7 @@
 // atoms only, in ascending order. The kernels' headers say why.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -86,6 +87,60 @@ __device__ __forceinline__ Mask sweep_planes(const T* sx, const T* sy, const T* 
       const T rsq = rsq_rn(xi - x[v], yi - y[v], zi - z[v]);
       if (rsq < cutsq && rsq > T(0)) mask.set(k + v);
     }
+  }
+  return mask;
+}
+
+// (dx*dx + dy*dy) + dz*dz of two pairs in bfloat16, each operation rounded
+// on its own (the bf16 form's rsq)
+__device__ __forceinline__ __nv_bfloat162 rsq_bf16x2(__nv_bfloat162 dx, __nv_bfloat162 dy,
+                                                     __nv_bfloat162 dz) {
+  return __hadd2_rn(__hadd2_rn(__hmul2_rn(dx, dx), __hmul2_rn(dy, dy)),
+                    __hmul2_rn(dz, dz));
+}
+
+// Sweep A of the bf16 form (T2) over staged float32 planes: bit k is set
+// where atom c0 + k satisfies 0 < rsq < cut in bfloat16, rsq_bf16x2 of the
+// distances subtracted in float32 and rounded to bfloat16. `cut` must be
+// the smallest bfloat16 value >= the float32 cutoff c (the wrapper rounds
+// it up): for a bfloat16 rsq, rsq < cut holds exactly where rsq < c does,
+// so the pairs are those of the plain version's test on rsq's float32
+// value. The compares are ordered (a NaN rsq sets no bit). Atoms k and
+// k + 16 of each 32 share one packed lane pair, so the two bits of the
+// packed compares (0 and 16) land at bits k and k + 16 of the 32 atoms'
+// mask word with one shift. The loops over the four words and over a
+// word's four vector steps stay rolled: on the H100 that ran 6% faster
+// than the unrolled chunk (56 registers against 72).
+__device__ __forceinline__ Mask sweep_planes_bf16(const float* sx, const float* sy,
+                                                  const float* sz, int c0, float xi,
+                                                  float yi, float zi,
+                                                  __nv_bfloat162 cut) {
+  const __nv_bfloat162 zero = __float2bfloat162_rn(0.0f);
+  Mask mask;
+#pragma unroll 1
+  for (int g = 0; g < kChunk / 32; ++g) {
+    uint32_t w = 0;
+#pragma unroll 1
+    for (int k = 0; k < 16; k += 4) {
+      const int a = c0 + 32 * g + k;
+      float xa[4], ya[4], za[4], xb[4], yb[4], zb[4];
+      load16(sx + a, xa);
+      load16(sy + a, ya);
+      load16(sz + a, za);
+      load16(sx + a + 16, xb);
+      load16(sy + a + 16, yb);
+      load16(sz + a + 16, zb);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const __nv_bfloat162 rsq =
+            rsq_bf16x2(__floats2bfloat162_rn(xi - xa[v], xi - xb[v]),
+                       __floats2bfloat162_rn(yi - ya[v], yi - yb[v]),
+                       __floats2bfloat162_rn(zi - za[v], zi - zb[v]));
+        w |= (__hlt2_mask(rsq, cut) & __hgt2_mask(rsq, zero) & 0x10001u) << (k + v);
+      }
+    }
+    const uint64_t wide = static_cast<uint64_t>(w) << (32 * (g & 1));
+    if (g < 2) mask.lo |= wide; else mask.hi |= wide;
   }
   return mask;
 }

@@ -110,26 +110,43 @@
 // the TPU kernel that runs K1's pair tile in bfloat16) is a third form of
 // the pair math in the same kernel: untyped, flat lists, float32 planes,
 // the TPU kernel's order of operations (r3_bf16.py:59-88), one rounding
-// per operation, over every staged pair without the two sweeps (the TPU
-// kernel's masked tile):
+// per operation:
 //   dx, dy, dz   subtracted in float32, rounded to bfloat16
 //   rsq          (dx*dx + dy*dy) + dz*dz in bfloat16
 //   mask         0 < rsq < cutforcesq, on rsq's float32 value
 //   sr2          the approximate float32 reciprocal (rcp.approx, the
 //                counterpart of pl.reciprocal(approx=True); no Newton
-//                step) of rsq, or of 1 outside the mask, rounded to bf16
+//                step) of rsq, rounded to bf16
 //   sr6          ((sr2*sr2)*sr2)*sigma6 in bfloat16
-//   gf           ((48eps*sr6)*(sr6 - 1/2))*sr2 in bfloat16, 0 outside the
-//                mask (selected, never multiplied by a 0/1 mask)
+//   gf           ((48eps*sr6)*(sr6 - 1/2))*sr2 in bfloat16
 //   f_i          sum of float32(d*gf) (the product in bfloat16) in float32,
-//                in list order
+//                in list order, over the pairs inside the mask
 // sigma6 and 48*eps arrive already rounded to bfloat16 (the wrapper rounds
-// them as the TPU kernel's b(sigma6), b(48 eps) do). Each thread takes two
-// staged j atoms at a time as one __nv_bfloat162 lane pair, so every
-// bfloat16 operation above is one packed instruction for two pairs; the
-// _rn intrinsics keep each product and sum apart (no fused multiply-adds
-// the TPU kernel does not have). A unit's staged atom count is a multiple
-// of 16, so the lane pairs never straddle a unit.
+// them as the TPU kernel's b(sigma6), b(48 eps) do). It runs K1's two
+// sweeps. Sweep A (ilist_sweep::sweep_planes_bf16) forms rsq for two
+// staged atoms at a time as one __nv_bfloat162 (three packed converts of
+// the float32 distances, five packed operations) and sets their bits with
+// two packed compares against cutforcesq rounded up to bfloat16 by the
+// wrapper (ceil_bf16): for a bfloat16 rsq that selects exactly the pairs
+// of the float32 test. Sweep B pops the set bits two at a time in
+// ascending order and runs the pair math on both as one lane pair (two
+// rcp.approx.ftz.f32, then sr6, gf and d*gf packed), adding the lower
+// pair's terms first; an odd last bit runs beside itself and adds its own
+// term only. The _rn intrinsics keep each product and sum apart (no fused
+// multiply-adds the TPU kernel does not have).
+//
+// Same bits as the form's first design, a loop that ran the masked pair
+// math on every staged pair: there a pair outside the mask added
+// float32(d * 0) = +-0 to each sum. A float32 sum that starts at +0 is
+// never -0 (x + y rounds an exact zero to +0), so adding +-0 leaves it
+// as it is, and dropping those terms changes no bit, as long as every d
+// is finite: every coordinate finite and of magnitude below 1e38 (the
+// engines' padding sits at SENTINEL_COORD = 1e30, where rsq is inf and
+// the pair drops out). A NaN or inf coordinate made the earlier sum NaN
+// (d * 0 = NaN); now such a pair sets no bit and is skipped.
+// What bounds it on the card: issue slots, as K1's sweeps (per listed
+// pair sweep A's six float32 subtracts and converts and seven bf16
+// operations; per inside pair the pair math).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -172,44 +189,26 @@ __device__ __forceinline__ float rcp_newton(float x) {
   return __fmul_rn(r, __fmaf_rn(-x, r, 2.0f));
 }
 
-// the bf16 form's two pairs: this thread's i-atom against staged atoms e
-// and e+1; sig6_bf and eps48_bf are sigma6 and 48 eps rounded to bfloat16
-__device__ __forceinline__ void bf16_pairs(const float* sx, const float* sy,
-                                           const float* sz, int e, float xi,
-                                           float yi, float zi, float cutforcesq,
-                                           float sig6_bf, float eps48_bf,
-                                           float& ax, float& ay, float& az) {
-  const __nv_bfloat162 sig6 = __float2bfloat162_rn(sig6_bf);
-  const __nv_bfloat162 e48 = __float2bfloat162_rn(eps48_bf);
+// The bf16 form's pair math on staged atoms e1 and e2, two pairs inside
+// the cutoff, as one lane pair: d*gf per axis, widened to float32 (.x for
+// e1, .y for e2). sig6 and e48 hold sigma6 and 48 eps in bfloat16.
+__device__ __forceinline__ void bf16_terms(const float* sx, const float* sy,
+                                           const float* sz, int e1, int e2, float xi,
+                                           float yi, float zi, __nv_bfloat162 sig6,
+                                           __nv_bfloat162 e48, float2& px, float2& py,
+                                           float2& pz) {
   const __nv_bfloat162 half = __float2bfloat162_rn(0.5f);
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
-  const float2 xj = *reinterpret_cast<const float2*>(sx + e);
-  const float2 yj = *reinterpret_cast<const float2*>(sy + e);
-  const float2 zj = *reinterpret_cast<const float2*>(sz + e);
-  const __nv_bfloat162 dx = __floats2bfloat162_rn(xi - xj.x, xi - xj.y);
-  const __nv_bfloat162 dy = __floats2bfloat162_rn(yi - yj.x, yi - yj.y);
-  const __nv_bfloat162 dz = __floats2bfloat162_rn(zi - zj.x, zi - zj.y);
-  const __nv_bfloat162 rsq = __hadd2_rn(
-      __hadd2_rn(__hmul2_rn(dx, dx), __hmul2_rn(dy, dy)), __hmul2_rn(dz, dz));
-  const float2 rs = __bfloat1622float2(rsq);
-  const bool in0 = rs.x < cutforcesq && rs.x > 0.0f;
-  const bool in1 = rs.y < cutforcesq && rs.y > 0.0f;
-  const __nv_bfloat162 sr2 = __floats2bfloat162_rn(rcp_approx(in0 ? rs.x : 1.0f),
-                                                   rcp_approx(in1 ? rs.y : 1.0f));
+  const __nv_bfloat162 dx = __floats2bfloat162_rn(xi - sx[e1], xi - sx[e2]);
+  const __nv_bfloat162 dy = __floats2bfloat162_rn(yi - sy[e1], yi - sy[e2]);
+  const __nv_bfloat162 dz = __floats2bfloat162_rn(zi - sz[e1], zi - sz[e2]);
+  const float2 rs = __bfloat1622float2(ilist_sweep::rsq_bf16x2(dx, dy, dz));
+  const __nv_bfloat162 sr2 = __floats2bfloat162_rn(rcp_approx(rs.x), rcp_approx(rs.y));
   const __nv_bfloat162 sr6 = __hmul2_rn(__hmul2_rn(__hmul2_rn(sr2, sr2), sr2), sig6);
-  const __nv_bfloat162 g = __hmul2_rn(
+  const __nv_bfloat162 gf = __hmul2_rn(
       __hmul2_rn(__hmul2_rn(e48, sr6), __hsub2_rn(sr6, half)), sr2);
-  const __nv_bfloat162 gf = __halves2bfloat162(in0 ? __low2bfloat16(g) : zero,
-                                               in1 ? __high2bfloat16(g) : zero);
-  const float2 px = __bfloat1622float2(__hmul2_rn(dx, gf));
-  const float2 py = __bfloat1622float2(__hmul2_rn(dy, gf));
-  const float2 pz = __bfloat1622float2(__hmul2_rn(dz, gf));
-  ax += px.x;
-  ax += px.y;
-  ay += py.x;
-  ay += py.y;
-  az += pz.x;
-  az += pz.y;
+  px = __bfloat1622float2(__hmul2_rn(dx, gf));
+  py = __bfloat1622float2(__hmul2_rn(dy, gf));
+  pz = __bfloat1622float2(__hmul2_rn(dz, gf));
 }
 
 // A staged j atom of the typed form: x, y, z and the type's bits, moved
@@ -324,28 +323,50 @@ lj_cluster_ilist_kernel(const T* __restrict__ xc, const T* __restrict__ yc,
       }
     }
     __syncthreads();
-    if constexpr (kMath == PairMath::kBf16x2) {
-      static_assert(std::is_same_v<T, float> && !kTyped, "bf16: float32, untyped");
-      // the bf16 form: epsilon holds 48 eps, both it and sigma6 in bf16
-      for (int e = 0; e < m; e += 2)
-        bf16_pairs(sx, sy, sz, e, xi, yi, zi, cutforcesq, sigma6, epsilon, ax, ay, az);
-    } else {
-      for (int c0 = 0; c0 < mw; c0 += kChunk) {
-        // sweep A: the chunk's pairs inside the cutoff, this unit's atoms only
-        Mask mask;
-        if constexpr (kTyped) {
+    for (int c0 = 0; c0 < mw; c0 += kChunk) {
+      // sweep A: the chunk's pairs inside the cutoff, this unit's atoms only
+      Mask mask;
+      if constexpr (kTyped) {
 #pragma unroll
-          for (int k = 0; k < kChunk; ++k) {
-            T xj, yj, zj;
-            int tj;
-            sp[c0 + k].get(xj, yj, zj, tj);
-            const T rsq = rsq_rn(xi - xj, yi - yj, zi - zj);
-            if (rsq < cutsq_i[tj] && rsq > T(0)) mask.set(k);
-          }
-        } else {
-          mask = ilist_sweep::sweep_planes(sx, sy, sz, c0, xi, yi, zi, cutforcesq);
+        for (int k = 0; k < kChunk; ++k) {
+          T xj, yj, zj;
+          int tj;
+          sp[c0 + k].get(xj, yj, zj, tj);
+          const T rsq = rsq_rn(xi - xj, yi - yj, zi - zj);
+          if (rsq < cutsq_i[tj] && rsq > T(0)) mask.set(k);
         }
-        mask.keep_below(m - c0);
+      } else if constexpr (kMath == PairMath::kBf16x2) {
+        // cutforcesq arrives rounded up to bfloat16 (the wrapper's ceil_bf16)
+        mask = ilist_sweep::sweep_planes_bf16(sx, sy, sz, c0, xi, yi, zi,
+                                              __float2bfloat162_rn(cutforcesq));
+      } else {
+        mask = ilist_sweep::sweep_planes(sx, sy, sz, c0, xi, yi, zi, cutforcesq);
+      }
+      mask.keep_below(m - c0);
+      if constexpr (kMath == PairMath::kBf16x2) {
+        static_assert(std::is_same_v<T, float> && !kTyped, "bf16: float32, untyped");
+        // sweep B, bf16: the set bits two at a time in ascending order, the
+        // lower term added first; an odd last bit runs beside itself and
+        // adds its own term only. sigma6 and epsilon hold sigma6 and 48 eps
+        // in bfloat16.
+        const __nv_bfloat162 sig6 = __float2bfloat162_rn(sigma6);
+        const __nv_bfloat162 e48 = __float2bfloat162_rn(epsilon);
+        while (mask.any()) {
+          const int e1 = c0 + mask.pop();
+          const bool two = mask.any();
+          const int e2 = two ? c0 + mask.pop() : e1;
+          float2 px, py, pz;
+          bf16_terms(sx, sy, sz, e1, e2, xi, yi, zi, sig6, e48, px, py, pz);
+          ax += px.x;
+          ay += py.x;
+          az += pz.x;
+          if (two) {
+            ax += px.y;
+            ay += py.y;
+            az += pz.y;
+          }
+        }
+      } else {
         // sweep B: the pair math on the set bits, in list order
         while (mask.any()) {
           const int e = c0 + mask.pop();
@@ -540,7 +561,8 @@ extern "C" int lj_cluster_ilist_buckets_f64(
 }
 
 // the bf16 form (T2): (xc, yc, zc, ijlist, nji, fx, fy, fz, n_units, icap,
-// share, cutforcesq, sigma6 and 48*epsilon rounded to bfloat16, stream)
+// share, cutforcesq rounded up to bfloat16 (ceil_bf16), sigma6 and
+// 48*epsilon rounded to bfloat16, stream)
 extern "C" int lj_cluster_ilist_bf16(const float* xc, const float* yc,
                                      const float* zc, const int32_t* ijlist,
                                      const int32_t* nji, float* fx, float* fy,

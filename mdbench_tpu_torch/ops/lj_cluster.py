@@ -277,6 +277,22 @@ def _bf16_scalar(v: float) -> torch.Tensor:
     return torch.tensor(float(v), dtype=torch.float32).to(torch.bfloat16)
 
 
+def ceil_bf16(v: float) -> float:
+    """The smallest bfloat16 value >= float32(v), as a float (v's float32
+    value itself if it is inf or NaN). For any bfloat16 value r, r <
+    float32(v) exactly where r < ceil_bf16(v); rounding v to the nearest
+    bfloat16 instead can round down and drop the pairs just below it. The
+    bf16 kernel takes its cutoff in this form and compares in bfloat16."""
+    with np.errstate(over="ignore"):
+        c = np.float32(v)
+    if np.isnan(c):
+        return float(c)
+    u = int(c.view(np.uint32))
+    if c > 0 and u & 0xFFFF:  # a positive value between two bf16: up
+        u += 0x10000
+    return float(np.uint32(u & 0xFFFF0000).view(np.float32))
+
+
 def lj_cluster_force_ilist_bf16_ref(
     xc, yc, zc,  # (C_total, 8) float32 coordinate planes
     ijlist,  # (n_units, icap) int exact per-i-unit j16 ids
@@ -334,9 +350,11 @@ def lj_cluster_force_ilist_bf16(
     launch the bf16 form of ``csrc/lj_cluster_ilist.cu`` on the current
     stream after the operands are checked (float32 planes only); a launch
     error raises.
-    The kernel stops at nji, as K1 does, and takes the approximate float32
-    reciprocal, so it may round sr2 to another bfloat16 value than the
-    plain version's exact one."""
+    The kernel stops at nji, as K1 does, runs the pair math only on the
+    pairs inside the cutoff (K1's two sweeps; it compares rsq in bfloat16
+    against `ceil_bf16(cutforcesq)`, the same pairs) and takes the
+    approximate float32 reciprocal, so it may round sr2 to another
+    bfloat16 value than the plain version's exact one."""
     global BF16_LAUNCHES
     if xc.device.type == "cpu":
         return lj_cluster_force_ilist_bf16_ref(
@@ -353,7 +371,7 @@ def lj_cluster_force_ilist_bf16(
         err = lib.lj_cluster_ilist_bf16(
             xc.data_ptr(), yc.data_ptr(), zc.data_ptr(), ijlist.data_ptr(),
             nji.data_ptr(), *(o.data_ptr() for o in out),
-            ijlist.shape[0], ijlist.shape[1], share, float(cutforcesq),
+            ijlist.shape[0], ijlist.shape[1], share, ceil_bf16(cutforcesq),
             float(_bf16_scalar(sigma6)), float(_bf16_scalar(48.0 * epsilon)),
             torch.cuda.current_stream().cuda_stream,
         )

@@ -6,8 +6,10 @@ float32 table that an int32 id list names into a new (n_ids * rows_per_id,
 `dma1`) or a block of 8 consecutive rows per id (rows_per_id 8, `dma8`; id
 b names rows 8b .. 8b+7). On a CUDA tensor it launches
 ``csrc/row_fetch.cu``, which stages the rows through shared memory with
-`cp.async` copies (mode "cp_async") or TMA bulk copies on an mbarrier
-(mode "tma"); on a CPU tensor it runs `row_fetch_ref` (index_select).
+`cp.async` copies and stores them from registers (mode "cp_async"), or
+moves them with TMA bulk copies alone, into a ring of shared-memory slots
+and out of it, in persistent blocks (mode "tma"); on a CPU tensor it runs
+`row_fetch_ref` (index_select).
 Both give the same tensor bit for bit. Any other device raises; nothing
 falls back from the kernel to its plain version. No engine path runs it;
 ``mdbench_tpu_torch/probes/dma.py`` measures it.

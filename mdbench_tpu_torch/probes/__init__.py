@@ -1,10 +1,12 @@
 """Probes of the port on the card: the counterparts of mdbench_tpu's TPU
 probes under tools/ that hold Pallas kernels.
 
-- ``python -m mdbench_tpu_torch.probes.bf16 [golden]``: K1 with bfloat16
-  pair math (tools/r3_bf16.py);
-- ``python -m mdbench_tpu_torch.probes.dma``: list-driven row fetch
-  through shared memory (tools/r4_dma.py);
+- ``python -m mdbench_tpu_torch.probes.bf16 [golden] [ab] [CSRC_DIR ...]``:
+  K1 with bfloat16 pair math (tools/r3_bf16.py), against earlier csrc/
+  copies in turns;
+- ``python -m mdbench_tpu_torch.probes.dma [CSRC_DIR ...]``: list-driven
+  row fetch through shared memory (tools/r4_dma.py), against earlier
+  csrc/ copies in turns;
 - ``python -m mdbench_tpu_torch.probes.eam_verlet [CSRC_DIR ...]``: the
   verlet EAM kernels K5 and K6 at 131k, against earlier csrc/ copies in
   turns.

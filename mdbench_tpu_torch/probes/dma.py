@@ -1,7 +1,7 @@
 """The list-driven row-fetch probe on the card, the port's counterpart of
 tools/r4_dma.py.
 
-    python -m mdbench_tpu_torch.probes.dma
+    python -m mdbench_tpu_torch.probes.dma [CSRC_DIR ...]
 
 The tool's inputs, from default_rng(0) in its order: an (8192, 128)
 float32 table, 65,536 random row ids and 8,192 random ids of 8-row
@@ -19,16 +19,25 @@ once plus the rows written once, over 3.35 TB/s (the 4 MiB table fits in
 the card's 50 MB L2, so the fetches mostly hit it; the write of the rows
 is the part that must reach device memory). Exits 1 if a variant
 disagrees with index_select.
+
+Each CSRC_DIR is another copy of mdbench_tpu_torch/csrc/ with the same C
+entry points (an earlier checkout's, or an edited variant): its library
+is built beside the package's, and the whole measurement runs with each
+library in turns (this one first, then the others, then back in reverse
+order), in one process on one card, each line led by the library's
+name. The row-fetch kernels' -Xptxas -v lines come first.
 """
 
 from __future__ import annotations
 
 import functools
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from mdbench_tpu_torch import _build
 from mdbench_tpu_torch.ops.row_fetch import (
     COLS,
     MODES,
@@ -113,16 +122,31 @@ def report(rows, equal: dict, card: str) -> list:
     return out
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("mdbench_tpu_torch.probes.dma needs a CUDA device", file=sys.stderr)
         return 1
+    import chip_smoke
+
+    card = card_line()
+    variants = [("this", _build.SRC_DIR), *((d, Path(d)) for d in argv)]
+    for name, src in variants:  # build every library before the runs
+        _build.load(src)
+        for kernel in ("row_fetch_kernel", "row_fetch_tma_kernel"):
+            for line in chip_smoke.kernel_ptxas_lines(kernel, src):
+                print(f"{name}: {line}")
     inputs = make_inputs("cuda")
-    equal = equal_to_index_select(*inputs)
-    for line in report(measure(*inputs), equal, card_line()):
-        print(line)
-    return 0 if all(equal.values()) else 1
+    ok = True
+    order = variants + variants[::-1] if len(variants) > 1 else variants
+    for name, src in order:
+        _build.load(src)
+        equal = equal_to_index_select(*inputs)
+        ok = ok and all(equal.values())
+        for line in report(measure(*inputs), equal, card):
+            print(f"{name}: {line}" if len(variants) > 1 else line, flush=True)
+    _build.load(_build.SRC_DIR)
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -2,12 +2,15 @@
 shell script): one compile per csrc/*.cu source, then one link of the
 objects into the library; the compilers' output kept beside the
 library; the objects removed; a failed compile raising with its output;
-and the C entry points of csrc/*.cu against their ctypes signatures.
-The real nvcc runs only on a machine with the CUDA toolkit."""
+the C entry points of csrc/*.cu against their ctypes signatures; and
+load() with a stand-in library: strict for the package's own library,
+skipping what another checkout's lacks. The real nvcc runs only on a
+machine with the CUDA toolkit."""
 
 import ctypes
 import re
 import stat
+import types
 
 import pytest
 
@@ -132,3 +135,69 @@ def test_signatures_match_the_sources():
     assert set(found) == set(_build._SIGNATURES)
     for name, args in found.items():
         assert _build._SIGNATURES[name] == (args, ctypes.c_int), name
+
+
+class _StandInLib:
+    """What ctypes.CDLL returns for a library that has every entry point of
+    _SIGNATURES except those in `lacks`."""
+
+    def __init__(self, lacks=()):
+        for name in _build._SIGNATURES:
+            if name not in lacks:
+                setattr(self, name, types.SimpleNamespace())
+
+
+@pytest.fixture
+def stand_in(monkeypatch, tmp_path):
+    """load() with no library loaded yet, build() a no-op and ctypes.CDLL
+    returning a stand-in; the fixture's value sets what the stand-in
+    lacks and records the paths CDLL was given."""
+    opened = []
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "build", lambda src_dir=None: tmp_path / "libstandin.so")
+
+    def use(lacks=()):
+        def cdll(path):
+            opened.append(path)
+            return _StandInLib(lacks)
+        monkeypatch.setattr(_build.ctypes, "CDLL", cdll)
+        return opened
+    return use
+
+
+@pytest.mark.parametrize("lacks", [("row_fetch_f32",),
+                                   ("lj_cluster_ilist_bf16", "eam_nlist_blocks_per_sm")])
+def test_load_raises_when_the_own_library_lacks_an_entry(stand_in, lacks):
+    """The package's own library (no src_dir, or src_dir its own csrc/)
+    must hold every entry point of _SIGNATURES: load raises at once,
+    naming each missing one, and keeps no library."""
+    stand_in(lacks)
+    for args in ((), (_build.SRC_DIR,)):
+        with pytest.raises(RuntimeError) as err:
+            _build.load(*args)
+        for name in lacks:
+            assert name in str(err.value)
+        assert _build._lib is None
+
+
+def test_load_from_another_source_dir_skips_a_missing_entry(stand_in, tmp_path):
+    """Another checkout's csrc/ (an A/B's) may lack a newer entry point:
+    its library loads, the entry stays undeclared, the others get their
+    signatures, and it becomes the library the wrappers launch."""
+    opened = stand_in(("row_fetch_f32",))
+    lib = _build.load(tmp_path / "earlier_csrc")
+    assert _build._lib is lib and opened == [str(tmp_path / "libstandin.so")]
+    assert not hasattr(lib, "row_fetch_f32")
+    argtypes, restype = _build._SIGNATURES["lj_cluster_ilist_bf16"]
+    assert lib.lj_cluster_ilist_bf16.argtypes == argtypes
+    assert lib.lj_cluster_ilist_bf16.restype == restype
+    assert _build.load() is lib  # loaded once per process
+
+
+def test_load_declares_every_entry_of_a_whole_library(stand_in):
+    opened = stand_in()
+    lib = _build.load()
+    for name, (argtypes, restype) in _build._SIGNATURES.items():
+        fn = getattr(lib, name)
+        assert (fn.argtypes, fn.restype) == (argtypes, restype), name
+    assert _build.load() is lib and len(opened) == 1

@@ -56,6 +56,7 @@ from mdbench_tpu_torch.ops import eam as tev
 from mdbench_tpu_torch.ops import eam_cluster as tec
 from mdbench_tpu_torch.ops import lj_cluster as tlj
 from mdbench_tpu_torch.ops import row_fetch as trf
+from mdbench_tpu_torch.probes import bf16 as pbf16
 from mdbench_tpu_torch.state import SENTINEL_COORD
 
 torch.set_num_threads(1)
@@ -677,6 +678,29 @@ def test_cuda_bf16_kernel_on_engine_lists(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("share", [1, 2, 4])
+def test_cuda_bf16_kernel_on_edge_cases(cuda, share):
+    """The bf16 kernel (two sweeps, inside bits popped two at a time) on
+    probes.bf16.edge_case against its plain twin within BF16_TOL: odd
+    inside counts per lane (the last bit without a partner), lists that
+    end mid-chunk, the all-padding unit exactly 0, and pairs whose
+    bfloat16 rsq lies just inside or just outside cutforcesq 6.3001 (not
+    a bfloat16 value), where a wrong pair set moves max |f| by ~1%; two
+    launches give the same bits."""
+    case = pbf16.edge_case(share, cuda)
+    before = tlj.BF16_LAUNCHES
+    got = pbf16.edge_force(case)
+    again = pbf16.edge_force(case)
+    torch.cuda.synchronize()
+    assert tlj.BF16_LAUNCHES == before + 2
+    want = pbf16.edge_force(case, plain=True)
+    assert _rel(got, want) <= BF16_TOL
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for f in got:
+        assert (f[share:2 * share] == 0).all()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_ids", [1, 37, 4096])
 @pytest.mark.parametrize("rows_per_id", [1, 8])
 @pytest.mark.parametrize("mode", ["cp_async", "tma"])
@@ -696,6 +720,29 @@ def test_cuda_row_fetch_matches_index_select(cuda, mode, rows_per_id, n_ids):
     got = trf.row_fetch(table, ids, rows_per_id, mode)
     torch.cuda.synchronize()
     assert trf.LAUNCHES == {k: n + (k == name) for k, n in before.items()}
+    assert torch.equal(got, trf.row_fetch_ref(table, ids, rows_per_id))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_id,n_ids", [
+    (1, 1), *((1, 8 * 300 + t) for t in range(1, 8)), (1, 100_003), (8, 1),
+    (8, 20_000)])
+@pytest.mark.parametrize("mode", ["cp_async", "tma"])
+def test_cuda_row_fetch_stages_and_tails(cuda, mode, rows_per_id, n_ids):
+    """The row fetch equals index_select bit for bit on one id, on row
+    lists whose last stage holds 1-7 rows, and on more rows than the TMA
+    form's persistent blocks hold in their rings at once (100,003 rows, 1
+    a id; 160,000, 8 a id; the rings hold at most 132 SMs x 16 blocks x 3
+    slots x 8 rows, and 132 x 2 x 8 x 8), ids 0 and the last included."""
+    rng = np.random.default_rng(n_ids)
+    table = torch.tensor(rng.standard_normal((1024, 128)), dtype=torch.float32,
+                         device=cuda)
+    hi = 1024 // rows_per_id
+    ids = rng.integers(0, hi, n_ids)
+    ids[0], ids[-1] = 0, hi - 1
+    ids = torch.tensor(ids, dtype=torch.int32, device=cuda)
+    got = trf.row_fetch(table, ids, rows_per_id, mode)
+    torch.cuda.synchronize()
     assert torch.equal(got, trf.row_fetch_ref(table, ids, rows_per_id))
 
 

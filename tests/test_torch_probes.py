@@ -8,6 +8,9 @@ approximate reciprocal of the exact-list kernels, on the CPU.
   sums run in another order). With XLA's default the CPU keeps excess
   precision between bfloat16 operations, and the two differ by more.
 - The bf16 force against the exact float32 force in the tool's metric.
+- ceil_bf16, the bf16 kernel's cutoff: over every bfloat16 value it
+  selects the pairs of the float32 test; probes.bf16.edge_case, the
+  kernel's edge lists on the card, tells a wrong pair set apart.
 - The row fetch's plain twin against the XLA row gather t[idx], bit for
   bit, at the tool's shapes.
 - approx_rcp: the CPU wrappers equal mdbench_tpu's kernel in interpret
@@ -24,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import hand_plan, random_tables
+from chip_smoke import BF16_TOL, bf16_inside, hand_plan, random_tables
 from mdbench_tpu.ops.pallas.lj_cluster import lj_cluster_force_ilist_pallas
 from mdbench_tpu_torch import engine_cluster
 from mdbench_tpu_torch.config import Params
@@ -98,6 +101,54 @@ def test_bf16_force_error_against_exact():
     mx, mean = probe.force_error(sim, sim.initial_state())
     assert 1e-3 < mean < 1e-1
     assert mean < mx < 10.0
+
+
+@pytest.mark.parametrize("c", [6.25, 6.3001, 1e-3, 1e30, 6.29])
+def test_ceil_bf16_selects_the_pairs_of_the_float32_test(c):
+    """The bf16 kernel's sweep A compares rsq, a bfloat16 value, against
+    ceil_bf16(cutforcesq) in bfloat16. Over all 65,536 bfloat16 bit
+    patterns r (zeros, subnormals, negatives, inf and NaN included), r <
+    float32(c) holds exactly where r < ceil_bf16(c), for c representable
+    in bfloat16 (6.25) and not (6.3001, cutoff 2.51; 1e-3; 1e30); the
+    bound is the smallest bfloat16 value >= c. For c = 6.29 the nearest
+    bfloat16 value (6.28125) lies below c and would drop a value."""
+    r = (np.arange(1 << 16, dtype=np.uint32) << np.uint32(16)).view(np.float32)
+    c32, cb = np.float32(c), np.float32(tlj.ceil_bf16(c))
+    assert int(cb.view(np.uint32)) & 0xFFFF == 0 and cb >= c32
+    assert not ((r >= c32) & (r < cb)).any()  # no bfloat16 value in [c, cb)
+    assert np.array_equal(r < c32, r < cb)
+    nearest = np.float32(torch.tensor(c32).to(torch.bfloat16).float().item())
+    assert np.array_equal(r < c32, r < nearest) == (nearest >= c32)
+    if c == 6.29:
+        assert nearest < c32
+
+
+@pytest.mark.parametrize("share", [1, 2, 4])
+def test_bf16_edge_case_tells_the_pair_sets_apart(share):
+    """probes.bf16.edge_case, the bf16 kernel's edge lists on the card
+    (tests/test_torch_cuda.py, chip_smoke.py phase 25): the all-padding
+    unit's rows are 0; lanes hold odd and even inside counts and none; no
+    list is a whole number of 128-atom chunks; and the bf16 force moves
+    by over 100 BF16_TOL of max |f| when the cutoff drops the pairs at
+    rsq 6.28125 (cutforcesq 6.28125) or takes those at 6.3125 (6.3126),
+    so a kernel with a wrong pair set on either side of 6.3001 cannot
+    meet BF16_TOL."""
+    case = probe.edge_case(share, "cpu")
+    f = torch.stack(probe.edge_force(case))
+    assert (f[:, share:2 * share] == 0).all()
+    assert ((case["nji"] * 16) % 128 != 0).all()
+    planes = tuple(case[k] for k in ("xc", "yc", "zc"))
+    args = (planes, case["ijlist"], case["n_clusters_pad"])
+
+    def inside(cut):
+        return bf16_inside(torch, *args, cut, share)
+
+    lanes = inside(case["cutforcesq"])
+    assert (lanes % 2 == 1).any() and (lanes % 2 == 0).any() and (lanes == 0).any()
+    for cut in (6.28125, 6.3126):
+        assert inside(cut).sum() != lanes.sum()  # boundary pairs on both sides
+        moved = torch.stack(probe.edge_force(dict(case, cutforcesq=cut))) - f
+        assert float(moved.abs().max()) > 100 * BF16_TOL * float(f.abs().max())
 
 
 def test_bf16_twin_takes_float32_only():
