@@ -22,7 +22,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      set-up forces before the plan launch the flat kernel (K1) and the
      bucketed form (K1b) must cover every force evaluation of the checked
      and timed runs; no other kernel launches;
-  5. small input: a jittered 8^3 box in float64, step-0 forces and a
+  5. small input: a jittered 6^3 box in float64, step-0 forces and a
      40-step temperature trace with both rebuild kinds, card against the
      CPU plain path;
   6. kernel at the main path's shapes: the run's final 131k planes and
@@ -66,7 +66,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      torch.profiler pass over a _run_steps(200) of that run (after the
      counts are read): K4's summed device ms and the device busy share
      (kernel, memcpy and memset spans only);
- 13. group-window small input: a jittered 8^3 box in float64, card
+ 13. group-window small input: a jittered 6^3 box in float64, card
      against the CPU plain path (step-0 forces <= 1e-10, 40-step
      temperatures <= 1e-9, both rebuild kinds) for kernel="pallas", for
      kernel="pallas" with the prune every 3 steps, and for the Newton
@@ -102,7 +102,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
  18. non-uniform tables (eps 1.0 / 0.7 / 1.3, sigma 1.0 / 0.95 / 1.05,
      cutoff 2.5) on the same file: on both paths the SP run meets a DP
      run within the golden gate's tolerances at every 20th step; then a
-     jittered 8^3 DP box with two types, card against the CPU plain path
+     jittered 6^3 DP box with two types, card against the CPU plain path
      for "auto", "pallas" and half_neigh=1;
  19. K1t and K4t at the main path's shapes: phase 18's final SP states
      with their tables and phase 17's with the default ones (error
@@ -124,7 +124,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      buckets (a subclass whose _plan_buckets returns False) and with them,
      F B B F F B B F, each golden-gated, AB_REPEATS timed regions of one
      run each (not the bench's 3 x 3, to keep the script short); median
-     TOTALs; then a jittered 8^3 DP box with a hand-set plan, card against
+     TOTALs; then a jittered 6^3 DP box with a hand-set plan, card against
      the CPU plain path (step-0 forces <= 1e-10, 40-step temperatures <=
      1e-9, both rebuild kinds), without and with the prune every 3 steps;
  22. K1b, K2b and K3b at the main paths' shapes: phases 4's and 8's final
@@ -174,7 +174,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      (<= 1e-5) and float64 (<= 1e-12), exact and with approx_rcp, K1b
      bit-equal to K1; median times back to back and on the device, sweep
      counts, bound, and the time of the three plane copies a force call
-     makes; then a jittered 8^3 DP verlet box, card against the CPU plain
+     makes; then a jittered 6^3 DP verlet box, card against the CPU plain
      path (step-0 forces <= 1e-10, 40-step temperatures <= 1e-9) on the
      row lists, the planar full lists and the half lists;
  29. measure_phases on the bucketed run's final state (FORCE and NEIGH
@@ -215,8 +215,9 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      poly (K5 and K6 on each of the 400 forces): Mega atom updates/s, and
      the DP first force on the card against the CPU (<= 1e-12 of the
      largest finite value, non-finite entries equal);
- 33. the command line (`python -m mdbench_tpu_torch.cli`) in
-     subprocesses: verlet and cluster LJ at 131k/200 SP with nstat 20,
+ 33. the command line (`python -m mdbench_tpu_torch.cli` in a
+     subprocess for the verlet LJ run, cli.main in this process for the
+     others): verlet and cluster LJ at 131k/200 SP with nstat 20,
      gated on the golden trace, each naming the card and K1b; on an 8^3
      box --vtk, --xtc, -w and --checkpoint, then --trace-index,
      --trace-mem and --timers diff (cluster), then --restore, each
@@ -279,7 +280,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      run within rel 1e-6 of phase 8's single-engine DP run; K2b and K3b
      on one slab's final lists as in 39;
  41. small inputs on two slabs, card against the CPU plain path: a
-     jittered 8^3 DP LJ box and a jittered 6^3 DP EAM box, a full rebuild
+     jittered 6^3 DP LJ box and a jittered 6^3 DP EAM box, a full rebuild
      every other interval (migration) and cheap ones between: step-0
      forces <= 1e-12 of max |f| (each slab's atom window in order),
      40-step temperatures <= 1e-9; the cluster leg of the dry run on 1
@@ -305,7 +306,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      every domain force and no other kernel, SP
      within EAM_SP_TOL of DP at steps 20/40/60, DP within rel 1e-6 of
      phase 30's single-engine DP poly run;
- 45. small inputs, card against the CPU: a jittered 8^3 DP box on the
+ 45. small inputs, card against the CPU: a jittered 6^3 DP box on the
      row lists on (2, 2) and (2, 2, 2) (20-step temperatures <= 1e-12,
      the same atoms per domain); then K1 on one pencil's and one brick's
      final row lists of phases 42-43, as phase 28 (error against the
@@ -313,12 +314,50 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      device, sweep counts, bound): the JSON rows "K1 on pencil rows" and
      "K1 on brick rows".
 
+ 46-48, the scale runs (bench.run_bench_scale: mdbench_tpu's
+ tools/r3_scale.py and tests/test_parallel.py configurations; no golden
+ trace exists at these sizes, so each SP run is gated on a DP run of the
+ same box, the slabs on the single engine, with bench.check_trace; each
+ prints TOTAL (one timed run), the set-up seconds apart from it, the
+ peak bytes, the launches and the temperatures beside GOLDEN_TEMP_131K
+ for reference only):
+ 46. 1M LJ (64^3 cells), 40 steps: a DP verlet run (the reference
+     trace), then SP cluster auto (K1 at set-up, K1b after the plan),
+     cluster pallas (K4) and verlet auto (K1, then K1b), each within rel
+     1e-3 of the DP run at steps 20 and 40; FORCE/NEIGH (measure_phases)
+     of both auto runs; one rebuild of each scheme (host synchronisations
+     by site, peak bytes, the chunk counts of ops/verlet's loops and of
+     derive_ilists); K1b and K1 (the same bits) on the cluster and the
+     verlet runs' final lists and K4 on the pallas run's, float32 with
+     the approximate reciprocal where the run takes it, against their
+     plain versions (<= 1e-5 of max |f|; the plain versions in chunks of
+     units), ms back to back and on the device, bound;
+ 47. 1M verlet EAM (64^3 cells) on phase 8's stand-in potential, SP and
+     DP poly, 60 steps: K5 then K6 once each for every force, SP within
+     EAM_SP_TOL of DP; FORCE/NEIGH, one rebuild as in 46, and K5/K6 on the
+     SP run's final lists as phase 30 checks them at 131k (bit for bit);
+ 48. 10.1M LJ (136^3 cells), SP, 40 steps: the verlet single engine, then
+     8 slabs of an in-process mesh on the same card (parallel/
+     verlet_domain.DomainSimulation): both start at Params.temp (rel
+     1e-6 of the float64 sum of the float32 velocities), the slabs hold
+     every atom at the end and meet the single engine within rel 1e-4 at
+     steps 20 and 40; TOTAL against the single engine's, peak bytes
+     against plan_capacities (1 and 8 domains); K1b and K1 on the single
+     engine's final rows and on one slab's, as in 46.
+
 Every kernel count is set to 0 just before each main path (phases 4, 8,
 12, both runs of 17, the probes' runs in 25 and 26, both runs of 27, each
 131k run of 30, the card's runs of 31, each stub of 32 (LJ: where it must
-stay 0), each run of 34-36, 37-40 and 42-44) and read just after it. Then it prints the script's wall
-time, a JSON line of the kernels, nvidia-smi's line, and {"ok": true,
-"device": {...}} as the last line.
+stay 0), each run of 34-36, 37-40, 42-44 and 46-48) and read just after
+it. Each phase prints its wall ("phase N: X s") when the next one
+starts. Then it prints the script's wall time, a JSON line of the
+kernels, nvidia-smi's line, and {"ok": true, "device": {...}} as the
+last line.
+
+Only phase 4 takes the benchmark's 3 x 3 timed runs; every other timed
+131k run takes one timed region of one run (SEC_REPEATS, SEC_CHAIN), and
+the small DP boxes run card against CPU without a timed region, to keep
+the script well inside its limit.
 
 A kernel's bound (bound_ms) is the least time the card could take for
 the work the main path's inputs need: the larger of its operations over
@@ -446,8 +485,11 @@ VERLET_EAM_KERNELS = {
         "replaces": "mdbench_tpu/ops/eam.py:222",
     },
 }
-REPEATS, CHAIN = 3, 3  # as python -m mdbench_tpu_torch.bench
-AB_REPEATS = 3  # phase 21: timed regions per run, each of one chained run
+REPEATS, CHAIN = 3, 3  # as python -m mdbench_tpu_torch.bench (phase 4)
+# every other timed 131k run: one timed region of one run, beside the
+# checked run (the script's wall, not a benchmark's protocol)
+SEC_REPEATS, SEC_CHAIN = 1, 1
+AB_REPEATS = 1  # phase 21: timed regions per run, each of one chained run
 # SP against DP temperatures of the EAM run (tools/r3_eamc.py GOLDEN_TOL)
 EAM_SP_TOL = {20: 2e-3, 40: 1e-2, 60: 3e-2}
 # the LJ wrappers' launch counts
@@ -579,6 +621,25 @@ def kernel_row(meta, launches, err, ms, plain_ms, bound, library_ms=None,
     if device_ms is not None:
         row["device_ms"] = device_ms
     return row
+
+
+_PHASE = {"n": None, "t": 0.0}  # the running phase and its start
+
+
+def phase(n) -> None:
+    """Start phase `n` (None: stop), printing the wall of the one running
+    ("phase N: X s", after a device synchronise); a no-op if n is the
+    running phase."""
+    import torch
+
+    if n == _PHASE["n"]:
+        return
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    now = time.perf_counter()
+    if _PHASE["n"] is not None:
+        print(f"phase {_PHASE['n']}: {now - _PHASE['t']:.1f} s", flush=True)
+    _PHASE["n"], _PHASE["t"] = n, now
 
 
 def fail(msg: str):
@@ -1259,6 +1320,7 @@ def run_eam_phases(torch, dev, smi: str, ec) -> tuple:
             fail(f"{what} disagrees with its plain version ({dtype}): rel {rel:.3e}")
         return err, rel
 
+    phase(7)
     # 7. EAM kernels on random planes, lists and fp planes; the lattice
     # constant puts the nearest pairs just below the fit window (1.5 A)
     rng = np.random.default_rng(7)
@@ -1285,17 +1347,19 @@ def run_eam_phases(torch, dev, smi: str, ec) -> tuple:
                   f"{r3:.3e} (tol {tol_of(torch, dtype):.0e})", flush=True)
     check_sweep_edges(torch, dev, ("K2", "K3"), poly)
 
+    phase(8)
     # 8. EAM main path at full width; count the kernels' launches in it:
     # K2 and K3 for the set-up forces before the bucket plan, K2b and K3b
     # for every force after it
     reset_counts(lj, ec)
     t0 = time.perf_counter()
-    sim, out, rate = run_bench_eam(eam_file, "sp", repeats=REPEATS, chain=CHAIN)
+    sim, out, rate = run_bench_eam(eam_file, "sp", repeats=SEC_REPEATS,
+                                   chain=SEC_CHAIN)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ec.LAUNCHES)
     p = sim.params
-    need = (1 + REPEATS * CHAIN) * (p.ntimes + 1)
+    need = (1 + SEC_REPEATS * SEC_CHAIN) * (p.ntimes + 1)
     print(f"EAM main path: {sim.natoms} atoms, {p.ntimes} steps, {p.precision}, "
           f"cutforce {p.cutforce}, cutneigh {p.cutneigh}, n_clusters_pad "
           f"{sim.n_clusters_pad}, icap {sim.icap}, ghost_cap {sim.ghost_cap}, "
@@ -1329,6 +1393,7 @@ def run_eam_phases(torch, dev, smi: str, ec) -> tuple:
         if not rel <= tol:
             fail(f"EAM SP run departs from the DP run at step {step}")
 
+    phase(9)
     # 9. EAM small input: card against the CPU plain path, float64
     kw = dict(nx=6, ny=6, nz=6, ntimes=40, reneigh_every=10, resort_every=20,
               precision="dp", scheme="cluster", force_field=FF_EAM,
@@ -1338,14 +1403,15 @@ def run_eam_phases(torch, dev, smi: str, ec) -> tuple:
     f_cpu = ClusterSimulation(Params(**kw), x=x, v=v, device="cpu").first_force_atoms()
     f_gpu = ClusterSimulation(Params(**kw), x=x, v=v, device=dev).first_force_atoms()
     frel = np.abs(f_gpu - f_cpu).max() / np.abs(f_cpu).max()
-    r_cpu = ClusterSimulation(Params(**kw), device="cpu").run()
-    r_gpu = ClusterSimulation(Params(**kw), device=dev).run()
+    r_cpu = ClusterSimulation(Params(**kw), device="cpu").run(repeats=0)
+    r_gpu = ClusterSimulation(Params(**kw), device=dev).run(repeats=0)
     trel = float(np.max(np.abs(r_gpu.temps - r_cpu.temps) / np.abs(r_cpu.temps)))
     print(f"EAM small input 6^3 dp: step-0 force rel err {frel:.3e} (tol 1e-10), "
           f"40-step temperature rel err {trel:.3e} (tol 1e-9)", flush=True)
     if not (frel <= 1e-10 and trel <= 1e-9):
         fail("the card's EAM run disagrees with the CPU plain path")
 
+    phase(10)
     # 10. EAM kernels at the main path's shapes: the run's final state
     cl, pr = st.clusters, st.pairs
     npad, share = sim.n_clusters_pad, sim.ishare
@@ -1432,6 +1498,7 @@ def run_group_phases(torch, dev, smi: str, ec, k1_exact: dict) -> dict:
         run_cluster_stub,
     )
 
+    phase(11)
     # 11. the kernel on random group lists
     for dtype in (torch.float32, torch.float64):
         for seed in (1, 2, 3):
@@ -1473,16 +1540,17 @@ def run_group_phases(torch, dev, smi: str, ec, k1_exact: dict) -> dict:
                 fail(f"group kernel disagrees with its plain version on the edge cases "
                      f"({dtype}, NaN rows {nan})")
 
+    phase(12)
     # 12. the group-window main path; count the kernels' launches in it
     reset_counts(lj, ec)
     t0 = time.perf_counter()
-    sim, out, rate = run_bench(repeats=REPEATS, chain=CHAIN, kernel="pallas")
+    sim, out, rate = run_bench(repeats=SEC_REPEATS, chain=SEC_CHAIN, kernel="pallas")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = lj.STREAM_LAUNCHES
     others = {name: getattr(lj, name) for name in LJ_COUNTS if name != "STREAM_LAUNCHES"}
     p = sim.params
-    need = (1 + REPEATS * CHAIN) * (p.ntimes + 1)
+    need = (1 + SEC_REPEATS * SEC_CHAIN) * (p.ntimes + 1)
     st = out.state
     cs = compute_cluster_stats(st.clusters, st.pairs, sim.n_clusters_pad, GROUP,
                                p.cutforce**2, p.cutneigh**2)
@@ -1523,8 +1591,9 @@ def run_group_phases(torch, dev, smi: str, ec, k1_exact: dict) -> dict:
         print("group main path profile: the profiler saw no device span "
               "(busy share not measured)", flush=True)
 
+    phase(13)
     # 13. small input: card against the CPU plain path, float64
-    base = dict(nx=8, ny=8, nz=8, ntimes=40, reneigh_every=10, resort_every=20,
+    base = dict(nx=6, ny=6, nz=6, ntimes=40, reneigh_every=10, resort_every=20,
                 precision="dp", scheme="cluster")
     x, v, _ = create_fcc_lattice(Params(**base))
     x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
@@ -1534,15 +1603,16 @@ def run_group_phases(torch, dev, smi: str, ec, k1_exact: dict) -> dict:
         f_cpu = ClusterSimulation(Params(**kw), x=x, v=v, device="cpu").first_force_atoms()
         f_gpu = ClusterSimulation(Params(**kw), x=x, v=v, device=dev).first_force_atoms()
         frel = np.abs(f_gpu - f_cpu).max() / np.abs(f_cpu).max()
-        r_cpu = ClusterSimulation(Params(**kw), device="cpu").run()
-        r_gpu = ClusterSimulation(Params(**kw), device=dev).run()
+        r_cpu = ClusterSimulation(Params(**kw), device="cpu").run(repeats=0)
+        r_gpu = ClusterSimulation(Params(**kw), device=dev).run(repeats=0)
         trel = float(np.max(np.abs(r_gpu.temps - r_cpu.temps) / np.abs(r_cpu.temps)))
-        print(f"group small input 8^3 dp {extra}: step-0 force rel err {frel:.3e} "
+        print(f"group small input 6^3 dp {extra}: step-0 force rel err {frel:.3e} "
               f"(tol 1e-10), 40-step temperature rel err {trel:.3e} (tol 1e-9)",
               flush=True)
         if not (frel <= 1e-10 and trel <= 1e-9):
             fail(f"the card's run {extra} disagrees with the CPU plain path")
 
+    phase(14)
     # 14. the kernel at the main path's shapes: the run's final state
     cl, pr = st.clusters, st.pairs
     npad = sim.n_clusters_pad
@@ -1582,6 +1652,7 @@ def run_group_phases(torch, dev, smi: str, ec, k1_exact: dict) -> dict:
     for line in kernel_ptxas_lines("lj_cluster_stream_kernel"):
         print("  " + line)
 
+    phase(15)
     # 15. the cluster stub on the card
     for pattern in ("seq", "fix", "rand"):
         before = lj.STREAM_LAUNCHES
@@ -1643,6 +1714,7 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
 
     uniform2 = (np.ones((2, 2)), np.ones((2, 2)), np.full((2, 2), 2.5**2))
 
+    phase(16)
     # 16. typed kernels on random lists and windows
     for dtype in (torch.float32, torch.float64):
         for ntypes in (2, 3):
@@ -1725,6 +1797,7 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
         print(f"typed dump: {natoms} atoms, two types, written in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
 
+        phase(17)
         # 17. the typed main path from the file, on both force paths
         counts, states, rates = {}, {}, {}
         for kernel, name in (("auto", "TYPED_LAUNCHES"),
@@ -1762,6 +1835,7 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
                 flush=True)
             counts[kernel], states[kernel], rates[kernel] = got[name], (sim, out.state), rate
 
+        phase(18)
         # 18. non-uniform tables: SP against DP on both paths
         states18 = {}
         b_before = lj.BUCKET_LAUNCHES
@@ -1769,7 +1843,7 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
             sim_sp, out_sp, rate_sp = run_bench_file(
                 path, "sp", kernel, NONUNIFORM_TABLES, repeats=1, chain=1)
             _, out_dp, _ = run_bench_file(path, "dp", kernel, NONUNIFORM_TABLES,
-                                          repeats=1, chain=1)
+                                          repeats=0)
             worst = 0.0
             for step in range(20, sim_sp.params.ntimes + 1, 20):
                 t_sp, t_dp = float(out_sp.temps[step - 1]), float(out_dp.temps[step - 1])
@@ -1787,7 +1861,7 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
         if lj.BUCKET_LAUNCHES != b_before:
             fail("a typed run launched the bucketed kernel K1b")
 
-    base = dict(nx=8, ny=8, nz=8, ntimes=40, reneigh_every=10, resort_every=20,
+    base = dict(nx=6, ny=6, nz=6, ntimes=40, reneigh_every=10, resort_every=20,
                 precision="dp", scheme="cluster")
     x, v, types = create_fcc_lattice(Params(**base, ntypes=2))
     x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
@@ -1800,14 +1874,15 @@ def run_typed_phases(torch, dev, smi: str, ec) -> list:
 
         f_cpu, f_gpu = (sim_on(d).first_force_atoms() for d in ("cpu", dev))
         frel = np.abs(f_gpu - f_cpu).max() / np.abs(f_cpu).max()
-        r_cpu, r_gpu = (sim_on(d).run() for d in ("cpu", dev))
+        r_cpu, r_gpu = (sim_on(d).run(repeats=0) for d in ("cpu", dev))
         trel = float(np.max(np.abs(r_gpu.temps - r_cpu.temps) / np.abs(r_cpu.temps)))
-        print(f"typed small input 8^3 dp {extra}: step-0 force rel err {frel:.3e} "
+        print(f"typed small input 6^3 dp {extra}: step-0 force rel err {frel:.3e} "
               f"(tol 1e-10), 40-step temperature rel err {trel:.3e} (tol 1e-9)",
               flush=True)
         if not (frel <= 1e-10 and trel <= 1e-9):
             fail(f"the card's typed run {extra} disagrees with the CPU plain path")
 
+    phase(19)
     # 19. K1t and K4t at the main path's shapes
     rows = []
     k1t_exact = {}  # K1t's exact ms by dtype, for K4t's ratio
@@ -2026,9 +2101,11 @@ def run_bucket_phases(torch, dev, smi: str, ec, lj_main, eam_main) -> list:
     from mdbench_tpu_torch.probes import graph_ms
     from mdbench_tpu_torch.stats import compute_cluster_stats
 
+    phase(20)
     # 20. the bucketed kernels on random cases
     run_bucket_kernel_phase(torch, dev, ec)
 
+    phase(21)
     # 21. the 131k LJ run, flat against bucketed, alternating
     check_golden = root_bench().check_golden
     totals = {"flat": [], "bucketed": []}
@@ -2050,7 +2127,7 @@ def run_bucket_phases(torch, dev, smi: str, ec, lj_main, eam_main) -> list:
           f"TOTAL flat {med['flat']:.6f} s, bucketed {med['bucketed']:.6f} s; flat "
           f"{totals['flat']}, bucketed {totals['bucketed']} on {smi}", flush=True)
 
-    base = dict(nx=8, ny=8, nz=8, ntimes=40, reneigh_every=10, resort_every=20,
+    base = dict(nx=6, ny=6, nz=6, ntimes=40, reneigh_every=10, resort_every=20,
                 precision="dp", scheme="cluster")
     x, v, _ = create_fcc_lattice(Params(**base))
     x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
@@ -2069,15 +2146,16 @@ def run_bucket_phases(torch, dev, smi: str, ec, lj_main, eam_main) -> list:
         before = lj.BUCKET_LAUNCHES
         f_cpu, f_gpu = (sim_on(d).first_force_atoms() for d in ("cpu", dev))
         frel = np.abs(f_gpu - f_cpu).max() / np.abs(f_cpu).max()
-        r_cpu, r_gpu = (sim_on(d).run() for d in ("cpu", dev))
+        r_cpu, r_gpu = (sim_on(d).run(repeats=0) for d in ("cpu", dev))
         trel = float(np.max(np.abs(r_gpu.temps - r_cpu.temps) / np.abs(r_cpu.temps)))
         n = lj.BUCKET_LAUNCHES - before
-        print(f"bucketed small input 8^3 dp {extra}, plan {plan}: step-0 force rel err "
+        print(f"bucketed small input 6^3 dp {extra}, plan {plan}: step-0 force rel err "
               f"{frel:.3e} (tol 1e-10), 40-step temperature rel err {trel:.3e} (tol "
               f"1e-9), {n} K1b launches", flush=True)
         if not (frel <= 1e-10 and trel <= 1e-9) or n < 41:
             fail(f"the card's bucketed run {extra} disagrees with the CPU plain path")
 
+    phase(22)
     # 22. K1b, K2b and K3b at 131k beside K1, K2 and K3 on the same lists
     rows = []
     sim, st, b_launches = lj_main
@@ -2212,6 +2290,7 @@ def run_bucket_phases(torch, dev, smi: str, ec, lj_main, eam_main) -> list:
                                        plain_ms, bound, device_ms=dev_ms)
     rows += [res["eam_rho_buckets"], res["eam_force_buckets"]]
 
+    phase(23)
     # 23. measure_phases on phase 4's final state; run_chunked at 131k
     sim, st, _ = lj_main
     t_force, t_neigh = sim.measure_phases(st)
@@ -2242,6 +2321,7 @@ def run_approx_phase(torch, dev) -> None:
     from mdbench_tpu_torch.ops import lj_cluster as lj
     from mdbench_tpu_torch.ops.cluster import bucket_maps_core
 
+    phase(24)
     for dtype in (torch.float32, torch.float64):
         tol = tol_of(torch, dtype)
         for share in (1, 2, 4):
@@ -2323,6 +2403,7 @@ def bf16_bound(listed: int, inside: int, nbytes: int) -> tuple:
 def run_bf16_phase(torch, dev, smi: str, ec, lj_main) -> dict:
     """Phase 25: the bf16 probe (T2). `lj_main` is phase 4's (sim, final
     state, K1b launches). Returns the bf16 kernel's JSON row."""
+    phase(25)
     from mdbench_tpu_torch.engine_cluster import GROUP
     from mdbench_tpu_torch.ops import lj_cluster as lj
     from mdbench_tpu_torch.probes import bf16 as probe
@@ -2422,6 +2503,7 @@ def run_fetch_phase(torch, dev, smi: str) -> list:
     from mdbench_tpu_torch.ops import row_fetch as rf
     from mdbench_tpu_torch.probes import dma
 
+    phase(26)
     for line in kernel_ptxas_lines("row_fetch_tma_kernel"):
         print(line)
     table, idx, idx8 = dma.make_inputs(dev)
@@ -2590,22 +2672,23 @@ def run_verlet_phases(torch, dev, smi: str, ec) -> list:
         """run_bench_verlet's run on FlatSimulation (no capacity buckets)."""
         params = Params(precision="sp", scheme="verlet", dense_thermo=False)
         sim = FlatSimulation(params, device=dev)
-        out = sim.run(repeats=REPEATS, chain=CHAIN)
+        out = sim.run(repeats=SEC_REPEATS, chain=SEC_CHAIN)
         root_bench().check_golden(out.temps, params.reneigh_every)
         return sim, out, sim.natoms * params.ntimes / out.total_time
 
+    phase(27)
     # 27. the verlet 131k/200 SP run, flat and bucketed, golden-gated
     runs = {}
     for side in ("flat", "bucketed"):
         reset_counts(lj, ec)
         t0 = time.perf_counter()
         sim, out, rate = (run_flat() if side == "flat"
-                          else run_bench_verlet(repeats=REPEATS, chain=CHAIN))
+                          else run_bench_verlet(repeats=SEC_REPEATS, chain=SEC_CHAIN))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {name: getattr(lj, name) for name in LJ_COUNTS}
         p = sim.params
-        need = (1 + REPEATS * CHAIN) * (p.ntimes + 1)
+        need = (1 + SEC_REPEATS * SEC_CHAIN) * (p.ntimes + 1)
         print(f"verlet {side}: {sim.natoms} atoms, {p.ntimes} steps, {p.precision}, "
               f"caps {tuple(sim.caps)}, rcap {sim.rcap}, ccap {sim.ccap}, ucl "
               f"{sim.ucl}, ukr {sim.ukr}, buckets {sim.rbuckets}; golden gate passed; "
@@ -2629,6 +2712,7 @@ def run_verlet_phases(torch, dev, smi: str, ec) -> list:
             f"{s_}:{out.temps[s_ - 1]:.6e}" for s_ in range(20, p.ntimes + 1, 20)))
         runs[side] = (sim, out.state, k1b if side == "bucketed" else k1, out.total_time)
 
+    phase(28)
     # 28. K1 and K1b on the verlet run's final lists; a small box card vs CPU
     rows = []
     for side, tag in (("flat", "K1"), ("bucketed", "K1b")):
@@ -2638,7 +2722,7 @@ def run_verlet_phases(torch, dev, smi: str, ec) -> list:
             smi, launches, side == "bucketed", f"{tag} (verlet rows)",
             VERLET_KERNELS[side]))
     for extra in ({"kernel": "auto"}, {"kernel": "xla"}, {"half_neigh": 1}):
-        kw = dict(nx=8, ny=8, nz=8, ntimes=40, reneigh_every=10, precision="dp",
+        kw = dict(nx=6, ny=6, nz=6, ntimes=40, reneigh_every=10, precision="dp",
                   **extra)
         x, v, _ = create_fcc_lattice(Params(**kw))
         x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
@@ -2648,11 +2732,12 @@ def run_verlet_phases(torch, dev, smi: str, ec) -> list:
         r_c, r_g = (Simulation(Params(**kw), device=d).run(repeats=0)
                     for d in ("cpu", dev))
         trel = float(np.max(np.abs(r_g.temps - r_c.temps) / np.abs(r_c.temps)))
-        print(f"verlet small input 8^3 dp {extra}: step-0 force rel err {frel:.3e} (tol "
+        print(f"verlet small input 6^3 dp {extra}: step-0 force rel err {frel:.3e} (tol "
               f"1e-10), 40-step temperature rel err {trel:.3e} (tol 1e-9)", flush=True)
         if not (frel <= 1e-10 and trel <= 1e-9):
             fail(f"the card's verlet run {extra} disagrees with the CPU plain path")
 
+    phase(29)
     # 29. FORCE/NEIGH, host synchronisations, the profile of one run
     sim, st = runs["bucketed"][:2]
     t_force, t_neigh = sim.measure_phases(st)
@@ -2790,8 +2875,11 @@ def check_verlet_eam_edges(torch, dev, eam_file: str) -> None:
                       f"inside kept, two launches equal", flush=True)
 
 
-def verlet_eam_kernel_rows(torch, sim, st, launches: dict, smi: str) -> list:
-    """Phase 30's kernel check on the final 131k SP state's lists: K5 and
+def verlet_eam_kernel_rows(torch, sim, st, launches: dict, smi: str,
+                           at: str = "131k") -> list:
+    """Phase 30's kernel check on the final 131k SP state's lists (phase
+    47's on the 1M state's: `at` names the size, and the rows' names end
+    with it when it is not 131k): K5 and
     K6 against their plain versions in float32 and float64, poly (the main
     path's form) and spline, bit for bit, two launches the same bits;
     median ms back to back and on the device alone; bounds, the share of
@@ -2810,7 +2898,7 @@ def verlet_eam_kernel_rows(torch, sim, st, launches: dict, smi: str) -> list:
         x = st.x.to(dtype).contiguous()
         eam = ev.EamDevice.from_tables(sim.eam_tables, x.device, dtype)
         for form, poly in (("poly", sim.eam_poly), ("spline", None)):
-            what = f"K5/K6 at 131k ({form}, {str(dtype)[6:]})"
+            what = f"K5/K6 at {at} ({form}, {str(dtype)[6:]})"
             outs = verlet_eam_pair(torch, x, nb, nn, npad, cutsq, eam, poly,
                                    st.halo.border_map)
             errs = check_verlet_eam_pair(torch, outs, dtype, what)
@@ -2849,7 +2937,10 @@ def verlet_eam_kernel_rows(torch, sim, st, launches: dict, smi: str) -> list:
     rows = []
     for kid, name, out in (("K5", "eam_rho_nlist", "fp"), ("K6", "eam_force_nlist", "f")):
         errs, times, bounds, stream = res[torch.float32, "poly"]
-        row = kernel_row(VERLET_EAM_KERNELS[name], launches[kid], errs[out][0],
+        meta = VERLET_EAM_KERNELS[name]
+        if at != "131k":
+            meta = {**meta, "name": f"{name} ({at})"}
+        row = kernel_row(meta, launches[kid], errs[out][0],
                          times[kid][0], times[kid][2], bounds[kid], device_ms=times[kid][1])
         row["f64_ms"] = res[torch.float64, "poly"][1][kid][0]
         row["spline_ms"] = res[torch.float32, "spline"][1][kid][0]
@@ -2875,14 +2966,15 @@ def run_verlet_eam_phases(torch, dev, smi: str, ec, eam_dp) -> tuple:
 
     eam_file = str(_build.BUILD_DIR / "standin_cu.eam")  # phase 8's
 
+    phase(30)
     # 30. verlet EAM at full width: SP auto (poly on the card), SP spline,
     # DP poly and spline; K5 then K6 for every force evaluation
     check_verlet_eam_edges(torch, dev, eam_file)
     reset_counts(lj, ec)
     t0 = time.perf_counter()
     with counted(Simulation, "_force") as n_force:
-        sim, out, rate = run_bench_eam(eam_file, "sp", repeats=REPEATS, chain=CHAIN,
-                                       scheme="verlet")
+        sim, out, rate = run_bench_eam(eam_file, "sp", repeats=SEC_REPEATS,
+                                       chain=SEC_CHAIN, scheme="verlet")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = check_verlet_eam_launches(lj, ec, n_force[0], "the verlet EAM run")
@@ -2951,6 +3043,7 @@ def run_verlet_eam_phases(torch, dev, smi: str, ec, eam_dp) -> tuple:
             fail(f"verlet EAM DP departs from the cluster DP run at step {step}")
     rows = verlet_eam_kernel_rows(torch, sim, st, launches, smi)
 
+    phase(31)
     # 31. verlet EAM card against CPU, float64, 8^3; K5/K6 on every card
     # force; no host synchronisation
     for eam_eval in ("spline", "poly"):
@@ -2980,6 +3073,7 @@ def run_verlet_eam_phases(torch, dev, smi: str, ec, eam_dp) -> tuple:
         if n_sync:
             fail("a verlet EAM run synchronises the host with the card")
 
+    phase(32)
     # 32. the verlet stub on the card (EAM: K5 and K6 on each of its 2 x 200
     # forces); first force against the CPU in float64
     stubs = {"LJ full": {}, "LJ half": {"half": True},
@@ -3035,10 +3129,10 @@ def run_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict, eam_verlet_
     # 34. one slab; 35. two and four slabs: 131k/200 SP, golden-gated
     runs = {}
     for ndev in (1, 2, 4):
+        phase(34 if ndev == 1 else 35)
         reset_counts(lj, ec)
         t0 = time.perf_counter()
-        # the bench's 3 x 3 timed runs on one slab, one timed run on more
-        reps, chain = (REPEATS, CHAIN) if ndev == 1 else (1, 1)
+        reps, chain = SEC_REPEATS, SEC_CHAIN
         sim, out, rate = run_bench_domain(ndev=ndev, repeats=reps, chain=chain)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -3120,6 +3214,7 @@ def run_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict, eam_verlet_
             bucketed, f"{'K1b' if bucketed else 'K1'} (slab rows, mesh({ndev}))",
             DOMAIN_KERNELS["bucketed" if bucketed else "flat"]))
 
+    phase(36)
     # 36. EAM on two slabs, 131k/60 on the stand-in potential: SP poly
     # against DP poly, DP poly against phase 30's single engine (no slab
     # code on that side); an 8^3 DP box card against CPU
@@ -3358,12 +3453,14 @@ def run_cluster_domain_phases(torch, dev, smi: str, ec, single_total: float,
     from mdbench_tpu_torch.parallel.cluster_domain import ClusterDomainSimulation
 
     kid_of = {"LAUNCHES": "K1", "BUCKET_LAUNCHES": "K1b", "STREAM_LAUNCHES": "K4"}
-    # 37. one slab (the bench's 3 x 3 timed runs); 38. two and four slabs;
+    # 37. one slab; 38. two and four slabs;
     # 39. kernel="pallas" on two slabs (one timed run each): 131k/200 SP,
     # golden-gated
     runs = {}
-    for ndev, kernel, reps, chain in ((1, "auto", REPEATS, CHAIN), (2, "auto", 1, 1),
+    for ndev, kernel, reps, chain in ((1, "auto", SEC_REPEATS, SEC_CHAIN),
+                                      (2, "auto", 1, 1),
                                       (4, "auto", 1, 1), (2, "pallas", 1, 1)):
+        phase(37 if ndev == 1 else 39 if kernel == "pallas" else 38)
         tag = f"cluster mesh({ndev}){' pallas' if kernel == 'pallas' else ''}"
         reset_counts(lj, ec)
         t0 = time.perf_counter()
@@ -3447,6 +3544,7 @@ def run_cluster_domain_phases(torch, dev, smi: str, ec, single_total: float,
         rows += slab_list_rows(torch, sim, out.state[0], launches, smi,
                                f"cluster mesh({key[0]}) {key[1]}, slab 0's final lists")
 
+    phase(40)
     # 40. cluster EAM on two slabs, 131k/60 on phase 8's stand-in potential
     eam_file = str(_build.BUILD_DIR / "standin_cu.eam")
     tables = load_eam(eam_file)
@@ -3491,9 +3589,10 @@ def run_cluster_domain_phases(torch, dev, smi: str, ec, single_total: float,
     rows += slab_list_rows(torch, sim, out.state[0], launches, smi,
                            "cluster EAM mesh(2), slab 0's final lists", tables=tables)
 
+    phase(41)
     # 41. small input on two slabs, card against the CPU plain path: a
-    # jittered 8^3 DP LJ box and a 6^3 DP EAM box, full and cheap rebuilds
-    for what, kw in (("LJ 8^3", dict(nx=8, ny=8, nz=8)),
+    # jittered 6^3 DP LJ box and a 6^3 DP EAM box, full and cheap rebuilds
+    for what, kw in (("LJ 6^3", dict(nx=6, ny=6, nz=6)),
                      ("EAM 6^3", dict(nx=6, ny=6, nz=6, force_field=FF_EAM,
                                       eam_file=eam_file))):
         kw.update(ntimes=40, reneigh_every=10, resort_every=20, precision="dp",
@@ -3550,6 +3649,7 @@ def run_mesh_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict,
     # run each, golden-gated
     runs = {}
     for dims in ((2, 2), (2, 2, 2), (2, 2, 1)):
+        phase(42 if len(dims) == 2 else 43)
         tag = mesh_tag(dims)
         reset_counts(lj, ec)
         t0 = time.perf_counter()
@@ -3635,6 +3735,7 @@ def run_mesh_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict,
                   flush=True)
         runs[dims] = (sim, out, counts[main])
 
+    phase(44)
     # 44. EAM 131k/60 on phase 8's stand-in potential, pencils (2, 2) and
     # bricks (2, 2, 2): SP poly against DP poly, DP poly against phase 30's
     # single engine; K5 and K6 for every domain force
@@ -3673,10 +3774,11 @@ def run_mesh_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict,
             if not (rel <= tol and rel1 <= 1e-6):
                 fail(f"the {tag} run departs at step {step}")
 
-    # 45. small inputs, card against the CPU: a jittered 8^3 DP box on the
+    phase(45)
+    # 45. small inputs, card against the CPU: a jittered 6^3 DP box on the
     # row lists; then K1 (K1b after a plan) on one pencil's and one
     # brick's final row lists of phases 42-43
-    kw8 = dict(nx=8, ny=8, nz=8, ntimes=20, reneigh_every=10, precision="dp")
+    kw8 = dict(nx=6, ny=6, nz=6, ntimes=20, reneigh_every=10, precision="dp")
     x, v, _ = create_fcc_lattice(Params(**kw8))
     x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
     for dims in ((2, 2), (2, 2, 2)):
@@ -3686,7 +3788,7 @@ def run_mesh_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict,
                             / np.abs(r["cpu"].temps)))
         n_dev = [int(n) for n in r[dev].state.nlocal]
         n_cpu = [int(n) for n in r["cpu"].state.nlocal]
-        print(f"{mesh_tag(dims)} small input: jittered 8^3 dp on the row lists, 20-step "
+        print(f"{mesh_tag(dims)} small input: jittered 6^3 dp on the row lists, 20-step "
               f"temperature rel err {trel:.3e} (tol 1e-12); atoms per domain {n_dev} "
               f"(CPU {n_cpu})", flush=True)
         if not (trel <= 1e-12 and n_dev == n_cpu):
@@ -3708,14 +3810,19 @@ def run_mesh_domain_phases(torch, dev, smi: str, ec, verlet_totals: dict,
 
 
 def run_cli_phase(torch, smi: str) -> None:
-    """Phase 33: `python -m mdbench_tpu_torch.cli` in subprocesses (the
-    machine has no jax, so each run also shows that the entry point needs
-    none): verlet and cluster LJ at 131k/200 SP with nstat 20, golden-gated;
-    the output options on 8^3; EAM on both schemes."""
+    """Phase 33: the command line (mdbench_tpu_torch.cli): verlet and
+    cluster LJ at 131k/200 SP with nstat 20, golden-gated; the output
+    options on 8^3; EAM on both schemes. The first run is `python -m
+    mdbench_tpu_torch.cli` in a subprocess (the machine has no jax, so it
+    shows that the entry point needs none); the others call cli.main in
+    this process, which saves a process start (~10 s) each."""
+    phase(33)
+    import io
     import shutil
     from pathlib import Path
 
     from mdbench_tpu_torch import _build
+    from mdbench_tpu_torch import cli as cli_module
     from mdbench_tpu_torch.bench import root_bench
 
     kind = torch.cuda.get_device_name(0)
@@ -3726,15 +3833,21 @@ def run_cli_phase(torch, smi: str) -> None:
     (work / "nstat20.conf").write_text("nstat 20\n")
     eam_file = str(_build.BUILD_DIR / "standin_cu.eam")
 
-    def cli(args: str, *files: str) -> str:
+    def cli(args: str, *files: str, fresh: bool = False) -> str:
         t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-m", "mdbench_tpu_torch.cli",
-                              *args.split()], cwd=root, capture_output=True, text=True,
-                             timeout=600)
+        if fresh:
+            res = subprocess.run([sys.executable, "-m", "mdbench_tpu_torch.cli",
+                                  *args.split()], cwd=root, capture_output=True,
+                                 text=True, timeout=600)
+            out, rc, err = res.stdout, res.returncode, res.stderr
+        else:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_module.main(args.split())
+            out, err = buf.getvalue(), ""
         wall = time.perf_counter() - t0
-        out = res.stdout
-        if res.returncode != 0:
-            fail(f"cli {args} exited {res.returncode}: {res.stderr[-2000:]}")
+        if rc != 0:
+            fail(f"cli {args} exited {rc}: {err[-2000:]}")
         missing = [f for f in files if not (work / f).exists()]
         lines = [ln for ln in out.splitlines()
                  if ln.startswith(("Device:", "TOTAL", "Performance:"))]
@@ -3747,7 +3860,8 @@ def run_cli_phase(torch, smi: str) -> None:
         return out
 
     for scheme, force in (("verlet", "K1b (approx_rcp)"), ("cluster", "K1b (approx_rcp)")):
-        out = cli(f"-p {work / 'nstat20.conf'} --precision sp --scheme {scheme}")
+        out = cli(f"-p {work / 'nstat20.conf'} --precision sp --scheme {scheme}",
+                  fresh=scheme == "verlet")
         temps = np.full(200, np.nan)
         for ln in out.splitlines():
             f = ln.split("\t")
@@ -3779,11 +3893,398 @@ def run_cli_phase(torch, smi: str) -> None:
     print(f"cli runs on {smi}", flush=True)
 
 
+# the scale runs (phases 46-48): at 1M each SP run meets a DP run of the
+# same box at steps 20 and 40 within the golden gate's early tolerance
+# (bench.py: rel 1e-3 through step 60); the verlet EAM run meets its DP
+# run within EAM_SP_TOL; at 10.1M the 8 slabs meet the single engine
+SCALE_STEPS = (20, 40)
+SCALE_SP_TOL = (1e-3, 1e-3)
+SLAB_TOL = (1e-4, 1e-4)
+
+
+def chunk_counts(verlet, fn) -> list:
+    """The number of chunks of each ops/verlet._chunks loop that fn() runs,
+    in call order (the loops read the module's _chunks at each call)."""
+    real, counts = verlet._chunks, []
+
+    def wrapped(n, per_item, max_elems=None):
+        slices = real(n, per_item, max_elems)
+        counts.append(len(slices))
+        return slices
+
+    verlet._chunks = wrapped
+    try:
+        fn()
+    finally:
+        verlet._chunks = real
+    return counts
+
+
+def rebuild_line(torch, what: str, fn, chunks=None) -> str:
+    """A rebuild fn() at scale, run twice: first for its peak bytes above
+    what was allocated before it and, with `chunks` (ops.verlet), the
+    chunk count of each chunked loop; then for its host synchronisations
+    by site (sync_sites)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    n = None
+    if chunks is None:
+        fn()
+    else:
+        n = chunk_counts(chunks, fn)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    sites = sync_sites(torch, fn)
+    return (f"{what}: host synchronisations {sum(sites.values())} {sites}, peak "
+            f"{peak} bytes ({peak / 2**30:.3f} GiB) above the state"
+            + (f", chunks per loop {n}" if n is not None else ""))
+
+
+def scale_kernel_row(torch, meta, what: str, kern, plain, launches: int, ops: int,
+                     bytes_in: int, smi: str, same=None) -> dict:
+    """A kernel on a scale run's final lists (phases 46-48), float32: one
+    launch against its plain version (max abs error over max |value| <=
+    1e-5; `same`, if given, another form that must give the same bits);
+    median ms back to back (10 launches, 3 batches) and on the device
+    alone (CUDA graph), the plain version's ms (one call); the bound of
+    `ops` operations and `bytes_in` plus the output's bytes. Returns the
+    JSON row."""
+    from mdbench_tpu_torch.probes import graph_ms
+
+    out = kern()
+    err, rel = rel_err(torch, out, plain())
+    equal = same is None or all(torch.equal(a, b) for a, b in zip(out, same()))
+    ms = median_ms(torch, kern, 10, batches=3, warm=1)
+    dev_ms = graph_ms(kern, 10, batches=3)
+    plain_ms = median_ms(torch, plain, 1, batches=1, warm=0)
+    bound = bound_of(ops, bytes_in + nbytes_of(*out), torch.float32)
+    print(f"{what}: max abs err {err:.3e}, rel {rel:.3e} (tol 1e-05)"
+          + ("" if same is None else f", the same bits as its other form: {equal}")
+          + f"; median {ms:.4f} ms back to back, {dev_ms:.4f} ms on the device (CUDA "
+          f"graph); plain {plain_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}; "
+          f"{ops} operations); {launches} launches on the main path; on {smi}",
+          flush=True)
+    if not (rel <= 1e-5 and equal):
+        fail(f"{what} disagrees with its plain version or its other form")
+    return kernel_row(meta, launches, err, ms, plain_ms, bound, device_ms=dev_ms)
+
+
+def plain_ilist_by_units(torch, lj, planes, ijlist, share: int, cut, xi=None,
+                        max_elems: int = 1 << 26) -> tuple:
+    """ops/lj_cluster.lj_cluster_force_ilist_ref in chunks of units (its
+    (units, i-atoms, listed atoms) blocks for a whole 10.1M box would take
+    tens of GB): each chunk the plain version on its units' lists with
+    their i-rows as `xi` (default the planes' first rows), the j rows from
+    the whole planes; the rows concatenated."""
+    nu, icap = ijlist.shape
+    xi = tuple(q[: nu * share] for q in planes) if xi is None else xi
+    per = max(1, max_elems // (share * 8 * icap * 16))
+    parts = []
+    for u0 in range(0, nu, per):
+        r0, r1 = u0 * share, min(u0 + per, nu) * share
+        parts.append(lj.lj_cluster_force_ilist_ref(
+            *planes, ijlist[u0 : u0 + per], r1 - r0, *cut, share=share,
+            xi=tuple(q[r0:r1] for q in xi)))
+    return tuple(torch.cat(fs) for fs in zip(*parts))
+
+
+def plain_buckets_by_units(torch, lj, planes, maps, buckets, share: int, cut) -> tuple:
+    """lj_cluster_force_buckets_ref with each bucket's plain force in
+    chunks of units (plain_ilist_by_units): the i rows permuted through
+    bcrows, the buckets' rows gathered back through binv."""
+    bijlist, bcrows, binv = maps
+    xi = [q[bcrows.long()] for q in planes]
+    return lj.per_bucket(
+        3, bijlist, binv, buckets, share, planes[0],
+        lambda jl, n, r0, r1: plain_ilist_by_units(
+            torch, lj, planes, jl, share, cut, xi=tuple(q[r0:r1] for q in xi)))
+
+
+def exact_list_rows(torch, lj, planes, lists: dict, npad: int, share: int, p,
+                    rbuckets, launches: dict, tag: str, smi: str) -> list:
+    """K1b (the bucketed form) and K1 (the flat form, on the same lists:
+    the same bits) with approx_rcp, the main path's form, on a scale run's
+    final exact lists or row lists: `lists` holds ijlist, nji and the bucket
+    maps bijlist, bcrows, binv. The plain versions run in chunks of units
+    (plain_ilist_by_units, plain_buckets_by_units). Bound: 8 operations a
+    listed pair and 15 more inside the cutoff (ilist_sweep_counts).
+    Returns the two rows."""
+    cut = (p.cutforce**2, p.sigma6, p.epsilon)
+    ijl, nji = lists["ijlist"], lists["nji"]
+    maps = (lists["bijlist"], lists["bcrows"], lists["binv"])
+    c = lj.ilist_sweep_counts(*planes, maps[0], nji, share, cut[0],
+                              buckets=(rbuckets, maps[1]))
+    ops = lj_ops(int(c["listed"].sum()), int(c["inside"].sum()))
+
+    def k1b():
+        return lj.lj_cluster_force_buckets(*planes, *maps, nji, npad, rbuckets, *cut,
+                                           share=share, approx_rcp=True)
+
+    def k1():
+        return lj.lj_cluster_force_ilist(*planes, ijl, nji, npad, *cut, share=share,
+                                         approx_rcp=True)
+
+    print(f"K1b/K1 on the {tag}: {ijl.shape[0]} units x cap {ijl.shape[1]}, list "
+          f"length mean {float(nji.float().mean()):.2f} max {int(nji.max())}, buckets "
+          f"{rbuckets}", flush=True)
+    return [
+        scale_kernel_row(
+            torch, {**BUCKET_KERNELS["lj_cluster_ilist_buckets"],
+                    "name": f"lj_cluster_ilist_buckets ({tag})"},
+            f"K1b on the {tag}", k1b,
+            lambda: plain_buckets_by_units(torch, lj, planes, maps, rbuckets, share,
+                                           cut),
+            launches["BUCKET_LAUNCHES"], ops,
+            nbytes_of(*planes, maps[0], maps[1], nji), smi, same=k1),
+        scale_kernel_row(
+            torch, {**KERNEL, "name": f"lj_cluster_ilist ({tag})"}, f"K1 on the {tag}",
+            k1, lambda: plain_ilist_by_units(torch, lj, planes, ijl, share, cut),
+            launches["LAUNCHES"], ops, nbytes_of(*planes, ijl, nji), smi),
+    ]
+
+
+def run_scale_phases(torch, dev, smi: str, ec) -> list:
+    """Phases 46-48: the JAX package's scale configurations through
+    bench.run_bench_scale (tools/r3_scale.py's 1M run on both schemes,
+    verlet EAM at 1M, and tests/test_parallel.py's 10.1M box on the verlet
+    single engine and on 8 slabs of an in-process mesh). Returns their
+    kernels' JSON rows."""
+    from mdbench_tpu_torch import _build
+    from mdbench_tpu_torch.bench import check_trace, root_bench, run_bench_scale
+    from mdbench_tpu_torch.engine import Simulation
+    from mdbench_tpu_torch.engine_cluster import GROUP
+    from mdbench_tpu_torch.ops import lj_cluster as lj
+    from mdbench_tpu_torch.ops import verlet
+    from mdbench_tpu_torch.ops.cluster import M, N_J
+    from mdbench_tpu_torch.parallel.verlet_domain import plan_capacities
+    from mdbench_tpu_torch.stats import compute_cluster_stats
+
+    golden = root_bench().GOLDEN_TEMP_131K
+
+    def temps_line(temps, steps) -> str:
+        return " ".join(f"{s}:{float(temps[s - 1]):.6e}" for s in steps)
+
+    def scale_run(what: str, **kw):
+        """run_bench_scale on the card with every count reset before it;
+        prints the run and returns (sim, result, counts of the kernels
+        that launched)."""
+        reset_counts(lj, ec)
+        t0 = time.perf_counter()
+        sim, out, rate, peak = run_bench_scale(device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in hand_launches(lj, ec).items() if v}
+        p = sim.params
+        if not np.isfinite(out.temps).all():
+            fail(f"{what}: the temperatures are not finite")
+        timed = kw.get("repeats", 1) * kw.get("chain", 1)
+        print(f"{what}: {sim.natoms} atoms, {p.ntimes} steps, {p.precision}; TOTAL "
+              + (f"{out.total_time:.6f} s per run ({timed} timed), {rate:.6e} "
+                 "atom-updates/s" if timed else "not timed (the reference trace)")
+              + f"; set-up: construction {sim.construct_time:.2f} s (lattice, host "
+              f"sort, upload), run()'s {sim.setup_time:.2f} s (initial state, "
+              f"calibrations); run_bench_scale wall {wall:.2f} s; peak {peak} bytes "
+              f"({peak / 2**30:.3f} GiB); launches {counts} on {smi}", flush=True)
+        print(f"{what} temps: {temps_line(out.temps, range(20, p.ntimes + 1, 20))}"
+              f" (GOLDEN_TEMP_131K, for reference only: "
+              f"{' '.join(f'{s}:{golden[s]:.6e}' for s in range(20, p.ntimes + 1, 20))})",
+              flush=True)
+        return sim, out, counts
+
+    def need_launches(what, counts, main: str, setup, need: int):
+        others = {k: v for k, v in counts.items() if k not in (main, setup)}
+        if counts.get(main, 0) < need or (setup and counts.get(setup, 0) < 1) or others:
+            fail(f"{what} launched {counts}: {main} >= {need}"
+                 + (f" and {setup} at set-up" if setup else "") + ", nothing else")
+
+    def gate(what, temps, ref, steps, tols):
+        for s, tol in zip(steps, tols):
+            t, r = float(temps[s - 1]), float(ref[s - 1])
+            print(f"{what} step {s}: {t:.9e} against {r:.9e}, rel "
+                  f"{abs(t - r) / abs(r):.3e} (tol {tol:.0e})", flush=True)
+        check_trace(temps, ref, steps, tols)
+
+    rows = []
+    phase(46)
+    # 46. 1M LJ (64^3 cells), 40 steps: a DP verlet run is the reference
+    # trace; SP cluster auto (K1, then K1b), cluster pallas (K4) and verlet
+    # auto (K1, then K1b) must meet it
+    lj1m = dict(nx=64, ntimes=40)
+    sim_r, out_r, counts = scale_run("1M LJ verlet DP (reference)", scheme="verlet",
+                                     precision="dp", repeats=0, **lj1m)
+    if counts.keys() - {"LAUNCHES", "BUCKET_LAUNCHES"} or sum(counts.values()) < 41:
+        fail(f"the 1M DP reference run launched {counts}: K1 or K1b for its 41 "
+             "forces, nothing else")
+    ref = out_r.temps
+    del sim_r, out_r
+    need = 2 * (lj1m["ntimes"] + 1)  # the checked run and one timed run
+    runs = {}
+    for scheme, kernel, main, setup in (("cluster", "auto", "BUCKET_LAUNCHES", "LAUNCHES"),
+                                        ("cluster", "pallas", "STREAM_LAUNCHES", None),
+                                        ("verlet", "auto", "BUCKET_LAUNCHES", "LAUNCHES")):
+        what = f"1M LJ {scheme} {kernel} SP"
+        sim, out, counts = scale_run(what, scheme=scheme, kernel=kernel, **lj1m)
+        need_launches(what, counts, main, setup, need)
+        gate(f"{what} against DP", out.temps, ref, SCALE_STEPS, SCALE_SP_TOL)
+        if kernel == "auto":
+            t_force, t_neigh = sim.measure_phases(out.state)
+            print(f"{what}: FORCE {t_force * 1e3:.4f} ms per call, NEIGH "
+                  f"{t_neigh * 1e3:.4f} ms per rebuild (measure_phases); TOTAL "
+                  f"{out.total_time:.6f} s against {lj1m['ntimes']} FORCE + "
+                  f"{lj1m['ntimes'] // 20} NEIGH = "
+                  f"{lj1m['ntimes'] * t_force + lj1m['ntimes'] // 20 * t_neigh:.6f} s "
+                  f"on {smi}", flush=True)
+        runs[scheme, kernel] = (sim, out, counts)
+
+    # the kernels on the final 1M lists: K1b and K1 on the cluster exact
+    # lists, K4 on the group windows, K1b and K1 on the verlet rows
+    sim, out, counts = runs["cluster", "auto"]
+    cl, pr, p = out.state.clusters, out.state.pairs, sim.params
+    L = pr.jlist.shape[1]
+    per = max(1, (1 << 25) // (GROUP * M * L * N_J))
+    print(rebuild_line(torch, "1M cluster full rebuild (_reneighbor_from_flat)",
+                       lambda: sim._reneighbor_from_flat(sim.x_flat0, sim.v_flat0))
+          + f"; derive_ilists chunks {-(-pr.jlist.shape[0] // per)} of {per} groups "
+          f"(L {L})", flush=True)
+    rows += exact_list_rows(
+        torch, lj, (cl.xc, cl.yc, cl.zc),
+        dict(ijlist=pr.ijlist, nji=pr.nji, bijlist=pr.bijlist, bcrows=pr.bcrows,
+             binv=pr.binv), sim.n_clusters_pad, sim.ishare, p, sim.buckets, counts,
+        "cluster lists, 1M", smi)
+    sim, out, counts = runs["cluster", "pallas"]
+    cl, pr, p = out.state.clusters, out.state.pairs, sim.params
+    npad, cut = sim.n_clusters_pad, (p.cutforce**2, p.sigma6, p.epsilon)
+    cs = compute_cluster_stats(cl, pr, npad, GROUP, p.cutforce**2, p.cutneigh**2)
+    planes = (cl.xc, cl.yc, cl.zc)
+    rows.append(scale_kernel_row(
+        torch, {**STREAM_KERNEL, "name": "lj_cluster_stream (1M)"},
+        f"K4 on the 1M group windows ({pr.jlist.shape[0]} groups x L "
+        f"{pr.jlist.shape[1]}, {cs['padded_pairs']} window pairs)",
+        lambda: lj.lj_cluster_force_stream(*planes, pr.jlist, pr.ranges, npad, *cut),
+        lambda: lj.lj_cluster_force_group_ref(*planes, pr.jlist, npad, *cut,
+                                              ranges=pr.ranges),
+        counts["STREAM_LAUNCHES"], lj_ops(cs["padded_pairs"], cs["pairs_within_cutforce"]),
+        nbytes_of(*planes, pr.jlist, pr.ranges), smi))
+    sim, out, counts = runs["verlet", "auto"]
+    st = out.state
+    if sim.rbuckets is None:
+        fail("the 1M verlet run planned no capacity buckets")
+    print(rebuild_line(torch, "1M verlet rebuild (_reneighbor)",
+                       lambda: sim._reneighbor(st.x, st.types), verlet), flush=True)
+    rows += verlet_row_rows(torch, lj, sim.params, st.x, st.nlist, sim.caps.nlocal_pad,
+                            sim.rbuckets, counts, "verlet rows, 1M", smi)
+    del runs, sim, out, st, cl, pr, planes
+    torch.cuda.empty_cache()
+
+    phase(47)
+    # 47. 1M verlet EAM (64^3 cells on the stand-in potential), 60 steps:
+    # SP poly against DP poly; K5 then K6 on every force
+    eam_file = str(_build.BUILD_DIR / "standin_cu.eam")
+    write_standin_funcfl(eam_file)
+    eam = {}
+    for prec in ("dp", "sp"):
+        what = f"1M verlet EAM {prec} poly"
+        with counted(Simulation, "_force") as n_force:
+            sim, out, _ = scale_run(what, nx=64, ntimes=60, scheme="verlet",
+                                    force_field="eam", eam_file=eam_file,
+                                    eam_eval="poly", precision=prec,
+                                    repeats=0 if prec == "dp" else 1)
+        launches = check_verlet_eam_launches(lj, ec, n_force[0], what)
+        print(f"{what}: K5 {launches['K5']} and K6 {launches['K6']} launches for "
+              f"{n_force[0]} force evaluations", flush=True)
+        eam[prec] = (sim, out, launches)
+    sim, out, launches = eam["sp"]
+    gate("1M verlet EAM SP against DP", out.temps, eam["dp"][1].temps,
+         tuple(EAM_SP_TOL), tuple(EAM_SP_TOL.values()))
+    del eam["dp"]
+    t_force, t_neigh = sim.measure_phases(out.state)
+    print(f"1M verlet EAM SP: FORCE {t_force * 1e3:.4f} ms per call, NEIGH "
+          f"{t_neigh * 1e3:.4f} ms per rebuild (measure_phases), K = "
+          f"{sim.caps.maxneighs}; on {smi}", flush=True)
+    print(rebuild_line(torch, "1M verlet EAM rebuild (_reneighbor)",
+                       lambda: sim._reneighbor(out.state.x, out.state.types), verlet),
+          flush=True)
+    rows += verlet_eam_kernel_rows(torch, sim, out.state, launches, smi, at="1M")
+    del eam, sim, out
+    torch.cuda.empty_cache()
+
+    phase(48)
+    # 48. 10.1M LJ (136^3 cells), SP, 40 steps: the verlet single engine,
+    # then 8 slabs of an in-process mesh on the same card
+    big = dict(nx=136, ntimes=40, scheme="verlet")
+    sim, out, counts = scale_run("10.1M LJ verlet SP, single engine", **big)
+    need_launches("10.1M single engine", counts, "BUCKET_LAUNCHES", "LAUNCHES",
+                  2 * (big["ntimes"] + 1))
+    p, st = sim.params, out.state
+    t0 = float((sim.v0.double() ** 2).sum()) * p.mass * sim.scales.t_scale
+    print(f"10.1M single engine: step-0 temperature {t0:.9e} (float64 sum of the "
+          f"float32 velocities) against Params.temp {p.temp} (rel "
+          f"{abs(t0 - p.temp) / p.temp:.3e}, tol 1e-06)", flush=True)
+    if not abs(t0 - p.temp) <= 1e-6 * p.temp:
+        fail("the 10.1M run does not start at Params.temp")
+    plan1 = plan_capacities(p, 1, sim.natoms)
+    print(f"10.1M single engine: caps {tuple(sim.caps)}, rcap {sim.rcap}, ccap "
+          f"{sim.ccap}, buckets {sim.rbuckets}; plan_capacities(p, 1, natoms) "
+          f"{plan1['bytes_per_device']} bytes ({plan1['bytes_per_device'] / 2**30:.3f} "
+          f"GiB)", flush=True)
+    if sim.rbuckets is None:
+        fail("the 10.1M verlet run planned no capacity buckets")
+    print(rebuild_line(torch, "10.1M verlet rebuild (_reneighbor)",
+                       lambda: sim._reneighbor(st.x, st.types), verlet), flush=True)
+    rows += verlet_row_rows(torch, lj, p, st.x, st.nlist, sim.caps.nlocal_pad,
+                            sim.rbuckets, counts, "verlet rows, 10.1M", smi)
+    single_total, single_temps = out.total_time, out.temps
+    del sim, out, st
+    torch.cuda.empty_cache()
+    ndev = 8
+    sim, out, counts = scale_run(f"10.1M LJ verlet SP, {ndev} slabs", ndev=ndev, **big)
+    p, st = sim.params, out.state
+    need_launches(f"10.1M on {ndev} slabs", counts, "BUCKET_LAUNCHES", "LAUNCHES",
+                  ndev * 2 * (big["ntimes"] + 1))
+    nloc = [int(n) for n in st.nlocal]
+    t0 = (float(sum((v.double() ** 2).sum() for v in sim.v0)) * p.mass
+          * sim.scales.t_scale)
+    plan8 = plan_capacities(p, ndev, sim.natoms)
+    print(f"10.1M on {ndev} slabs: atoms per slab {nloc} (sum {sum(nloc)}); step-0 "
+          f"temperature {t0:.9e} (rel {abs(t0 - p.temp) / p.temp:.3e} to Params.temp); "
+          f"TOTAL {out.total_time:.6f} s against the single engine's {single_total:.6f} "
+          f"s ({out.total_time / single_total:.3f}x); acap {sim.acap}, gcap {sim.gcap}, "
+          f"bcap {sim.bcap}, rcap {sim.rcap}, buckets {sim.rbuckets}, grows "
+          f"{sim.grows or 'none'}; plan_capacities(p, {ndev}, natoms) bytes_per_device "
+          f"x {ndev} = {plan8['bytes_per_device'] * ndev} bytes "
+          f"({plan8['bytes_per_device'] * ndev / 2**30:.3f} GiB) on {smi}", flush=True)
+    if sum(nloc) != sim.natoms:
+        fail(f"the slabs hold {sum(nloc)} atoms, not {sim.natoms}")
+    if not abs(t0 - p.temp) <= 1e-6 * p.temp:
+        fail("the 10.1M slab run does not start at Params.temp")
+    gate(f"10.1M {ndev} slabs against the single engine", out.temps, single_temps,
+         SCALE_STEPS, SLAB_TOL)
+    d = sim.initial_state(list(st.x), list(st.v), list(st.nlocal))[0]
+    if sim.rbuckets is None:
+        fail(f"the 10.1M {ndev}-slab run planned no capacity buckets")
+    rows += verlet_row_rows(torch, lj, p, d.x, d.nlist, sim.acap, sim.rbuckets,
+                            counts, f"slab rows, {ndev} slabs, 10.1M", smi)
+    return rows
+
+
+def verlet_row_rows(torch, lj, p, x, nl, nlocal_pad: int, rbuckets, counts: dict,
+                    tag: str, smi: str) -> list:
+    """exact_list_rows on 16-atom row lists (share 2; planes
+    x[:, d].reshape(-1, 8))."""
+    planes = [x[:, k].reshape(-1, 8).contiguous() for k in range(3)]
+    return exact_list_rows(
+        torch, lj, planes, dict(ijlist=nl.rows, nji=nl.numrows, bijlist=nl.brows,
+                                bcrows=nl.bcrows, binv=nl.binv),
+        nlocal_pad // 8, 2, p, rbuckets, counts, tag, smi)
+
+
 def main() -> int:
     import torch
 
     t_start = time.perf_counter()
 
+    phase(1)
     # 1. device
     if not torch.cuda.is_available():
         fail("torch finds no CUDA device")
@@ -3809,6 +4310,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
+    phase(2)
     # 2. build
     t0 = time.perf_counter()
     _build.load()
@@ -3819,6 +4321,7 @@ def main() -> int:
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  " + line.strip())
 
+    phase(3)
     # 3. kernel on random planes and lists
     for dtype in (torch.float32, torch.float64):
         for share in (1, 2, 4):
@@ -3837,6 +4340,7 @@ def main() -> int:
                 fail(f"kernel disagrees with its plain version ({dtype}, share {share})")
     check_sweep_edges(torch, dev, ("K1", "K1t"), None)
 
+    phase(4)
     # 4. main path: the benchmark run; count the kernels' launches in it:
     # the set-up forces before the bucket plan launch K1, every force
     # after it K1b
@@ -3879,22 +4383,24 @@ def main() -> int:
         f"{s}:{temps[s - 1]:.6e}" for s in range(p.reneigh_every, p.ntimes + 1,
                                                     p.reneigh_every)))
 
+    phase(5)
     # 5. small input: card against the CPU plain path, float64
-    kw = dict(nx=8, ny=8, nz=8, ntimes=40, reneigh_every=10, resort_every=20,
+    kw = dict(nx=6, ny=6, nz=6, ntimes=40, reneigh_every=10, resort_every=20,
               precision="dp", scheme="cluster")
     x, v, _ = create_fcc_lattice(Params(**kw))
     x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
     f_cpu = ClusterSimulation(Params(**kw), x=x, v=v, device="cpu").first_force_atoms()
     f_gpu = ClusterSimulation(Params(**kw), x=x, v=v, device=dev).first_force_atoms()
     frel = np.abs(f_gpu - f_cpu).max() / np.abs(f_cpu).max()
-    r_cpu = ClusterSimulation(Params(**kw), device="cpu").run()
-    r_gpu = ClusterSimulation(Params(**kw), device=dev).run()
+    r_cpu = ClusterSimulation(Params(**kw), device="cpu").run(repeats=0)
+    r_gpu = ClusterSimulation(Params(**kw), device=dev).run(repeats=0)
     trel = float(np.max(np.abs(r_gpu.temps - r_cpu.temps) / np.abs(r_cpu.temps)))
-    print(f"small input 8^3 dp: step-0 force rel err {frel:.3e} (tol 1e-10), "
+    print(f"small input 6^3 dp: step-0 force rel err {frel:.3e} (tol 1e-10), "
           f"40-step temperature rel err {trel:.3e} (tol 1e-9)", flush=True)
     if not (frel <= 1e-10 and trel <= 1e-9):
         fail("the card's run disagrees with the CPU plain path")
 
+    phase(6)
     # 6. kernel at the main path's shapes: the run's final planes and lists
     cl, pr = st.clusters, st.pairs
     npad = sim.n_clusters_pad
@@ -3992,6 +4498,11 @@ def main() -> int:
     mesh_rows = run_mesh_domain_phases(torch, dev, smi, ec, verlet_totals, slab_totals,
                                        eam_verlet_dp)
 
+    # 46-48. the scale runs: 1M on both schemes, 1M verlet EAM, 10.1M on
+    # the single engine and on 8 slabs
+    scale_rows = run_scale_phases(torch, dev, smi, ec)
+    phase(None)
+
     wall = time.perf_counter() - t_start
     print(f"chip_smoke wall {wall:.1f} s (limit 1200 s)", flush=True)
     print(json.dumps({"kernels": [
@@ -3999,7 +4510,7 @@ def main() -> int:
                    exact_ms=res[torch.float32][4], device_ms=res[torch.float32][5]),
         *eam_rows, stream_row,
         *typed_rows, *bucket_rows, bf16_row, *fetch_rows, *verlet_rows, *verlet_eam_rows,
-        *domain_rows, *cluster_domain_rows, *mesh_rows,
+        *domain_rows, *cluster_domain_rows, *mesh_rows, *scale_rows,
     ]}))
     print(f"chip_smoke wall {wall:.1f} s", file=sys.stderr)
     print(smi)

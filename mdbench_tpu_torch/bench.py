@@ -31,6 +31,14 @@ with scheme="cluster" the cluster scheme on `ndev` slabs,
 parallel/cluster_domain.ClusterDomainSimulation), gated on the same
 golden trace.
 
+`run_bench_scale` runs tools/r3_scale.py's workload on the port: the
+FCC box of nx^3 cells (64: 1,048,576 atoms; 136: 10,061,824, the
+multi-chip target of BASELINE.json configs[4]) for ntimes steps, LJ or
+verlet EAM, on the single engine of either scheme or on `ndev` verlet
+slabs of an in-process mesh on the one card. No golden trace exists at
+these sizes: the caller gates the run's trace with `check_trace`
+against a DP run of the same box (or, for slabs, the single engine's).
+
 `run_bench_file` runs the same LJ workload from an atom file
 (`Params(input_file=...)`: positions, velocities, box and types of the
 file; a file with more than one type runs the typed force with the
@@ -145,6 +153,80 @@ def run_bench_eam(eam_file: str, precision: str = "sp", repeats: int = 3,
     sim = engine(params, device="cuda")
     out = sim.run(repeats=repeats, chain=chain)
     return sim, out, sim.natoms * params.ntimes / out.total_time
+
+
+def run_bench_scale(nx=64, ntimes: int = 40, scheme: str = "cluster",
+                    kernel: str = "auto", precision: str = "sp",
+                    force_field: str = "lj", eam_file=None, eam_eval: str = "auto",
+                    ndev=None, repeats: int = 1, chain: int = 1, device="cuda"):
+    """The scale run (module docstring) on `device` ("cpu" runs the plain
+    path): `nx` cells on each side, or (nx, ny, nz); `force_field` "lj"
+    or "eam" (with `eam_file`, initEam's overrides applied, and
+    `eam_eval` as Params takes it); `ndev` None for the single engine of
+    `scheme` (engine.Simulation or engine_cluster.ClusterSimulation), or
+    the number of verlet slabs (parallel/verlet_domain.DomainSimulation).
+    Measured as run_bench with `repeats` regions of `chain` runs; no
+    gate. Sets sim.construct_time, the engine's construction seconds
+    (lattice, host sort, upload); the engine's setup_time holds run()'s
+    set-up. Returns (sim, result, atom-updates per second, peak bytes):
+    torch.cuda.max_memory_allocated over construction and run() after a
+    reset, None off the card."""
+    import time
+
+    import torch
+
+    from mdbench_tpu_torch.config import FF_EAM, FF_LJ, Params
+
+    dims = (nx,) * 3 if isinstance(nx, int) else tuple(nx)
+    ff = {"lj": FF_LJ, "eam": FF_EAM}[force_field]
+    if ff == FF_EAM and not eam_file:
+        raise ValueError("force_field='eam' needs eam_file")
+    if ndev is not None and scheme != "verlet":
+        raise ValueError("ndev runs the verlet slab engine: scheme='verlet'")
+    params = Params(precision=precision, scheme=scheme, kernel=kernel,
+                    dense_thermo=False, nx=dims[0], ny=dims[1], nz=dims[2],
+                    ntimes=ntimes, force_field=ff, eam_file=eam_file,
+                    eam_eval=eam_eval)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    if ndev is not None:
+        from mdbench_tpu_torch.parallel.verlet_domain import DomainSimulation
+
+        sim = DomainSimulation(params, ndev=ndev, device=device)
+    elif scheme == "cluster":
+        from mdbench_tpu_torch.engine_cluster import ClusterSimulation
+
+        sim = ClusterSimulation(params, device=device)
+    else:
+        from mdbench_tpu_torch.engine import Simulation
+
+        sim = Simulation(params, device=device)
+    if on_card:
+        torch.cuda.synchronize(device)
+    sim.construct_time = time.perf_counter() - t0
+    out = sim.run(repeats=repeats, chain=chain)
+    peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    return sim, out, sim.natoms * ntimes / out.total_time, peak
+
+
+def check_trace(temps, ref_temps, steps, tols) -> None:
+    """Gate a run's temperatures on a reference trace of the same box (an
+    SP run on a DP run, slabs on the single engine): at each step of
+    `steps` (1-based) the relative difference must be below the matching
+    entry of `tols`, or SystemExit names the step, both temperatures and
+    the difference (check_golden's words)."""
+    for step, tol in zip(steps, tols, strict=True):
+        t, t_ref = float(temps[step - 1]), float(ref_temps[step - 1])
+        rel = abs(t - t_ref) / abs(t_ref)
+        if not rel < tol:
+            raise SystemExit(
+                f"TRACE GATE FAILED at step {step}: temp {t:.6e} vs "
+                f"reference {t_ref:.6e} (rel {rel:.2e} > tol {tol:.0e}) — "
+                "refusing to report a benchmark score for a wrong "
+                "trajectory"
+            )
 
 
 def run_bench_file(input_file: str, precision: str = "sp", kernel: str = "auto",

@@ -231,6 +231,7 @@ class Simulation:
         self._force_reps = 1  # forces per plain step (cli --timers diff: 2)
         self._rcap_calibrated = False
         self._melt_calibrated = False
+        self.setup_time = None  # run()'s set-up seconds (run docstring)
         pad_unit = 1024 if self._rowlist else 256
         self.caps = Capacities(
             nlocal_pad=(self.nlocal + pad_unit - 1) // pad_unit * pad_unit,
@@ -466,11 +467,15 @@ class Simulation:
         initial state built before the region, fenced with a device
         synchronise; total_time is the median region time / chain (the
         TOTAL of ClusterSimulation.run), NaN with repeats=0 (no timed
-        region)."""
+        region). setup_time is the seconds from the call to the checked
+        run's start (initial state, calibrations, grows; synchronised)."""
         p = self.params
         ntimes = p.ntimes if ntimes is None else ntimes
+        t_setup = time.perf_counter()
         for _ in range(max_retries + 1):
             state0 = self._calibrated_state(self.initial_state(), ntimes)
+            self._sync()
+            self.setup_time = time.perf_counter() - t_setup
             state, temps, press = self._run_steps(state0, ntimes)
             if bool(state.overflow):
                 self._grow_caps(state)

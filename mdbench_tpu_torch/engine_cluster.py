@@ -350,6 +350,7 @@ class ClusterSimulation:
         self.dtype = params.dtype
         self._force_reps = 1  # forces per plain step (cli --timers diff: 2)
         self.grows: list = []  # the flags behind each capacity growth
+        self.setup_time = None  # run()'s set-up seconds (run docstring)
         self.x_flat0 = self._flat(x, SENTINEL_COORD)
         self.v_flat0 = self._flat(v, 0.0)
 
@@ -729,10 +730,13 @@ class ClusterSimulation:
         `repeats` regions of `chain` back-to-back runs, each from a fresh
         initial state built before the region, fenced with a device
         synchronise; total_time is the median region time / chain, NaN with
-        repeats=0 (no timed region)."""
+        repeats=0 (no timed region). setup_time is the seconds from the
+        call to the checked run's start (initial state, grows, the
+        calibration; synchronised)."""
         p = self.params
         ntimes = p.ntimes if ntimes is None else ntimes
         calibrated = False
+        t_setup = time.perf_counter()
         for _ in range(max_retries + 1):
             state0 = self.initial_state()
             flags = state0.overflow.cpu().numpy()
@@ -743,6 +747,8 @@ class ClusterSimulation:
                 calibrated = True
                 if self._calibrate_list_cap(state0):
                     continue
+            self._sync()
+            self.setup_time = time.perf_counter() - t_setup
             state, temps, press = self._run_steps(state0, ntimes)
             flags = state.overflow.cpu().numpy()
             if flags.any():

@@ -57,8 +57,12 @@ RBIG = 1 << 28  # empty row range (sorts last)
 MAX_ELEMS = 1 << 25  # elements of one chunk's largest intermediate
 
 
-def _chunks(n: int, per_item: int, max_elems: int = MAX_ELEMS):
-    """Slices of range(n) whose items times per_item stay under max_elems."""
+def _chunks(n: int, per_item: int, max_elems: int | None = None):
+    """Slices of range(n) whose items times per_item stay under max_elems
+    (None: the module's MAX_ELEMS as it is at the call, so that setting
+    it reaches every build)."""
+    if max_elems is None:
+        max_elems = MAX_ELEMS
     step = max(1, max_elems // max(per_item, 1))
     return [slice(a, min(a + step, n)) for a in range(0, n, step)]
 
@@ -106,7 +110,7 @@ def build_neighbors(grid: CellGrid, cl: CellList, x, types, cutneighsq,
     planes = [x[:, k][cells] for k in range(3)]  # (nbins + 1, cap) each
     C = 27 * cap
     neighs, nns = [], []
-    for sl in _chunks(nlocal_pad, C * 8, MAX_ELEMS):
+    for sl in _chunks(nlocal_pad, C * 8):
         i_idx = torch.arange(sl.start, sl.stop, device=dev)
         n = i_idx.shape[0]
         is_real = i_idx < nlocal

@@ -230,6 +230,7 @@ class StagedDomainEngine:
         self._calibrated = False
         # the flags (FLAGS, any domain) behind each capacity growth
         self.grows: list = []
+        self.setup_time = None  # run()'s set-up seconds (run docstring)
         self._fix_row_layout()
 
         # the domain's cell grid (the same geometry on every domain); bin
@@ -659,15 +660,22 @@ class StagedDomainEngine:
         regions of `chain` back-to-back runs, each from a fresh initial
         state built before the region, fenced with a device synchronise;
         total_time is the median region time / chain, NaN with repeats=0
-        (no timed region)."""
+        (no timed region). setup_time is the seconds from the call to the
+        checked run's start (the calibration, grows, the initial state;
+        synchronised)."""
         ntimes = self.params.ntimes if ntimes is None else ntimes
+        t_setup = time.perf_counter()
         self._calibrate(ntimes)
-        return self._run_raw(ntimes, repeats, chain, retries)
+        return self._run_raw(ntimes, repeats, chain, retries, t_setup)
 
     def _run_raw(self, ntimes: int, repeats: int = 0, chain: int = 1,
-                 retries: int = 6) -> DomainResult:
+                 retries: int = 6, t_setup=None) -> DomainResult:
         for _ in range(retries + 1):
-            doms, temps = self._run_steps(self.initial_state(), ntimes)
+            s0 = self.initial_state()
+            if t_setup is not None:
+                self._sync()
+                self.setup_time = time.perf_counter() - t_setup
+            doms, temps = self._run_steps(s0, ntimes)
             state = self._state(doms)
             flags = self._overflowed(doms)
             if flags.any():

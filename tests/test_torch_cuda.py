@@ -1215,3 +1215,75 @@ def test_cuda_mesh_domain_launches_without_sync(cuda, dims, box):
     sites = sync_sites(torch, lambda: sim._run_steps(s0, 20))
     assert not [w for w in sites if w.startswith("parallel/")], sites
     assert tlj.LAUNCHES + tlj.BUCKET_LAUNCHES - before == sim.ndev * 20
+
+
+# 64-bit addressing: rows past 2^31 bytes of their operands (a 10.1M-atom
+# plan's planes stay below it; these cases go past it on purpose)
+FAR_J16 = 36_000_000  # K1: the last j16 row, (72M, 8) float32 planes
+FAR_ROWS = 192_000_000  # K5/K6: rows of x, (192M, 3) float32
+
+
+@pytest.mark.cuda
+def test_cuda_k1_rows_past_2_31_bytes(cuda):
+    """K1 on synthetic_case's lists with every j16 id moved up by
+    FAR_J16 - cjn (the sentinel to the last j16 of planes of 2 * FAR_J16
+    rows): the largest j16 id x 16 atoms x 3 x 4 bytes, and each plane's
+    own byte offset, pass 2^31. Equal to the plain version, and to the
+    kernel's bits on the same case at its own ids."""
+    cl, pairs, npad, share = synthetic_case(seed=3, nu=64, share=2)
+    c = clusters_from_numpy(cl, cuda, torch.float32)
+    pr = pairs_from_numpy(pairs, cuda)
+    near = tlj.lj_cluster_force_ilist(c.xc, c.yc, c.zc, pr.ijlist, pr.nji, npad,
+                                      CUT2, SIG6, EPS, share=share)
+    cjn = c.xc.shape[0] // 2
+    off = FAR_J16 - cjn
+    assert (FAR_J16 - 1) * 16 * 3 * 4 > 2**31 and (FAR_J16 - 1) * 16 * 4 > 2**31
+    far = []
+    for p in (c.xc, c.yc, c.zc):
+        q = torch.full((2 * FAR_J16, 8), SENTINEL_COORD, dtype=torch.float32, device=cuda)
+        q[:npad] = p[:npad]  # the i-side rows stay first
+        q[2 * off:] = p  # every j16 row moved up by off
+        far.append(q)
+    ijl = (pr.ijlist.long() + off).to(torch.int32)
+    got = tlj.lj_cluster_force_ilist(*far, ijl, pr.nji, npad, CUT2, SIG6, EPS,
+                                     share=share)
+    torch.cuda.synchronize()
+    want = tlj.lj_cluster_force_ilist_ref(*far, ijl, npad, CUT2, SIG6, EPS, share=share)
+    assert _rel(got, want) <= TOL[torch.float32]
+    assert all(torch.equal(a, b) for a, b in zip(got, near))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poly", [False, True], ids=["spline", "poly"])
+def test_cuda_verlet_eam_rows_past_2_31_bytes(cuda, eam_file, poly):
+    """K5 and K6 on chip_smoke.verlet_eam_case with its ghost rows and
+    sentinel row moved to the end of an x of FAR_ROWS rows (the rows
+    between them sentinel padding, their border map entries the
+    sentinel): x's byte offsets pass 2^31. Bit for bit the plain versions,
+    two launches the same bits, and the same bits as on the case itself."""
+    case = verlet_eam_case(np.float32)
+    x0, nb0, nn = (torch.tensor(case[k], device=cuda)
+                   for k in ("x", "neighbors", "numneigh"))
+    bmap0 = torch.tensor(case["border_map"], device=cuda)
+    npad, n0 = case["nlocal_pad"], case["x"].shape[0]
+    shift = FAR_ROWS - n0
+    assert (FAR_ROWS - 1) * 3 * 4 > 2**31
+    x = torch.full((FAR_ROWS, 3), SENTINEL_COORD, dtype=torch.float32, device=cuda)
+    x[:npad] = x0[:npad]
+    x[npad + shift:] = x0[npad:]
+    nb = torch.where(nb0 >= npad, nb0 + shift, nb0)
+    bmap = torch.full((FAR_ROWS - 1 - npad,), FAR_ROWS - 1, dtype=bmap0.dtype,
+                      device=cuda)
+    bmap[shift:] = torch.where(bmap0 >= npad, bmap0 + shift, bmap0)
+    t = load_eam(eam_file)
+    eam = tev.EamDevice.from_tables(t, cuda, torch.float32)
+    fit = fit_eam_poly(t) if poly else None
+    near = verlet_eam_pair(torch, x0, nb0, nn, npad, VERLET_EAM_CUTSQ, eam, fit, bmap0)
+    far = verlet_eam_pair(torch, x, nb, nn, npad, VERLET_EAM_CUTSQ, eam, fit, bmap)
+    for name in ("rho", "fp", "f"):
+        got, again, want = far[name]
+        assert torch.equal(got, again) and torch.equal(got, want), name
+    assert torch.equal(far["rho"][0], near["rho"][0])
+    assert torch.equal(far["fp"][0][:npad], near["fp"][0][:npad])
+    assert not far["fp"][0][npad:].any()
+    assert torch.equal(far["f"][0], near["f"][0])
