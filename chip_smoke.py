@@ -344,12 +344,34 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      steps 20 and 40; TOTAL against the single engine's, peak bytes
      against plan_capacities (1 and 8 domains); K1b and K1 on the single
      engine's final rows and on one slab's, as in 46.
+ 49. the bf16 derive (Params.derive_bf16): both derives on phase 4's
+     final state at the group lists' width (the bf16 lists hold every
+     exact entry; each extra entry lies outside cutneigh and within
+     ops/cluster.bf16_reach and sqrt(cut_eff) + err_r of its unit, by the
+     float64 distance of the float32 coordinates; no sentinel j16 before
+     nji; nji sums and maxima, the calibrated capacities, bucket plans
+     and their padded pairs); run_bench(derive_bf16=True) at 131k/200 SP
+     (golden gate, K1 at set-up and K1b after the plan and nothing else,
+     its temperatures against phase 4's, its final lists the bf16
+     derive's, TOTAL of one timed run beside phase 4's); the A/B of
+     tools/r3_derive16.py in turns f32, bf16, bf16, f32 (the derive alone,
+     four turns of 11 event-fenced calls, as the eager run pays it, and
+     two from a CUDA graph, the device's share; measure_phases of both
+     engines; K1b with the approximate reciprocal on both lists' plans,
+     back to back and on the device, and whether both give the same
+     forces) and its verdict both ways, printed only; the exact derive's
+     run again against phase 4's temperatures, beside the bf16 run's
+     difference from them; K1b on the run's
+     final lists against its plain version in chunks of units (1e-5 of
+     max |f|, the same bits as K1); cluster EAM 131k/60 SP with
+     derive_bf16 (K2 and K3 at set-up, K2b and K3b for every force after
+     the plan, nothing else) within EAM_SP_TOL of phase 8's DP run.
 
 Every kernel count is set to 0 just before each main path (phases 4, 8,
 12, both runs of 17, the probes' runs in 25 and 26, both runs of 27, each
 131k run of 30, the card's runs of 31, each stub of 32 (LJ: where it must
-stay 0), each run of 34-36, 37-40, 42-44 and 46-48) and read just after
-it. Each phase prints its wall ("phase N: X s") when the next one
+stay 0), each run of 34-36, 37-40, 42-44 and 46-48, and both runs of 49)
+and read just after it. Each phase prints its wall ("phase N: X s") when the next one
 starts. Then it prints the script's wall time, a JSON line of the
 kernels, nvidia-smi's line, and {"ok": true, "device": {...}} as the
 last line.
@@ -4268,6 +4290,247 @@ def run_scale_phases(torch, dev, smi: str, ec) -> list:
     return rows
 
 
+def list_members(torch, a, na, b, nb):
+    """(units, cap_a) bool: entry k of row u of list `a` (k < na[u]) is
+    among the first nb[u] entries of row u of list `b`."""
+    pos_a = torch.arange(a.shape[1], device=a.device)[None, :]
+    pos_b = torch.arange(b.shape[1], device=b.device)[None, :]
+    live_b = torch.where(pos_b < nb[:, None], b.long(), torch.iinfo(torch.int64).max)
+    sb = live_b.sort(dim=1).values
+    idx = torch.searchsorted(sb, a.long().contiguous()).clamp(max=b.shape[1] - 1)
+    return (sb.gather(1, idx) == a.long()) & (pos_a < na[:, None])
+
+
+def planned_lists(torch, pairs, npad: int, share: int, total_rows: int):
+    """An exact-list derive at the group lists' width cut to the engine's
+    calibrated capacity (ClusterSimulation._calibrate_list_cap: max nji x
+    1.15 + 2, to a multiple of 8) with the bucket plan of its nji
+    (_plan_buckets: margin 2, zero tier) and its maps: (pairs, icap, plan,
+    padded pairs of the plan)."""
+    from mdbench_tpu_torch.ops.cluster import M, N_J, attach_bucket_maps, plan_capacity_buckets
+
+    icap = max((int(int(pairs.nji.max()) * 1.15) + 2 + 7) // 8 * 8, 16)
+    pr = pairs._replace(ijlist=pairs.ijlist[:, :icap].contiguous())
+    plan = plan_capacity_buckets(pr.nji.cpu().numpy(), icap, share, margin=2,
+                                 zero_tier=True)
+    if plan is None:
+        fail("no bucket plan for the 131k lists")
+    pr = attach_bucket_maps(pr, npad, share, total_rows, *plan)
+    return pr, icap, plan, sum(n * c for n, c in zip(*plan)) * share * M * N_J
+
+
+def run_bf16_derive_phase(torch, dev, smi: str, ec, lj_main, single: tuple,
+                          eam_dp) -> list:
+    """Phase 49: the bf16 derive (Params.derive_bf16). `lj_main` is phase
+    4's (sim, final state, K1b launches), `single` its (TOTAL,
+    temperatures), `eam_dp` phase 8's DP run (sim, result). Returns the
+    JSON row of K1b on the bf16-derived lists."""
+    from mdbench_tpu_torch import _build
+    from mdbench_tpu_torch.bench import run_bench, run_bench_eam
+    from mdbench_tpu_torch.engine_cluster import GROUP
+    from mdbench_tpu_torch.ops import lj_cluster as lj
+    from mdbench_tpu_torch.ops.cluster import (
+        bf16_cutoff,
+        bf16_extents,
+        bf16_reach,
+        derive_ilists,
+    )
+    from mdbench_tpu_torch.probes import graph_ms
+
+    phase(49)
+    # 49a. both derives on phase 4's final state, at the group lists' width
+    sim, st, _ = lj_main
+    cl, p, share, npad = st.clusters, sim.params, sim.ishare, sim.n_clusters_pad
+    L = st.pairs.jlist.shape[1]
+    derive = {b: (lambda b=b: derive_ilists(cl, st.pairs, npad, GROUP, p.cutneigh, L,
+                                            share=share, bf16=b)) for b in (False, True)}
+    ex, bf = derive[False](), derive[True]()
+    sentinel = cl.xc.shape[0] // 2 - 1
+    pos = torch.arange(L, device=dev)[None, :]
+    dropped = int((~list_members(torch, ex.ijlist, ex.nji, bf.ijlist, bf.nji)
+                   & (pos < ex.nji[:, None])).sum())
+    extra = (~list_members(torch, bf.ijlist, bf.nji, ex.ijlist, ex.nji)
+             & (pos < bf.nji[:, None]))
+    early_sentinel = int(((bf.ijlist == sentinel) & (pos < bf.nji[:, None])).sum())
+    u, k = extra.nonzero(as_tuple=True)
+    j = bf.ijlist[u, k].long()
+    planes = [q.double() for q in (cl.xc, cl.yc, cl.zc)]
+    ia = [q[:npad].reshape(-1, share * 8)[u] for q in planes]  # (extras, i-atoms)
+    ja = [q.reshape(-1, 16)[j] for q in planes]  # (extras, 16)
+    ok = ((torch.stack(ia).abs() < 5e29).all(0)[:, :, None]
+          & (torch.stack(ja).abs() < 5e29).all(0)[:, None, :])
+    d2 = sum((a[:, :, None] - b[:, None, :]) ** 2 for a, b in zip(ia, ja))
+    dist = torch.where(ok, d2, torch.inf).amin((1, 2)).sqrt()
+    ext = bf16_extents(cl, npad, GROUP, share)
+    reach = bf16_reach(ext, p.cutneigh)[u]
+    cut_eff, err_r = bf16_cutoff([b.double() for b in ext], p.cutneigh)
+    shell = (torch.sqrt(cut_eff) + err_r)[u]
+    n_extra = int(u.numel())
+    worst = float((dist / reach).max()) if n_extra else 0.0
+    worst_shell = float((dist / shell).max()) if n_extra else 0.0
+    inside = int((dist <= p.cutneigh).sum())
+    lists = {}
+    for name, d in (("f32", ex), ("bf16", bf)):
+        lists[name] = planned_lists(torch, d, npad, share, cl.xc.shape[0])
+    print(f"bf16 derive lists on phase 4's final state ({npad // share} units, share "
+          f"{share}, group lists L {L}): nji sum f32 {int(ex.nji.sum())}, bf16 "
+          f"{int(bf.nji.sum())} (+{int(bf.nji.sum() - ex.nji.sum())}, "
+          f"{float(bf.nji.sum() / ex.nji.sum() - 1) * 100:.3f}%), max f32 "
+          f"{int(ex.nji.max())}, bf16 {int(bf.nji.max())}; exact entries dropped "
+          f"{dropped}; extra entries {n_extra}, at most {float(dist.max()) if n_extra else 0:.6f} "
+          f"from their unit (cutneigh {p.cutneigh}), max distance / reach {worst:.6f}, "
+          f"/ (sqrt(cut_eff) + err_r) {worst_shell:.6f}, {inside} within cutneigh; "
+          f"sentinel j16s before nji {early_sentinel}; calibrated icap f32 "
+          f"{lists['f32'][1]}, bf16 {lists['bf16'][1]}; bucket plans f32 "
+          f"{lists['f32'][2]}, bf16 {lists['bf16'][2]}; padded pairs f32 "
+          f"{lists['f32'][3]}, bf16 {lists['bf16'][3]}", flush=True)
+    if dropped or early_sentinel or inside or not (worst <= 1.0 and worst_shell <= 1.0):
+        fail("the bf16 lists are not a superset of the exact lists within the shell")
+
+    # 49c. the 131k/200 SP run with derive_bf16 through the entry point:
+    # K1 at set-up, K1b after the plan, nothing else
+    reset_counts(lj, ec)
+    t0 = time.perf_counter()
+    sim_b, out_b, rate = run_bench(repeats=SEC_REPEATS, chain=SEC_CHAIN, derive_bf16=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in hand_launches(lj, ec).items() if v}
+    need = (1 + SEC_REPEATS * SEC_CHAIN) * (p.ntimes + 1)
+    stb = out_b.state
+    taken = single[1] != 0  # dense_thermo off: the rebuild steps' temperatures
+    trel = float(np.max(np.abs(out_b.temps - single[1])[taken] / np.abs(single[1][taken])))
+    again = derive_ilists(stb.clusters, stb.pairs, npad, GROUP, p.cutneigh, sim_b.icap,
+                          share=share, bf16=True)
+    print(f"bf16 derive run 131k/200 SP (run_bench(derive_bf16=True)): golden gate "
+          f"passed; TOTAL {out_b.total_time:.6f} s (one timed run; phase 4's "
+          f"{single[0]:.6f} s), {rate:.6e} atom-updates/s, run_bench wall {wall:.2f} s; "
+          f"temperatures against phase 4's: max rel {trel:.3e}; icap {sim_b.icap} "
+          f"(phase 4: {sim.icap}), buckets {sim_b.buckets}, grows "
+          f"{sim_b.grows or 'none'} (phase 4: {sim.grows or 'none'}); launches {counts}; "
+          f"final lists the bf16 derive's: {torch.equal(again.nji, stb.pairs.nji)}; on "
+          f"{smi}", flush=True)
+    if not sim_b._derive_bf16 or sim_b.buckets is None:
+        fail("the bf16 derive run took no bf16 derive or planned no buckets")
+    if (set(counts) != {"LAUNCHES", "BUCKET_LAUNCHES"} or counts["BUCKET_LAUNCHES"] < need):
+        fail(f"the bf16 derive run launched {counts}: K1 at set-up and K1b for its "
+             f"{need} force evaluations, nothing else")
+    if not torch.equal(again.nji, stb.pairs.nji):
+        fail("the bf16 derive run's final lists are not the bf16 derive's")
+    if not np.isfinite(out_b.temps).all():
+        fail("the bf16 derive run's temperatures are not finite")
+
+    # 49b. the A/B of tools/r3_derive16.py on phase 4's final state, in
+    # turns: the derive alone (event-fenced, as the run pays it, and from a
+    # CUDA graph, the device's share), NEIGH of the two engines, K1b on both
+    # lists' plans; the verdict
+    turns = ("f32", "bf16", "bf16", "f32") * 2
+    ms_derive, dev_derive = {}, {}
+    for name in turns:
+        ms_derive.setdefault(name, []).append(
+            median_ms(torch, derive[name == "bf16"], 1, batches=11, warm=2))
+    for name in turns[:4]:
+        dev_derive.setdefault(name, []).append(graph_ms(derive[name == "bf16"], 3))
+    t_force, t_neigh = {}, {}
+    for name, s_, st_ in (("f32", sim, st), ("bf16", sim_b, stb)):
+        t_force[name], t_neigh[name] = s_.measure_phases(st_)
+    cut = (p.cutforce**2, p.sigma6, p.epsilon)
+    xyz = (cl.xc, cl.yc, cl.zc)
+
+    def k1b(name):
+        pr, _, plan, _ = lists[name]
+        return lambda: lj.lj_cluster_force_buckets(
+            *xyz, pr.bijlist, pr.bcrows, pr.binv, pr.nji, npad, plan, *cut,
+            share=share, approx_rcp=True)
+
+    same = all(torch.equal(a, b) for a, b in zip(k1b("f32")(), k1b("bf16")()))
+    ms_k1b, dev_k1b = {}, {}
+    for name in turns[:4]:
+        ms_k1b.setdefault(name, []).append(median_ms(torch, k1b(name), 50))
+        dev_k1b.setdefault(name, []).append(graph_ms(k1b(name), 50))
+    med, dmed, mk, dk = ({n: float(np.median(v)) for n, v in d.items()}
+                         for d in (ms_derive, dev_derive, ms_k1b, dev_k1b))
+    extra_pairs = lists["bf16"][3] - lists["f32"][3]
+    per_pair = dk["f32"] / lists["f32"][3]
+    rhs = extra_pairs * per_pair
+    print(f"bf16 derive A/B at 131k (phase 4's final state; in turns f32, bf16, bf16, "
+          f"f32): derive_ilists alone f32 {med['f32']:.4f} ms, bf16 {med['bf16']:.4f} "
+          f"ms (median of the turns' medians of 11 event-fenced calls: f32 "
+          f"{ms_derive['f32']}, bf16 {ms_derive['bf16']}); from a CUDA graph (the "
+          f"device alone) f32 {dmed['f32']:.4f} ms, bf16 {dmed['bf16']:.4f} ms (f32 "
+          f"{dev_derive['f32']}, bf16 {dev_derive['bf16']}); measure_phases NEIGH f32 "
+          f"{t_neigh['f32'] * 1e3:.4f} ms, bf16 {t_neigh['bf16'] * 1e3:.4f} ms, FORCE "
+          f"f32 {t_force['f32'] * 1e3:.4f} ms, bf16 {t_force['bf16'] * 1e3:.4f} ms; K1b "
+          f"(approx_rcp) on the f32 lists {mk['f32']:.4f} ms back to back, "
+          f"{dk['f32']:.4f} ms on the device, on the bf16 lists {mk['bf16']:.4f} ms, "
+          f"{dk['bf16']:.4f} ms on the device, the same forces on both: {same}; on {smi}",
+          flush=True)
+    for what, saved in (("event-fenced", med["f32"] - med["bf16"]),
+                        ("device alone", dmed["f32"] - dmed["bf16"])):
+        lhs = saved / p.reneigh_every
+        print(f"bf16 derive verdict, {what} (tools/r3_derive16.py: adopt iff saved "
+              f"derive ms / reneigh_every > extra padded pairs x kernel ms a pair): "
+              f"{saved:.4f} / {p.reneigh_every} = {lhs:.5f} ms against {extra_pairs} x "
+              f"{per_pair:.4e} = {rhs:.5f} ms (K1b's device time on the f32 plan / its "
+              f"padded pairs; measured K1b difference {dk['bf16'] - dk['f32']:.5f} ms a "
+              f"step): {'ADOPT' if lhs > rhs else 'REJECT'} (printed only; "
+              f"Params.derive_bf16 stays False)", flush=True)
+    # a control: the exact derive's run again, against phase 4's trace
+    ctrl = run_bench(repeats=0, chain=1)[1].temps
+    crel = float(np.max(np.abs(ctrl - single[1])[taken] / np.abs(single[1][taken])))
+    print(f"bf16 derive run against phase 4's temperatures: max rel {trel:.3e}; the "
+          f"exact derive's run again (not timed) against phase 4's: max rel {crel:.3e}",
+          flush=True)
+
+    # 49d. K1b on the run's final (bf16-derived) lists against its plain
+    # version, f32 with the approximate reciprocal as the run takes it
+    planes_b = (stb.clusters.xc, stb.clusters.yc, stb.clusters.zc)
+    maps = (stb.pairs.bijlist, stb.pairs.bcrows, stb.pairs.binv)
+    c = lj.ilist_sweep_counts(*planes_b, maps[0], stb.pairs.nji, share, cut[0],
+                              buckets=(sim_b.buckets, maps[1]))
+    row = scale_kernel_row(
+        torch, {**BUCKET_KERNELS["lj_cluster_ilist_buckets"],
+                "name": "lj_cluster_ilist_buckets (bf16-derived lists)"},
+        f"K1b on the bf16-derived 131k lists (buckets {sim_b.buckets})",
+        lambda: lj.lj_cluster_force_buckets(*planes_b, *maps, stb.pairs.nji, npad,
+                                            sim_b.buckets, *cut, share=share,
+                                            approx_rcp=True),
+        lambda: plain_buckets_by_units(torch, lj, planes_b, maps, sim_b.buckets, share,
+                                       cut),
+        counts["BUCKET_LAUNCHES"], lj_ops(int(c["listed"].sum()), int(c["inside"].sum())),
+        nbytes_of(*planes_b, maps[0], maps[1], stb.pairs.nji), smi,
+        same=lambda: lj.lj_cluster_force_ilist(*planes_b, stb.pairs.ijlist,
+                                               stb.pairs.nji, npad, *cut, share=share,
+                                               approx_rcp=True))
+
+    # 49e. cluster EAM 131k/60 SP with derive_bf16 on phase 8's stand-in
+    # potential: K2b and K3b for every force after the plan, SP against
+    # phase 8's DP run
+    eam_file = str(_build.BUILD_DIR / "standin_cu.eam")
+    reset_counts(lj, ec)
+    sim_e, out_e, _ = run_bench_eam(eam_file, "sp", repeats=SEC_REPEATS, chain=SEC_CHAIN,
+                                    derive_bf16=True)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in hand_launches(lj, ec).items() if v}
+    need = (1 + SEC_REPEATS * SEC_CHAIN) * (sim_e.params.ntimes + 1)
+    print(f"bf16 derive cluster EAM 131k/60 SP: TOTAL {out_e.total_time:.6f} s (one "
+          f"timed run), icap {sim_e.icap}, buckets {sim_e.buckets}, grows "
+          f"{sim_e.grows or 'none'}; launches {counts} (K2 and K3 >= 1 at set-up, K2b "
+          f"and K3b each >= {need}) on {smi}", flush=True)
+    want = {"eam_rho_ilist": 1, "eam_force_ilist": 1, "eam_rho_buckets": need,
+            "eam_force_buckets": need}
+    if (not sim_e._derive_bf16 or sim_e.buckets is None or set(counts) != set(want)
+            or any(counts[k] < n for k, n in want.items())):
+        fail("the bf16 derive EAM run took another path or launched another kernel")
+    for step, tol in EAM_SP_TOL.items():
+        t_sp, t_dp = float(out_e.temps[step - 1]), float(eam_dp[1].temps[step - 1])
+        rel = abs(t_sp - t_dp) / abs(t_dp)
+        print(f"bf16 derive EAM step {step}: T sp {t_sp:.6e}, dp (phase 8) {t_dp:.6e}, "
+              f"rel {rel:.3e} (tol {tol:.0e})", flush=True)
+        if not rel <= tol:
+            fail(f"the bf16 derive EAM run departs from the DP run at step {step}")
+    return [row]
+
+
 def verlet_row_rows(torch, lj, p, x, nl, nlocal_pad: int, rbuckets, counts: dict,
                     tag: str, smi: str) -> list:
     """exact_list_rows on 16-atom row lists (share 2; planes
@@ -4501,6 +4764,10 @@ def main() -> int:
     # 46-48. the scale runs: 1M on both schemes, 1M verlet EAM, 10.1M on
     # the single engine and on 8 slabs
     scale_rows = run_scale_phases(torch, dev, smi, ec)
+
+    # 49. the bf16 derive: lists, A/B, the 131k run, K1b on its lists, EAM
+    derive_rows = run_bf16_derive_phase(torch, dev, smi, ec, (sim, st, b_launches),
+                                        (single_total, temps), eam_dp)
     phase(None)
 
     wall = time.perf_counter() - t_start
@@ -4510,7 +4777,7 @@ def main() -> int:
                    exact_ms=res[torch.float32][4], device_ms=res[torch.float32][5]),
         *eam_rows, stream_row,
         *typed_rows, *bucket_rows, bf16_row, *fetch_rows, *verlet_rows, *verlet_eam_rows,
-        *domain_rows, *cluster_domain_rows, *mesh_rows, *scale_rows,
+        *domain_rows, *cluster_domain_rows, *mesh_rows, *scale_rows, *derive_rows,
     ]}))
     print(f"chip_smoke wall {wall:.1f} s", file=sys.stderr)
     print(smi)

@@ -63,17 +63,19 @@ def root_bench():
     return mod
 
 
-def run_bench(repeats: int = 3, chain: int = 3, kernel: str = "auto"):
+def run_bench(repeats: int = 3, chain: int = 3, kernel: str = "auto",
+              derive_bf16: bool = False):
     """The benchmark run on the CUDA card, gated on the golden trace, with
     the force kernel `kernel` ("auto": the exact-list kernel; "pallas":
-    the group-window kernel). Returns (sim, result, atom-updates per
+    the group-window kernel) and Params.derive_bf16 (the exact lists
+    derived in bfloat16). Returns (sim, result, atom-updates per
     second)."""
     from mdbench_tpu_torch.config import Params
     from mdbench_tpu_torch.engine_cluster import ClusterSimulation
 
     check_golden = root_bench().check_golden
     params = Params(precision="sp", scheme="cluster", kernel=kernel,
-                    dense_thermo=False)
+                    dense_thermo=False, derive_bf16=derive_bf16)
     sim = ClusterSimulation(params, device="cuda")
     out = sim.run(repeats=repeats, chain=chain)
     check_golden(out.temps, params.reneigh_every)
@@ -138,17 +140,19 @@ def run_bench_domain(ndev: int = 1, kernel: str = "auto", repeats: int = 3,
 
 
 def run_bench_eam(eam_file: str, precision: str = "sp", repeats: int = 3,
-                  chain: int = 3, scheme: str = "cluster"):
+                  chain: int = 3, scheme: str = "cluster", derive_bf16: bool = False):
     """The EAM run on the CUDA card with the potential `eam_file` on
     `scheme` ("cluster": K2b/K3b after the bucket plan; "verlet": K5 then
-    K6, the passes of ops/eam.py). Returns (sim, result, atom-updates per
-    second)."""
+    K6, the passes of ops/eam.py), with Params.derive_bf16 (the cluster
+    scheme's SP runs derive their exact lists in bfloat16). Returns (sim,
+    result, atom-updates per second)."""
     from mdbench_tpu_torch.config import FF_EAM, Params
     from mdbench_tpu_torch.engine import Simulation
     from mdbench_tpu_torch.engine_cluster import ClusterSimulation
 
     params = Params(precision=precision, scheme=scheme, dense_thermo=False,
-                    force_field=FF_EAM, eam_file=eam_file, ntimes=60)
+                    force_field=FF_EAM, eam_file=eam_file, ntimes=60,
+                    derive_bf16=derive_bf16)
     engine = ClusterSimulation if scheme == "cluster" else Simulation
     sim = engine(params, device="cuda")
     out = sim.run(repeats=repeats, chain=chain)

@@ -98,8 +98,9 @@ class Params:
     # --- Build axes (compile-time in the reference) ---
     # Every field of mdbench_tpu.Params is kept, with its default, so the
     # two packages read the same files and print the same banner. The
-    # port runs a subset; engine_cluster.check_slice raises
-    # NotImplementedError for the rest (see ROADMAP.md).
+    # port runs every setting that mdbench_tpu runs;
+    # engine_cluster.check_slice raises NotImplementedError for other
+    # schemes and force fields.
     scheme: str = "verlet"  # "verlet" | "cluster"  (port: both, LJ and EAM)
     precision: str = "dp"  # "sp" | "dp"  (reference config.mk DATA_TYPE)
     compute_stats: bool = True
@@ -127,7 +128,10 @@ class Params:
     # cluster EAM evaluates polynomials ("auto" or "poly") and refuses
     # "spline", as mdbench_tpu's cluster EAM does
     eam_eval: str = "auto"
-    # bfloat16 distance math in the exact-list derive; not ported
+    # bfloat16 distance math in the exact-list derive, with a cutoff
+    # inflated by its worst-case error: superset lists
+    # (ops/cluster.derive_ilists). The cluster scheme's single engine in
+    # SP only, as in mdbench_tpu; DP runs and the other engines ignore it
     derive_bf16: bool = False
     # Tracing/profiling hooks (reference MEM_TRACER / INDEX_TRACER /
     # LIKWID, SURVEY §5.1): output path prefixes; empty = off

@@ -12,6 +12,8 @@ State lives in cluster layout between reneighbor events:
   prune (every prune_every steps inside an interval, when
     0 < prune_every < reneigh_every): re-derive the exact unit lists or
     refresh the tile windows from current coordinates
+  (params.derive_bf16 on an SP run: every exact-list derivation runs its
+    distance math in bfloat16 and keeps a superset of the exact lists)
   every step:
     integrate cluster planes -> refresh ghost rows -> force -> integrate
 
@@ -146,8 +148,11 @@ def kernel_mode(params: Params) -> str:
 
 
 def check_slice(params: Params) -> None:
-    """Raise NotImplementedError for settings this port does not run yet
-    (each is a queue entry in ROADMAP.md)."""
+    """Raise NotImplementedError for the settings the port does not run:
+    a scheme other than "cluster" or "verlet" and a force field other
+    than LJ or EAM (mdbench_tpu's engines compute no other force). Every
+    other field of Params runs: derive_bf16 on the cluster scheme's
+    single engine in SP, ignored elsewhere, as in mdbench_tpu."""
     unported = {
         "scheme other than 'cluster' or 'verlet'": (
             params.scheme not in ("cluster", "verlet")
@@ -155,7 +160,6 @@ def check_slice(params: Params) -> None:
         "force_field other than lj or eam": (
             params.force_field not in (FF_LJ, FF_EAM)
         ),
-        "derive_bf16": bool(params.derive_bf16),
     }
     missing = [name for name, hit in unported.items() if hit]
     if missing:
@@ -333,6 +337,9 @@ class ClusterSimulation:
         # / 16, with headroom; calibrated after the first build, grown on
         # overflow)
         self.ishare = (params.ishare if params.ishare else 2) if self._ilist else 1
+        # the bf16 derive (superset lists, ops/cluster.derive_ilists): SP
+        # only, as in mdbench_tpu; in DP the exact derive is the parity
+        self._derive_bf16 = bool(params.derive_bf16 and params.precision == "sp")
         zsp = 8.0 / (sx * sy * params.rho)  # one i-cluster's z-extent
         r_eff = (
             params.cutneigh + 0.5 * max(sx, sy) + 1.2
@@ -392,7 +399,7 @@ class ClusterSimulation:
         if self._ilist:
             pairs = self._with_buckets(derive_ilists(
                 clusters, pairs, npad, GROUP, p.cutneigh, self.icap,
-                share=self.ishare,
+                share=self.ishare, bf16=self._derive_bf16,
             ), clusters)
             iovf = pairs.iovf
         else:
@@ -608,7 +615,7 @@ class ClusterSimulation:
         if self._ilist:
             pairs = self._with_buckets(derive_ilists(
                 state.clusters, state.pairs, self.n_clusters_pad, GROUP,
-                p.cutneigh, self.icap, share=self.ishare,
+                p.cutneigh, self.icap, share=self.ishare, bf16=self._derive_bf16,
             ), state.clusters)
         else:
             pairs = refresh_pair_ranges(

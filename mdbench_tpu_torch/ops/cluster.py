@@ -606,6 +606,60 @@ def refresh_pair_ranges(
     )
 
 
+BF16_BIG = 3.0e4  # the bf16 derive's padding coordinates: -BIG i side, +BIG j side
+BF16_U = 2.0 ** -8  # bfloat16's unit roundoff (8 significand bits)
+
+
+def _centre_i(a3):
+    """One axis of the bf16 derive's i side, a3 (ng, units, i-atoms) in the
+    working dtype: the atoms centred on each unit's first atom in
+    bfloat16 (padding at -BF16_BIG), the centre (ng, units, 1), and the
+    unit's real extent from it (ng, units; 0 for a unit of padding)."""
+    c = a3[:, :, 0:1]
+    real = a3.abs() < SENTINEL_COORD * 0.5
+    ac = torch.where(real, a3 - c, -BF16_BIG).to(torch.bfloat16)
+    ext = torch.where(real, (a3 - c).abs(), 0.0).amax(2)
+    return ac, c, ext
+
+
+def bf16_cutoff(ext, cutneigh: float):
+    """The bf16 derive's cutoff per unit from its per-axis real extents
+    `ext` (three tensors): (cut_eff, err_r), err_r the 2-norm over the
+    axes of the distance error bound (2 B + 2 cutneigh) * 2^-8 and
+    cut_eff = (cutneigh + err_r)^2 * (1 + 2^-5) the inflated rsq."""
+    ex, ey, ez = ((2.0 * b + 2.0 * cutneigh) * BF16_U for b in ext)
+    err_r = torch.sqrt(ex * ex + ey * ey + ez * ez)
+    r = cutneigh + err_r
+    return r * r * (1.0 + 2.0 ** -5), err_r
+
+
+def bf16_reach(ext, cutneigh: float):
+    """The farthest true minimum distance (float64, per unit) at which the
+    bf16 derive can keep an entry (tests and chip_smoke.py only): with
+    u = 2^-8, B the 2-norm of the unit's extents and d the computed
+    (bfloat16) distance vector, a kept entry has |d| <= sqrt(cut_eff) /
+    (1 - u)^1.5 (three roundings in the square and sum chain), and the
+    true distance D meets D <= |d| + 2 u (1 + u) (B + D) (per axis the two
+    input roundings and the subtraction's, |xi_c| <= B_axis, |xj_c| <=
+    B_axis + |dx|), so D <= (sqrt(cut_eff) / (1 - u)^1.5 + 2 u (1 + u) B)
+    / (1 - 2 u (1 + u))."""
+    u = BF16_U
+    ext = [b.double() for b in ext]
+    cut = bf16_cutoff(ext, cutneigh)[0]
+    b = torch.sqrt(sum(e * e for e in ext))
+    k = 2.0 * u * (1.0 + u)
+    return (torch.sqrt(cut) / (1.0 - u) ** 1.5 + k * b) / (1.0 - k)
+
+
+def bf16_extents(clusters: Clusters, n_clusters_pad: int, group: int, share: int):
+    """Each unit's per-axis real extent from its first atom (the bf16
+    derive's B), three (units,) tensors in the working dtype (tests and
+    chip_smoke.py only)."""
+    ng = n_clusters_pad // group
+    return [_centre_i(p[:n_clusters_pad].reshape(ng, group // share, share * M))[2]
+            .reshape(-1) for p in (clusters.xc, clusters.yc, clusters.zc)]
+
+
 def derive_ilists(
     clusters: Clusters,
     pairs: ClusterPairList,
@@ -615,6 +669,7 @@ def derive_ilists(
     icap: int,
     share: int = 1,
     max_elems: int = 1 << 25,
+    bf16: bool = False,
 ) -> ClusterPairList:
     """Exact per-i-unit j16 lists (the reference's atomDistanceInRange
     prune, src/clusterpair/neighbor.c:262-436, at (share*8-atom i-unit) x
@@ -625,7 +680,33 @@ def derive_ilists(
     row holds the sentinel j16 id (its coordinates fail any cutoff).
 
     Groups are processed in chunks so the (units, i-atoms, j-atoms)
-    distance block stays under `max_elems` elements."""
+    distance block stays under `max_elems` elements; the lists do not
+    depend on the chunk.
+
+    bf16=True (mdbench_tpu's derive_bf16, operation for operation) runs
+    the dominant distance math in bfloat16 after centring both sides on
+    each unit's first atom: centring bounds the magnitudes to the unit's
+    extent plus cutneigh, so a rounding error is ~0.01 instead of ~0.1 at
+    raw box coordinates. Padding atoms (|a| >= SENTINEL_COORD / 2) are
+    masked to -BF16_BIG on the i side and +BF16_BIG on the j side, since
+    their per-slot displacement is invisible at bfloat16 precision. The
+    cutoff is inflated by a worst-case bound of that error, so the lists
+    are a SUPERSET of the exact ones: the force kernels apply the exact
+    cutoff, and only a boundary shell of extra j16 entries survives.
+    The bound, per unit: bfloat16 keeps 8 significand bits, so a
+    round-to-nearest errs by at most |v| * 2^-8. A pair at the keep
+    boundary has |xi_c| <= B (the unit's real extent from its centring
+    atom, per axis), |xj_c| <= B + cutneigh and |dx| <= cutneigh; the two
+    input roundings and the subtraction's give a per-axis distance error
+    of at most err = (2 B + 2 cutneigh) * 2^-8, combined as the 2-norm
+    err_r over the axes; the square and sum chain adds at most ~3
+    roundings relative (2^-5 is taken, generously). So an entry is kept
+    iff its bfloat16 minimum rsq <= cut_eff = (cutneigh + err_r)^2 *
+    (1 + 2^-5) (bf16_cutoff), and no kept entry lies farther from its
+    unit than bf16_reach (a unit of padding alone keeps nothing: its j
+    distances overflow to inf). Each bfloat16 operation rounds on its own
+    (no fused forms), as in mdbench_tpu, so the card's lists equal the
+    CPU's bit for bit."""
     if group % share:
         raise ValueError("group must be a multiple of share")
     dev = clusters.xc.device
@@ -633,20 +714,23 @@ def derive_ilists(
     ng, L = pairs.jlist.shape
     cjn = clusters.xc.shape[0] // 2
     sentinel16 = cjn - 1
-    cutsq = cutneigh * cutneigh
     half = SENTINEL_COORD * 0.5
-
-    def jplane(p):
-        return p.reshape(cjn, N_J)
-
-    def iplane(p):
+    ps = (clusters.xc, clusters.yc, clusters.zc)
+    jplanes = [p.reshape(cjn, N_J) for p in ps]
+    if bf16:
+        # per unit, per axis: the bfloat16 centred i-atoms, the centre and
+        # the real extent, and the inflated cutoff (ng, gs_units)
+        iside = [_centre_i(p[:n_clusters_pad].reshape(ng, gs_units, share * M))
+                 for p in ps]
+        cut = bf16_cutoff([e for *_, e in iside], cutneigh)[0]
+    else:
         # i-side sentinels flip sign: i-pad vs j-pad pairs land ~2e30
         # apart instead of aliasing to 0 when a ghost j16 carries an
         # exact copy of its owner's padding coordinates
-        a = p[:n_clusters_pad].reshape(ng, gs_units, share * M, 1)
-        return torch.where(a.abs() < half, a, -a)
-
-    planes = [(iplane(p), jplane(p)) for p in (clusters.xc, clusters.yc, clusters.zc)]
+        iplanes = []
+        for p in ps:
+            a = p[:n_clusters_pad].reshape(ng, gs_units, share * M, 1)
+            iplanes.append(torch.where(a.abs() < half, a, -a))
     lpos = torch.arange(L, device=dev)
     chunk = max(1, max_elems // (group * M * L * N_J))
     ijls, njis = [], []
@@ -655,11 +739,23 @@ def derive_ilists(
         jl = pairs.jlist[g0:g1]  # (c, L)
         c = g1 - g0
         rsq = None
-        for pi, pj in planes:
-            d = pi[g0:g1] - pj[jl].reshape(c, 1, 1, L * N_J)
-            rsq = d * d if rsq is None else rsq + d * d
+        if bf16:
+            for (ai, ci, _), pj in zip(iside, jplanes):
+                aj = pj[jl].reshape(c, 1, L * N_J)
+                cj = ci[g0:g1]
+                ajc = torch.where(aj.abs() < half, aj - cj, BF16_BIG).to(torch.bfloat16)
+                d = ai[g0:g1, :, :, None] - ajc[:, :, None, :]
+                rsq = d * d if rsq is None else rsq + d * d
+        else:
+            for pi, pj in zip(iplanes, jplanes):
+                d = pi[g0:g1] - pj[jl].reshape(c, 1, 1, L * N_J)
+                rsq = d * d if rsq is None else rsq + d * d
         mind = rsq.amin(2).reshape(c, gs_units, L, N_J).amin(3)
-        keep = (mind <= cutsq) & (lpos[None, None, :] < pairs.nj[g0:g1, None, None])
+        if bf16:
+            within = mind.to(clusters.xc.dtype) <= cut[g0:g1, :, None]
+        else:
+            within = mind <= cutneigh * cutneigh
+        keep = within & (lpos[None, None, :] < pairs.nj[g0:g1, None, None])
         njis.append(keep.sum(2))
         # stable compaction: kept entries first, list order kept
         key, order = torch.sort(torch.where(keep, lpos, L + lpos), dim=2)

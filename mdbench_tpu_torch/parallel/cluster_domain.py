@@ -157,8 +157,9 @@ class ClusterDomainSimulation:
     the velocities are always rescaled, as in mdbench_tpu. EAM loads
     `params.eam_file` and applies initEam's overrides to `params` first:
     pass a fresh `Params` to each engine. Like mdbench_tpu's engine it
-    runs full lists, untyped, without the prune, whatever `half_neigh`,
-    `ntypes` and `prune_every` say."""
+    runs full lists, untyped, without the prune and with the exact derive,
+    whatever `half_neigh`, `ntypes`, `prune_every` and `derive_bf16`
+    say."""
 
     def __init__(self, params: Params, ndev: int, x: Optional[np.ndarray] = None,
                  v: Optional[np.ndarray] = None, device="cuda", exchange=None):

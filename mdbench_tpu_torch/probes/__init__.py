@@ -9,7 +9,10 @@ probes under tools/ that hold Pallas kernels.
   csrc/ copies in turns;
 - ``python -m mdbench_tpu_torch.probes.eam_verlet [CSRC_DIR ...]``: the
   verlet EAM kernels K5 and K6 at 131k, against earlier csrc/ copies in
-  turns.
+  turns;
+- ``python -m mdbench_tpu_torch.probes.derive [PAIRS]``: the bf16 derive
+  against the exact one at 131k (tools/r3_derive16.py): the derive's
+  times and profile, NEIGH, and the run's TOTAL in turns.
 
 Each needs a CUDA card and says so when it finds none. The timers here:
 `event_ms` (back-to-back launches, host path included where it is the

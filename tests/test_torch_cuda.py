@@ -7,7 +7,8 @@ approximate reciprocal, on the cluster lists and on the verlet scheme's
 16-atom row lists) and the probes' kernels (the bf16 form of
 csrc/lj_cluster_ilist.cu, the row fetch of csrc/row_fetch.cu)
 against their plain torch versions, on a CUDA card; the cluster EAM's
-split passes against the composed force; and the verlet engine and the
+split passes against the composed force; the bf16 derive's lists on the
+card against the CPU's, bit for bit; and the verlet engine and the
 slab, pencil and brick engines on the card against their CPU runs. This
 file imports no jax, so it runs on a machine that has torch and a card
 but no jax:
@@ -1287,3 +1288,32 @@ def test_cuda_verlet_eam_rows_past_2_31_bytes(cuda, eam_file, poly):
     assert torch.equal(far["fp"][0][:npad], near["fp"][0][:npad])
     assert not far["fp"][0][npad:].any()
     assert torch.equal(far["f"][0], near["f"][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [1, 2, 4])
+def test_cuda_bf16_derive_matches_cpu(cuda, share):
+    """derive_ilists(bf16=True) on the card equals the same call on the CPU
+    bit for bit (ijlist, nji, iovf): each bfloat16 operation rounds on its
+    own on both devices. A jittered 8^3 SP state with ghosts and units of
+    padding, the capacity at the group lists' width and at the engine's."""
+    from mdbench_tpu_torch.engine_cluster import GROUP
+    from mdbench_tpu_torch.ops.cluster import derive_ilists
+
+    kw = dict(nx=8, ny=8, nz=8, precision="sp", scheme="cluster", derive_bf16=True)
+    x, v, _ = create_fcc_lattice(Params(**kw))
+    x = x + np.random.default_rng(11).normal(0.0, 0.1, x.shape)
+    sim = ClusterSimulation(Params(**kw), x=x, v=v, device="cpu")
+    st = sim.initial_state()
+
+    def on(nt, dev):
+        return type(nt)(*(f.to(dev) if isinstance(f, torch.Tensor) else f for f in nt))
+
+    for icap in (st.pairs.jlist.shape[1], sim.icap):
+        args = (sim.n_clusters_pad, GROUP, sim.params.cutneigh, icap)
+        want = derive_ilists(st.clusters, st.pairs, *args, share=share, bf16=True)
+        got = derive_ilists(on(st.clusters, cuda), on(st.pairs, cuda), *args,
+                            share=share, bf16=True)
+        for name in ("ijlist", "nji", "iovf"):
+            assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+        assert int(want.nji.sum()) > 0

@@ -1,6 +1,7 @@
 """The port's host foundations against mdbench_tpu: Params and the banner,
 the param-file parser, the FCC lattice and its Park-Miller velocities
-(bit-equal), the thermo set-up, and the settings the port refuses."""
+(bit-equal), the thermo set-up, the settings the port refuses, and
+derive_bf16, which it runs."""
 
 import dataclasses
 
@@ -89,7 +90,6 @@ def test_thermo_setup_matches(ff):
     # both schemes run LJ and EAM; mdbench_tpu's domain engines are slice 6
     {"scheme": "domain"},
     {"force_field": tconfig.FF_DEM},
-    {"derive_bf16": True},
 ])
 def test_unported_settings_raise(kw):
     p = tconfig.Params(**{"scheme": "cluster", "nx": 4, "ny": 4, "nz": 4, **kw})
@@ -97,6 +97,17 @@ def test_unported_settings_raise(kw):
         check_slice(p)
     with pytest.raises(NotImplementedError):
         ClusterSimulation(p, device="cpu")
+
+
+@pytest.mark.parametrize("scheme", ["verlet", "cluster"])
+def test_derive_bf16_passes_the_slice_check(scheme):
+    """derive_bf16 runs on the cluster scheme's SP engine and is ignored
+    elsewhere, as in mdbench_tpu: no engine refuses it."""
+    p = tconfig.Params(scheme=scheme, nx=4, ny=4, nz=4, precision="sp",
+                       derive_bf16=True)
+    check_slice(p)
+    if scheme == "cluster":
+        assert ClusterSimulation(p, device="cpu")._derive_bf16
 
 
 @pytest.mark.parametrize("scheme", ["verlet", "cluster"])
