@@ -35,9 +35,10 @@ The time-step loop is a Python loop of eager torch ops on `device`
 ghost refresh update the state's tensors IN PLACE: a state passed to
 `_run_steps` is consumed. Capacity overflows raise a device flag that is
 read on the host only after a run (and at the calibrations), as in
-mdbench_tpu; the host then grows the capacities and retries. The force and
-the rebuild run inside tracing.region("force") / ("reneighbor"), spans of
-a profile and nothing outside one.
+mdbench_tpu; the host then grows the capacities and retries. Each phase of
+a step runs inside a tracing.region span ("reneighbor" and its children,
+"force", "integrate", "halo_update", "thermo"; tracing.py lists them),
+spans of a profile and nothing outside one.
 """
 
 from __future__ import annotations
@@ -287,17 +288,22 @@ class Simulation:
 
     def _reneighbor_inner(self, x, types):
         p, caps = self.params, self.caps
-        x = wrap_into_box(x, self.prd, self.nlocal)
-        halo = setup_pbc(
-            x, self.nlocal, caps.nlocal_pad, caps.ghost, self.prd,
-            (p.pbc_x, p.pbc_y, p.pbc_z), p.cutneigh,
-            # rowlist path: cell-sorted ghosts keep ghost rows compact; off
-            # elsewhere so that the ghost order is the reference's
-            sort_grid=self.grid if self._rowlist else None,
-        )
-        types = ghost_types(types, halo, caps.nlocal_pad)
-        x = update_pbc(x, halo, caps.nlocal_pad)
-        if self._rowlist:
+        with region("reneighbor.halo"):
+            x = wrap_into_box(x, self.prd, self.nlocal)
+            halo = setup_pbc(
+                x, self.nlocal, caps.nlocal_pad, caps.ghost, self.prd,
+                (p.pbc_x, p.pbc_y, p.pbc_z), p.cutneigh,
+                # rowlist path: cell-sorted ghosts keep ghost rows compact;
+                # off elsewhere so that the ghost order is the reference's
+                sort_grid=self.grid if self._rowlist else None,
+            )
+            types = ghost_types(types, halo, caps.nlocal_pad)
+            x = update_pbc(x, halo, caps.nlocal_pad)
+        if not self._rowlist:
+            with region("reneighbor.rows"):
+                nlist = self.per_atom_lists(x, types)
+            return x, types, halo, nlist, halo.overflow | nlist.overflow
+        with region("reneighbor.rows"):
             if self._rowbuild_ranges:
                 rows, numrows, ncmax, rovf = derive_rowlists_from_ranges(
                     self.grid, x, self.nlocal, caps.nlocal_pad, caps.ghost,
@@ -310,18 +316,17 @@ class Simulation:
                     p.cutneigh, brcap=self.ubr, ucol=self.ucl, zw=self.zw,
                     ccap=self.ccap)
                 rovf = rovf | cl.overflow
-            brows = bcrows = binv = None
-            if self.rbuckets is not None:
+        brows = bcrows = binv = None
+        if self.rbuckets is not None:
+            with region("reneighbor.buckets"):
                 brows, bcrows, binv, bovf = bucket_maps_core(
                     rows, numrows, caps.nlocal_pad // 8, 2, x.shape[0] // 8,
                     *self.rbuckets)
                 rovf = rovf | bovf
-            dummy = torch.zeros((1, 8), dtype=torch.int64, device=x.device)
-            nlist = NeighborList(
-                neighbors=dummy, numneigh=dummy[0], overflow=rovf, rows=rows,
-                numrows=numrows, brows=brows, bcrows=bcrows, binv=binv, ncmax=ncmax)
-            return x, types, halo, nlist, halo.overflow | nlist.overflow
-        nlist = self.per_atom_lists(x, types)
+        dummy = torch.zeros((1, 8), dtype=torch.int64, device=x.device)
+        nlist = NeighborList(
+            neighbors=dummy, numneigh=dummy[0], overflow=rovf, rows=rows,
+            numrows=numrows, brows=brows, bcrows=bcrows, binv=binv, ncmax=ncmax)
         return x, types, halo, nlist, halo.overflow | nlist.overflow
 
     def per_atom_lists(self, x, types) -> NeighborList:
@@ -361,9 +366,10 @@ class Simulation:
 
     def _thermo(self, v):
         """(t, p) device scalars (reference thermo.c:55-80)."""
-        vl = v[: self.nlocal]
-        t = torch.sum(vl * vl) * self.params.mass * self.scales.t_scale
-        return t, (t * self.scales.dof_boltz) * self.scales.p_scale
+        with region("thermo"):
+            vl = v[: self.nlocal]
+            t = torch.sum(vl * vl) * self.params.mass * self.scales.t_scale
+            return t, (t * self.scales.dof_boltz) * self.scales.p_scale
 
     # -- stepping ----------------------------------------------------------
 
@@ -377,14 +383,18 @@ class Simulation:
         npad = self.caps.nlocal_pad
         x, v, f = state.x, state.v, state.f
         for _ in range(n):
-            initial_integrate(x, v, f, p.dt, self.dtforce, self.nlocal)
-            update_pbc(x, state.halo, npad)
+            with region("integrate"):
+                initial_integrate(x, v, f, p.dt, self.dtforce, self.nlocal)
+            with region("halo_update"):
+                update_pbc(x, state.halo, npad)
             f = self._force(x, state.types, state.nlist, state.halo)
             for _r in range(self._force_reps - 1):
-                xx = x.clone()
-                xx[:npad] += 1e-30 * f
+                with region("force"):
+                    xx = x.clone()
+                    xx[:npad] += 1e-30 * f
                 f = self._force(xx, state.types, state.nlist, state.halo)
-            final_integrate(v, f, self.dtforce, self.nlocal)
+            with region("integrate"):
+                final_integrate(v, f, self.dtforce, self.nlocal)
             thermo.append(self._thermo(v) if p.dense_thermo else None)
         return state._replace(x=x, v=v, f=f)
 
@@ -392,18 +402,24 @@ class Simulation:
         """A step with a rebuild (and before it the re-sort, if `resort`);
         its thermo is always taken (the golden gate reads it)."""
         p = self.params
-        x, v = initial_integrate(state.x, state.v, state.f, p.dt, self.dtforce,
-                                 self.nlocal)
+        with region("integrate"):
+            x, v = initial_integrate(state.x, state.v, state.f, p.dt,
+                                     self.dtforce, self.nlocal)
         types = state.types
-        if resort:
-            # wrap first: the sort must bin atoms where they will sit
-            x = wrap_into_box(x, self.prd, self.nlocal)
-            x, v, types = sort_atoms_device(self.grid, x, v, types, self.nlocal)
-        x, types, halo, nlist, ovf = self._reneighbor(x, types)
+        with region("reneighbor"):
+            if resort:
+                with region("reneighbor.sort"):
+                    # wrap first: the sort must bin atoms where they will sit
+                    x = wrap_into_box(x, self.prd, self.nlocal)
+                    x, v, types = sort_atoms_device(self.grid, x, v, types,
+                                                    self.nlocal)
+            x, types, halo, nlist, ovf = self._reneighbor_inner(x, types)
+            ovf = state.overflow | ovf
         f = self._force(x, types, nlist, halo)
-        final_integrate(v, f, self.dtforce, self.nlocal)
+        with region("integrate"):
+            final_integrate(v, f, self.dtforce, self.nlocal)
         thermo.append(self._thermo(v))
-        return StepState(x, v, f, types, halo, nlist, state.overflow | ovf)
+        return StepState(x, v, f, types, halo, nlist, ovf)
 
     def _resort_every(self) -> int:
         p = self.params
@@ -427,11 +443,12 @@ class Simulation:
             state = self._reneigh_step(
                 state, resort > 0 and ((i + 1) * every) % resort == 0, thermo)
         state = self._plain_steps(state, ntimes - ntimes // every * every, thermo)
-        tp = torch.zeros((ntimes, 2), dtype=self.params.dtype, device=self.device)
-        for i, t in enumerate(thermo):
-            if t is not None:  # a host int index: no copy to the device
-                tp[i] = torch.stack(t)
-        return state, tp[:, 0], tp[:, 1]
+        with region("thermo"):
+            tp = torch.zeros((ntimes, 2), dtype=self.params.dtype, device=self.device)
+            for i, t in enumerate(thermo):
+                if t is not None:  # a host int index: no copy to the device
+                    tp[i] = torch.stack(t)
+            return state, tp[:, 0], tp[:, 1]
 
     # -- run ---------------------------------------------------------------
 

@@ -43,9 +43,11 @@ The time-step loop is a Python loop of eager torch ops on `device`
 ghost refresh update the state's tensors IN PLACE, where mdbench_tpu
 rebuilt arrays with .at[].set/add: a state passed to `_run_steps` is
 consumed. Capacity overflows raise device flags that are read once per
-run, as in mdbench_tpu; the host then grows the capacity and retries. The
-force and the full rebuild run inside tracing.region("force") /
-("reneighbor"), spans of a profile and nothing outside one.
+run, as in mdbench_tpu; the host then grows the capacity and retries. Each
+phase of a step runs inside a tracing.region span ("reneighbor" and its
+children around both rebuilds and the prune, "force", "integrate",
+"halo_update", "thermo"; tracing.py lists them), spans of a profile and
+nothing outside one.
 """
 
 from __future__ import annotations
@@ -384,23 +386,24 @@ class ClusterSimulation:
         Returns (clusters, halo, pairs, overflow flags)."""
         p = self.params
         npad = self.n_clusters_pad
-        halo = setup_cluster_pbc(
-            clusters, npad, self.ghost_cap, self.prd,
-            (p.pbc_x, p.pbc_y, p.pbc_z), p.cutneigh,
-        )
-        clusters = update_cluster_pbc(clusters, halo, npad, update_bbox=True)
-        bb_cells, (ovf_bcap, ovf_zext) = bin_clusters(
-            self.grid, make_j16_bboxes(clusters.bbox)
-        )
-        pairs = build_cluster_pairs(
-            self.grid, bb_cells, clusters.bbox, npad, GROUP, self.list_cap,
-            need_ranges=not self._ilist,
-        )
+        with region("reneighbor.halo"):
+            halo = setup_cluster_pbc(
+                clusters, npad, self.ghost_cap, self.prd,
+                (p.pbc_x, p.pbc_y, p.pbc_z), p.cutneigh,
+            )
+            clusters = update_cluster_pbc(clusters, halo, npad, update_bbox=True)
+        with region("reneighbor.rows"):
+            bb_cells, (ovf_bcap, ovf_zext) = bin_clusters(
+                self.grid, make_j16_bboxes(clusters.bbox)
+            )
+            pairs = build_cluster_pairs(
+                self.grid, bb_cells, clusters.bbox, npad, GROUP, self.list_cap,
+                need_ranges=not self._ilist,
+            )
+            if self._ilist:
+                pairs = self._derive(clusters, pairs)
         if self._ilist:
-            pairs = self._with_buckets(derive_ilists(
-                clusters, pairs, npad, GROUP, p.cutneigh, self.icap,
-                share=self.ishare, bf16=self._derive_bf16,
-            ), clusters)
+            pairs = self._with_buckets(pairs, clusters)
             iovf = pairs.iovf
         else:
             iovf = torch.zeros((), dtype=torch.bool, device=self.device)
@@ -410,13 +413,22 @@ class ClusterSimulation:
         ])
         return clusters, halo, pairs, ovf
 
+    def _derive(self, clusters: Clusters, pairs: ClusterPairList):
+        """The exact unit lists of the group lists (derive_ilists: the
+        prune of the cluster scheme)."""
+        with region("reneighbor.prune"):
+            return derive_ilists(
+                clusters, pairs, self.n_clusters_pad, GROUP, self.params.cutneigh,
+                self.icap, share=self.ishare, bf16=self._derive_bf16)
+
     def _with_buckets(self, pairs: ClusterPairList, clusters: Clusters):
         """The exact lists with the bucket maps of the plan, if there is
         one (mdbench_tpu attaches them after every derive_ilists)."""
         if self.buckets is None:
             return pairs
-        return attach_bucket_maps(pairs, self.n_clusters_pad, self.ishare,
-                                  clusters.xc.shape[0], *self.buckets)
+        with region("reneighbor.buckets"):
+            return attach_bucket_maps(pairs, self.n_clusters_pad, self.ishare,
+                                      clusters.xc.shape[0], *self.buckets)
 
     def _reneighbor_from_flat(self, x_flat, v_flat):
         """Full build from flat atom arrays: wrap, cluster, lists.
@@ -425,17 +437,18 @@ class ClusterSimulation:
             return self._reneighbor_from_flat_inner(x_flat, v_flat)
 
     def _reneighbor_from_flat_inner(self, x_flat, v_flat):
-        x_flat = self._wrap_flat(x_flat)
-        clusters, ovf_c = build_clusters(
-            self.grid, x_flat, self.nlocal, self.n_clusters_pad,
-            self.ghost_cap, group=GROUP, types=self.types_flat0,
-        )
-        aid = clusters.atom_id
-        valid = aid >= 0
-        a = aid.clamp(0, self.nlocal - 1)
-        vel = tuple(
-            torch.where(valid, v_flat[a, c], 0.0) for c in range(3)
-        )
+        with region("reneighbor.sort"):
+            x_flat = self._wrap_flat(x_flat)
+            clusters, ovf_c = build_clusters(
+                self.grid, x_flat, self.nlocal, self.n_clusters_pad,
+                self.ghost_cap, group=GROUP, types=self.types_flat0,
+            )
+            aid = clusters.atom_id
+            valid = aid >= 0
+            a = aid.clamp(0, self.nlocal - 1)
+            vel = tuple(
+                torch.where(valid, v_flat[a, c], 0.0) for c in range(3)
+            )
         clusters, halo, pairs, ovf = self._lists(clusters, ovf_c)
         return clusters, vel, halo, pairs, ovf
 
@@ -513,12 +526,13 @@ class ClusterSimulation:
                                           **typed)
 
     def _thermo(self, vxc, vyc, vzc):
-        vsq = (
-            torch.sum(vxc * vxc) + torch.sum(vyc * vyc) + torch.sum(vzc * vzc)
-        ) * self.params.mass
-        t = vsq * self.scales.t_scale
-        pr = (t * self.scales.dof_boltz) * self.scales.p_scale
-        return t, pr
+        with region("thermo"):
+            vsq = (
+                torch.sum(vxc * vxc) + torch.sum(vyc * vyc) + torch.sum(vzc * vzc)
+            ) * self.params.mass
+            t = vsq * self.scales.t_scale
+            pr = (t * self.scales.dof_boltz) * self.scales.p_scale
+            return t, pr
 
     # -- stepping ----------------------------------------------------------
 
@@ -527,17 +541,19 @@ class ClusterSimulation:
         dt, dtf = self.params.dt, self.dtforce
         npad = self.n_clusters_pad
         cl = state.clusters
-        for v, f, x in ((state.vxc, state.fxc, cl.xc),
-                        (state.vyc, state.fyc, cl.yc),
-                        (state.vzc, state.fzc, cl.zc)):
-            v += dtf * f
-            x[:npad] += dt * v
+        with region("integrate"):
+            for v, f, x in ((state.vxc, state.fxc, cl.xc),
+                            (state.vyc, state.fyc, cl.yc),
+                            (state.vzc, state.fzc, cl.zc)):
+                v += dtf * f
+                x[:npad] += dt * v
 
     def _kick(self, state: CStepState, f3):
         """v += dtf*f with the new forces; returns the state holding them."""
         dtf = self.dtforce
-        for v, f in zip((state.vxc, state.vyc, state.vzc), f3):
-            v += dtf * f
+        with region("integrate"):
+            for v, f in zip((state.vxc, state.vyc, state.vzc), f3):
+                v += dtf * f
         return state._replace(fxc=f3[0], fyc=f3[1], fzc=f3[2])
 
     def _plain_steps(self, state: CStepState, n: int, thermo: list):
@@ -549,11 +565,13 @@ class ClusterSimulation:
         npad = self.n_clusters_pad
         for _ in range(n):
             self._kick_drift(state)
-            cl = update_cluster_pbc(state.clusters, state.halo, npad, False)
+            with region("halo_update"):
+                cl = update_cluster_pbc(state.clusters, state.halo, npad, False)
             f3 = self._force_from(cl, state.pairs, state.halo)
             for _r in range(self._force_reps - 1):
-                xc = cl.xc.clone()
-                xc[:npad] += 1e-30 * f3[0]
+                with region("force"):
+                    xc = cl.xc.clone()
+                    xc[:npad] += 1e-30 * f3[0]
                 f3 = self._force_from(cl._replace(xc=xc), state.pairs, state.halo)
             state = self._kick(state, f3)
             thermo.append(
@@ -565,12 +583,15 @@ class ClusterSimulation:
     def _reneigh_step(self, state: CStepState, thermo: list):
         """Step with a full re-cluster (the sortAtom analogue)."""
         self._kick_drift(state)
-        x_flat, v_flat = self._flatten(state)
-        clusters, vel, halo, pairs, ovf = self._reneighbor_from_flat(x_flat, v_flat)
-        state = CStepState(
-            clusters, *vel, state.fxc, state.fyc, state.fzc, halo, pairs,
-            state.overflow | ovf,
-        )
+        with region("reneighbor"):
+            with region("reneighbor.sort"):
+                x_flat, v_flat = self._flatten(state)
+            clusters, vel, halo, pairs, ovf = self._reneighbor_from_flat_inner(
+                x_flat, v_flat)
+            state = CStepState(
+                clusters, *vel, state.fxc, state.fyc, state.fzc, halo, pairs,
+                state.overflow | ovf,
+            )
         state = self._kick(state, self._force_from(clusters, pairs, halo))
         thermo.append(self._thermo(state.vxc, state.vyc, state.vzc))
         return state
@@ -584,24 +605,27 @@ class ClusterSimulation:
         npad = self.n_clusters_pad
         self._kick_drift(state)
         cl = state.clusters
-        bbox_l = compute_bboxes(cl.xc[:npad], cl.yc[:npad], cl.zc[:npad])
-        bb16 = make_j16_bboxes(bbox_l)
-        shifts = []
-        for d, (plane, L, on) in enumerate(
-            zip((cl.xc, cl.yc, cl.zc), self.prd, (p.pbc_x, p.pbc_y, p.pbc_z))
-        ):
-            mid = 0.5 * (bb16[:, 2 * d] + bb16[:, 2 * d + 1])
-            sh = (-float(L) * torch.floor(mid / float(L)) * float(on)).repeat_interleave(2)
-            plane[:npad] += sh[:, None]
-            shifts += [sh, sh]
-        z = torch.zeros_like(shifts[0])
-        cl.bbox[:npad] = bbox_l + torch.stack(shifts + [z, z], dim=1)
-        cl, halo, pairs, ovf = self._lists(
-            cl, torch.zeros((), dtype=torch.bool, device=self.device)
-        )
-        state = state._replace(
-            clusters=cl, halo=halo, pairs=pairs, overflow=state.overflow | ovf
-        )
+        with region("reneighbor"):
+            with region("reneighbor.halo"):
+                bbox_l = compute_bboxes(cl.xc[:npad], cl.yc[:npad], cl.zc[:npad])
+                bb16 = make_j16_bboxes(bbox_l)
+                shifts = []
+                for d, (plane, L, on) in enumerate(
+                    zip((cl.xc, cl.yc, cl.zc), self.prd, (p.pbc_x, p.pbc_y, p.pbc_z))
+                ):
+                    mid = 0.5 * (bb16[:, 2 * d] + bb16[:, 2 * d + 1])
+                    sh = (-float(L) * torch.floor(mid / float(L))
+                          * float(on)).repeat_interleave(2)
+                    plane[:npad] += sh[:, None]
+                    shifts += [sh, sh]
+                z = torch.zeros_like(shifts[0])
+                cl.bbox[:npad] = bbox_l + torch.stack(shifts + [z, z], dim=1)
+            cl, halo, pairs, ovf = self._lists(
+                cl, torch.zeros((), dtype=torch.bool, device=self.device)
+            )
+            state = state._replace(
+                clusters=cl, halo=halo, pairs=pairs, overflow=state.overflow | ovf
+            )
         state = self._kick(state, self._force_from(cl, pairs, halo))
         thermo.append(self._thermo(state.vxc, state.vyc, state.vzc))
         return state
@@ -611,17 +635,17 @@ class ClusterSimulation:
         mdbench_tpu engine_cluster.py:769-795): from current coordinates,
         re-derive the exact unit lists (their candidates stay the group
         list's) or refresh the group lists' tile windows."""
-        p = self.params
-        if self._ilist:
-            pairs = self._with_buckets(derive_ilists(
-                state.clusters, state.pairs, self.n_clusters_pad, GROUP,
-                p.cutneigh, self.icap, share=self.ishare, bf16=self._derive_bf16,
-            ), state.clusters)
-        else:
-            pairs = refresh_pair_ranges(
-                state.clusters, state.pairs, self.n_clusters_pad, GROUP,
-                p.cutneigh,
-            )
+        with region("reneighbor"):
+            if self._ilist:
+                with region("reneighbor.rows"):
+                    pairs = self._derive(state.clusters, state.pairs)
+                pairs = self._with_buckets(pairs, state.clusters)
+            else:
+                with region("reneighbor.rows"):
+                    pairs = refresh_pair_ranges(
+                        state.clusters, state.pairs, self.n_clusters_pad, GROUP,
+                        self.params.cutneigh,
+                    )
         return state._replace(pairs=pairs)
 
     def _interval_plain_steps(self, state: CStepState, thermo: list):
@@ -662,11 +686,12 @@ class ClusterSimulation:
             else:
                 state = self._reneigh_step_cheap(state, thermo)
         state = self._plain_steps(state, ntimes - n_intervals * every, thermo)
-        tp = torch.zeros((ntimes, 2), dtype=self.dtype, device=self.device)
-        taken = [i for i, x in enumerate(thermo) if x is not None]
-        if taken:
-            tp[taken] = torch.stack([torch.stack(thermo[i]) for i in taken])
-        return state, tp[:, 0], tp[:, 1]
+        with region("thermo"):
+            tp = torch.zeros((ntimes, 2), dtype=self.dtype, device=self.device)
+            taken = [i for i, x in enumerate(thermo) if x is not None]
+            if taken:
+                tp[taken] = torch.stack([torch.stack(thermo[i]) for i in taken])
+            return state, tp[:, 0], tp[:, 1]
 
     # -- run ---------------------------------------------------------------
 

@@ -50,6 +50,7 @@ from mdbench_tpu_torch.ops.lj_cluster import (
     lj_cluster_force_ilist,
 )
 from mdbench_tpu_torch.state import NeighborList
+from mdbench_tpu_torch.tracing import region
 
 FBIG = 1e30  # bbox fill of empty slots (mdbench_tpu's fbig)
 COL_BIG = 1 << 29  # "no column" (mdbench_tpu's big in the unit columns)
@@ -210,26 +211,28 @@ def _exact_prune(x, cand, nlocal_pad: int, validu, cutsq: float, rcap: int,
                  sent16: int):
     """Keep a candidate row iff some (unit atom, row atom) pair is within
     cutneigh (the stage mdbench_tpu's two row-list builds share); kept
-    rows in candidate order. Returns (rows (nu, rcap), numrows (nu,))."""
-    nu, cc = cand.shape
-    planes = [x[:, k].reshape(-1, 16) for k in range(3)]
-    units = [x[:nlocal_pad, k].reshape(nu, 16) for k in range(3)]
-    outs, nrs = [], []
-    for sl in _chunks(nu, 16 * cc * 16 * 2):
-        cu = cand[sl]
-        n = cu.shape[0]
-        rsq = None
-        for pj, pi in zip(planes, units):
-            dk = pi[sl][:, :, None] - pj[cu].reshape(n, 1, cc * 16)
-            rsq = dk * dk if rsq is None else rsq + dk * dk
-        # padding i-atoms: a padding atom and a padding slot of a row both
-        # sit at SENTINEL_COORD, so their raw rsq is 0
-        rsq = torch.where(validu[sl][:, :, None], rsq, FBIG)
-        mind = rsq.amin(1).reshape(n, cc, 16).amin(2)
-        keep = (mind <= cutsq) & (cu != sent16)
-        nrs.append(keep.sum(1))
-        outs.append(_compact(keep, cu, rcap, sent16))
-    return torch.cat(outs), torch.cat(nrs)
+    rows in candidate order. Returns (rows (nu, rcap), numrows (nu,)),
+    built inside one "reneighbor.prune" span."""
+    with region("reneighbor.prune"):
+        nu, cc = cand.shape
+        planes = [x[:, k].reshape(-1, 16) for k in range(3)]
+        units = [x[:nlocal_pad, k].reshape(nu, 16) for k in range(3)]
+        outs, nrs = [], []
+        for sl in _chunks(nu, 16 * cc * 16 * 2):
+            cu = cand[sl]
+            n = cu.shape[0]
+            rsq = None
+            for pj, pi in zip(planes, units):
+                dk = pi[sl][:, :, None] - pj[cu].reshape(n, 1, cc * 16)
+                rsq = dk * dk if rsq is None else rsq + dk * dk
+            # padding i-atoms: a padding atom and a padding slot of a row
+            # both sit at SENTINEL_COORD, so their raw rsq is 0
+            rsq = torch.where(validu[sl][:, :, None], rsq, FBIG)
+            mind = rsq.amin(1).reshape(n, cc, 16).amin(2)
+            keep = (mind <= cutsq) & (cu != sent16)
+            nrs.append(keep.sum(1))
+            outs.append(_compact(keep, cu, rcap, sent16))
+        return torch.cat(outs), torch.cat(nrs)
 
 
 def derive_rowlists_from_cells(grid: CellGrid, cl: CellList, x, nlocal: int,

@@ -2,15 +2,39 @@
 reference src/verletlist/tracing.{c,h} and its LIKWID markers):
 
 - LIKWID marker regions -> `region(name)`: while a torch profiler records
-  (`profile`), a `torch.profiler.record_function` span and, on a CUDA
-  device, an NVTX range of that name; otherwise a no-op context, so the
-  engines' step loops pay nothing for their regions outside a profile.
+  (`profile`), a `torch.profiler.record_function` span; otherwise one
+  shared null context, so the engines' step loops build nothing for their
+  regions outside a profile.
 - Whole-run traces -> `profile(logdir)`: `torch.profiler.profile` over the
   CPU and, where there is one, the CUDA device, exported as a Chrome trace
   into `logdir`.
 - MEM_TRACER / INDEX_TRACER -> `dump_mem_trace` / `dump_index_trace`:
   host dumps of one step's neighbor lists, the same files as
   mdbench_tpu's (native writers where they load, else Python).
+
+The spans of the single engines (engine.Simulation and
+engine_cluster.ClusterSimulation); a dotted name lies inside the span
+named before its last dot:
+
+- reneighbor: a whole rebuild, the initial state's included
+- reneighbor.sort: the wrap and re-sort (the cluster engine: the re-cluster)
+- reneighbor.halo: the rebuild's wrap, ghosts and ghost refresh
+- reneighbor.rows: the lists up to and with their exact prune
+- reneighbor.prune: the exact prune (the cluster engine: derive_ilists)
+- reneighbor.buckets: the capacity-bucket maps
+- force: the force of a step, with what it launches around its kernel
+- integrate: one velocity-Verlet half (or the cluster kick and drift)
+- halo_update: a plain step's ghost refresh
+- thermo: a step's T and P on the device, and their gather at a run's end
+
+Left outside every span: run()'s host reads (the overflow flag, the
+temperatures and pressures), the verlet initial state's velocity copy,
+and the cluster engine's per-run capacity checks. The domain engines
+(`parallel/`) open `reneighbor` and `force` alone; the staged ones
+(parallel/staged.py: slabs, pencils, bricks) also show
+`reneighbor.prune`, which ops/verlet._exact_prune opens for every caller,
+inside their `reneighbor` with no `reneighbor.rows` around it. (The
+cluster engine opens its prune span itself, around derive_ilists.)
 """
 
 from __future__ import annotations
@@ -26,16 +50,15 @@ from mdbench_tpu_torch.io import native
 TRACE_FILE = "trace.json"
 
 
+_OFF = contextlib.nullcontext()
+
+
 def region(name: str):
     """Named span (LIKWID_MARKER_START/STOP analogue), recorded only while
-    a torch profiler is on."""
+    a torch profiler is on; otherwise the shared null context."""
     if not torch.autograd._profiler_enabled():
-        return contextlib.nullcontext()
-    stack = contextlib.ExitStack()
-    stack.enter_context(torch.profiler.record_function(name))
-    if torch.cuda.is_available():
-        stack.enter_context(torch.cuda.nvtx.range(name))
-    return stack
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager

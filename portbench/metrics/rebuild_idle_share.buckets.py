@@ -1,0 +1,11 @@
+"""Share of the traced window in which no operation ran on the device while
+the host was inside the program's `reneighbor.buckets` spans (a rebuild's
+capacity-bucket maps), % (torch.profiler, as rebuild_idle_share)."""
+
+from portbench import spans
+
+
+def read(m):
+    if m.trace is None:
+        return None
+    return spans.idle_share(m.trace, ("reneighbor.buckets",))

@@ -1,0 +1,12 @@
+"""Share of the traced window in which no operation ran on the device while
+the host was inside the program's `reneighbor.prune` spans (the exact
+prune of a rebuild's row lists), % (torch.profiler, as
+rebuild_idle_share)."""
+
+from portbench import spans
+
+
+def read(m):
+    if m.trace is None:
+        return None
+    return spans.idle_share(m.trace, ("reneighbor.prune",))
