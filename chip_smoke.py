@@ -366,11 +366,18 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      max |f|, the same bits as K1); cluster EAM 131k/60 SP with
      derive_bf16 (K2 and K3 at set-up, K2b and K3b for every force after
      the plan, nothing else) within EAM_SP_TOL of phase 8's DP run.
+ 50. the verlet row lists' exact prune (csrc/verlet_prune.cu): on
+     prune_edge_cases (float32 and float64) and on the candidates of a rebuild after a 20-step SP run of the
+     131k engine (ranges and cells builds) and the 1M engine (ranges),
+     the same rows and counts as exact_prune_ref bit for bit; at the
+     engines' ranges candidates ms back to back and on the device, the
+     plain version's ms, the run's launches, the bound by operations.
 
 Every kernel count is set to 0 just before each main path (phases 4, 8,
 12, both runs of 17, the probes' runs in 25 and 26, both runs of 27, each
 131k run of 30, the card's runs of 31, each stub of 32 (LJ: where it must
-stay 0), each run of 34-36, 37-40, 42-44 and 46-48, and both runs of 49)
+stay 0), each run of 34-36, 37-40, 42-44 and 46-48, both runs of 49, and
+each run of 50: the prune kernel's)
 and read just after it. Each phase prints its wall ("phase N: X s") when the next one
 starts. Then it prints the script's wall time, a JSON line of the
 kernels, nvidia-smi's line, and {"ok": true, "device": {...}} as the
@@ -506,6 +513,14 @@ VERLET_EAM_KERNELS = {
         "source": "mdbench_tpu_torch/csrc/eam_verlet.cu",
         "replaces": "mdbench_tpu/ops/eam.py:222",
     },
+}
+# the verlet row lists' exact prune: XLA ops in mdbench_tpu, not a Pallas
+# kernel (its cells build's prune; the ranges build's is :830)
+PRUNE_KERNEL = {
+    "name": "verlet_prune",
+    "route": "cuda",
+    "source": "mdbench_tpu_torch/csrc/verlet_prune.cu",
+    "replaces": "mdbench_tpu/ops/verlet.py:465",
 }
 REPEATS, CHAIN = 3, 3  # as python -m mdbench_tpu_torch.bench (phase 4)
 # every other timed 131k run: one timed region of one run, beside the
@@ -1046,6 +1061,139 @@ def verlet_eam_edge_cases(np_dtype, seed: int = 0) -> dict:
     return {"lattice": verlet_eam_case(np_dtype, seed),
             "odd k": verlet_eam_block_case(np_dtype, 37, 53, seed),
             "one atom": verlet_eam_block_case(np_dtype, 5, 1, seed)}
+
+
+PRUNE_CUTSQ = 2.8**2  # the prune cases' cutoff: cutneigh of the LJ box, inexact in float32
+
+
+def prune_case(np_dtype, seed: int = 0, nu: int = 24, cc: int = 50,
+               rcap: int = 64) -> dict:
+    """A numpy case for the exact prune (ops/verlet._exact_prune) at
+    PRUNE_CUTSQ: 64 16-row blocks of x, the first nu the local units, the
+    last all at SENTINEL_COORD (its id is sent16). Each block's atoms lie
+    within 1.2 of its centre, the centres uniform in a box of side 12, so
+    some candidates are in range and some not; ~10% of the atoms are
+    padding (SENTINEL_COORD; validu False in the units), unit 5 all of
+    them. Each unit lists cc random ids (cc no multiple of 32), its own
+    first, sent16 mid-list and, in every third unit, in its last 7 slots.
+    Returns x (nrows, 3), cand (nu, cc) int64, validu (nu, 16) bool,
+    nlocal_pad, cutsq, rcap and sent16."""
+    from mdbench_tpu_torch.state import SENTINEL_COORD
+
+    rng = np.random.default_rng(seed)
+    n16 = 64
+    x = (rng.uniform(0.0, 12.0, (n16, 1, 3))
+         + rng.uniform(-1.2, 1.2, (n16, 16, 3))).reshape(-1, 3)
+    pad = rng.random(n16 * 16) < 0.1
+    pad[5 * 16 : 6 * 16] = True
+    pad[(n16 - 1) * 16 :] = True
+    x[pad] = SENTINEL_COORD
+    sent16 = n16 - 1
+    cand = rng.integers(0, sent16, (nu, cc))
+    cand[:, 0] = np.arange(nu)
+    cand[:, cc // 2] = sent16
+    cand[::3, -7:] = sent16
+    return dict(x=x.astype(np_dtype), cand=cand.astype(np.int64),
+                validu=~pad[: nu * 16].reshape(nu, 16), nlocal_pad=16 * nu,
+                cutsq=PRUNE_CUTSQ, rcap=rcap, sent16=sent16)
+
+
+def prune_boundary_case(np_dtype) -> dict:
+    """The prune's cutoff edge in `np_dtype`, at PRUNE_CUTSQ: unit 0 is one
+    real atom at the origin (15 padding atoms), unit 1 16 real atoms far
+    away; block 2 holds one atom at (-dx, -dy, 0) whose rsq from the
+    origin is exactly PRUNE_CUTSQ rounded to np_dtype (kept: torch
+    compares in x's dtype; in float32 that value lies above the float64
+    cutoff), block 3 the same with dx one ulp longer (dropped), block 4
+    the pair along (y, z) instead (kept), block 5 one ulp shorter (kept),
+    block 6 only padding atoms (dropped), block 7 the sentinel block.
+    Returns the fields of prune_case."""
+    from mdbench_tpu_torch.state import SENTINEL_COORD
+
+    t = np_dtype
+    c = t(PRUNE_CUTSQ)
+
+    def rsq(d):
+        d = [t(v) for v in d]
+        return t(t(t(d[0] * d[0]) + t(d[1] * d[1])) + t(d[2] * d[2]))
+
+    # (dx, dy) with rsq exactly c: along x alone in float64; in float32 no
+    # float is sqrt(c) to the last bit, so a grid of dy is searched
+    pair = next((dx, t(k / 8)) for k in range(23)
+                for dx0 in [t(np.sqrt(float(c) - (k / 8) ** 2))]
+                for dx in [dx0, *(np.nextafter(dx0, t(s * np.inf)) for s in (1, -1))]
+                if rsq((dx, k / 8, 0.0)) == c)
+    dx, dy = pair
+    up, down = np.nextafter(dx, t(np.inf)), np.nextafter(dx, t(0.0))
+    atoms = {2: (dx, dy, 0.0), 3: (up, dy, 0.0), 4: (0.0, dx, dy), 5: (down, dy, 0.0)}
+    assert rsq(atoms[2]) == c and rsq(atoms[4]) == c
+    assert rsq(atoms[3]) > c and rsq(atoms[5]) <= c
+    x = np.full((8, 16, 3), SENTINEL_COORD)
+    x[0, 0] = 0.0
+    x[1] = 50.0
+    x[1, :, 0] += 3.0 * np.arange(16)
+    for b, a in atoms.items():
+        x[b, 7] = np.negative(a)
+    validu = np.zeros((2, 16), bool)
+    validu[0, 0] = True
+    validu[1] = True
+    sent16 = 7
+    cand = np.array([[0, 1, 2, 3, 4, 5, 6, sent16, 2],
+                     [1, 0, 2, 3, sent16, 4, sent16, sent16, sent16]], np.int64)
+    return dict(x=x.reshape(-1, 3).astype(np_dtype), cand=cand, validu=validu,
+                nlocal_pad=32, cutsq=PRUNE_CUTSQ, rcap=8, sent16=sent16)
+
+
+def prune_edge_cases(np_dtype, seed: int = 0) -> dict:
+    """Every edge case of the prune by name: "random" (prune_case),
+    "overflow" (the same with rcap 8, which most units' kept rows pass),
+    "nan" (the same with NaN in a real atom of unit 2, in atom 0 of unit 3
+    made padding, in an atom of block 40, and +inf in a real atom of unit
+    4 and in an atom of block 41: inf - inf is NaN), "boundary"
+    (prune_boundary_case) and "wide" (300 candidates a unit, rcap 304)."""
+    nan = prune_case(np_dtype, seed + 1)
+    x, validu = nan["x"].reshape(64, 16, 3), nan["validu"]
+    x[2, int(np.flatnonzero(validu[2])[0]), 1] = np.nan
+    x[3, 0, 0], validu[3, 0] = np.nan, False
+    x[40, 0, 2] = np.nan
+    x[4, int(np.flatnonzero(validu[4])[0]), 0] = np.inf
+    x[41, 3, 0] = np.inf
+    return {"random": prune_case(np_dtype, seed),
+            "overflow": prune_case(np_dtype, seed + 2, rcap=8),
+            "nan": nan,
+            "boundary": prune_boundary_case(np_dtype),
+            "wide": prune_case(np_dtype, seed + 3, nu=40, cc=300, rcap=304)}
+
+
+def prune_operands(sim, state) -> tuple:
+    """The operands of the exact prune in a rebuild of `sim` (an
+    engine.Simulation on row lists) from `state`: the arguments of the one
+    ops/verlet._exact_prune call that sim._reneighbor makes."""
+    from mdbench_tpu_torch.ops import verlet
+
+    real, seen = verlet._exact_prune, []
+
+    def spy(*args):
+        seen.append(args)
+        return real(*args)
+
+    verlet._exact_prune = spy
+    try:
+        sim._reneighbor(state.x, state.types)
+    finally:
+        verlet._exact_prune = real
+    if len(seen) != 1:
+        fail(f"a rebuild called the exact prune {len(seen)} times, not once")
+    return seen[0]
+
+
+def prune_tensors(torch, case: dict, device) -> tuple:
+    """A prune case's operands as _exact_prune takes them: (x, cand,
+    nlocal_pad, validu, cutsq, rcap, sent16) on `device`."""
+    return (torch.from_numpy(case["x"]).to(device),
+            torch.from_numpy(case["cand"]).to(device), case["nlocal_pad"],
+            torch.from_numpy(case["validu"]).to(device), case["cutsq"], case["rcap"],
+            case["sent16"])
 
 
 def sweep_edge_calls(torch, dev, np_dtype, share: int, nan: bool, poly) -> tuple:
@@ -4531,6 +4679,80 @@ def run_bf16_derive_phase(torch, dev, smi: str, ec, lj_main, single: tuple,
     return [row]
 
 
+def run_prune_phase(torch, dev, smi: str) -> list:
+    """Phase 50: the verlet row lists' exact prune (csrc/verlet_prune.cu).
+    On prune_edge_cases in both types, then on the candidates of a rebuild from the final state
+    of a 20-step SP run of the 131k and the 1M engine (their ranges
+    builds; at 131k the cells build's too), the kernel must give
+    exact_prune_ref's rows and counts bit for bit. At the engines' ranges
+    candidates: ms back to back and on the device (CUDA graph), the plain
+    version's ms, the kernel's launches in the run, and the bound by
+    operations, 8 a distance (each real unit atom against the 16 atoms of
+    each candidate other than the sentinel). Returns the JSON rows."""
+    from mdbench_tpu_torch.config import Params
+    from mdbench_tpu_torch.engine import Simulation
+    from mdbench_tpu_torch.ops import verlet
+    from mdbench_tpu_torch.probes import graph_ms
+
+    phase(50)
+
+    def same(args, what: str):
+        got, want = verlet._exact_prune(*args), verlet.exact_prune_ref(*args)
+        torch.cuda.synchronize()
+        if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"the prune kernel disagrees with exact_prune_ref on {what}")
+        return got
+
+    names = []
+    for np_dtype in (np.float32, np.float64):
+        for name, case in prune_edge_cases(np_dtype).items():
+            names.append(f"{name} ({np_dtype.__name__})")
+            same(prune_tensors(torch, case, dev), names[-1])
+    print(f"prune kernel on the edge cases {names}: the same bits as exact_prune_ref",
+          flush=True)
+    rows = []
+    for nx, tag in ((32, "131k"), (64, "1M")):
+        verlet.PRUNE_LAUNCHES = 0
+        sim = Simulation(Params(nx=nx, ny=nx, nz=nx, ntimes=20, precision="sp"),
+                         device=dev)
+        st = sim.run(repeats=0).state
+        launches = verlet.PRUNE_LAUNCHES
+        args = prune_operands(sim, st)
+        same(args, f"the {tag} engine's ranges candidates")
+        if nx == 32:
+            sim._rowbuild_ranges = False
+            same(prune_operands(sim, st), f"the {tag} engine's cells candidates")
+        x, cand, _, validu, _, rcap, sent16 = args
+
+        def kern():
+            return verlet._exact_prune(*args)
+
+        def plain():
+            return verlet.exact_prune_ref(*args)
+
+        out = kern()
+        real = cand != sent16
+        pairs = int((validu.sum(1) * real.sum(1)).sum()) * 16
+        ms = median_ms(torch, kern, 20)
+        dev_ms = graph_ms(kern, 20)
+        plain_ms = median_ms(torch, plain, 1, batches=3, warm=1)
+        bound = bound_of(8 * pairs, nbytes_of(x, cand, validu, *out), torch.float32)
+        print(f"prune kernel at {tag} ({cand.shape[0]} units x {cand.shape[1]} candidates, "
+              f"{int(real.sum())} real, {pairs} pairs; rcap {rcap}, {int(out[1].sum())} "
+              f"rows kept): the same bits as exact_prune_ref; median {ms:.4f} ms back to "
+              f"back, {dev_ms:.4f} ms on the device (CUDA graph); plain {plain_ms:.4f} ms; "
+              f"bound {bound[0]:.4f} ms ({bound[1]}; {8 * pairs} operations, "
+              f"{bound[0] / dev_ms:.1%} of it on the device); {launches} launches in the "
+              f"20-step run; on {smi}", flush=True)
+        rows.append(kernel_row({**PRUNE_KERNEL, "name": f"verlet_prune ({tag})"},
+                               launches, 0.0, ms, plain_ms, bound, device_ms=dev_ms))
+        del sim, st, args, x, cand, validu, out
+        torch.cuda.empty_cache()
+    for line in kernel_ptxas_lines("verlet_prune_kernel"):
+        print("  " + line)
+    return rows
+
+
 def verlet_row_rows(torch, lj, p, x, nl, nlocal_pad: int, rbuckets, counts: dict,
                     tag: str, smi: str) -> list:
     """exact_list_rows on 16-atom row lists (share 2; planes
@@ -4768,6 +4990,9 @@ def main() -> int:
     # 49. the bf16 derive: lists, A/B, the 131k run, K1b on its lists, EAM
     derive_rows = run_bf16_derive_phase(torch, dev, smi, ec, (sim, st, b_launches),
                                         (single_total, temps), eam_dp)
+
+    # 50. the verlet row lists' exact prune: edge cases, 131k and 1M
+    prune_rows = run_prune_phase(torch, dev, smi)
     phase(None)
 
     wall = time.perf_counter() - t_start
@@ -4778,6 +5003,7 @@ def main() -> int:
         *eam_rows, stream_row,
         *typed_rows, *bucket_rows, bf16_row, *fetch_rows, *verlet_rows, *verlet_eam_rows,
         *domain_rows, *cluster_domain_rows, *mesh_rows, *scale_rows, *derive_rows,
+        *prune_rows,
     ]}))
     print(f"chip_smoke wall {wall:.1f} s", file=sys.stderr)
     print(smi)

@@ -94,6 +94,10 @@ _SIGNATURES = {
     # the row-fetch probe (T1): (table, ids, out, n_ids, n_table_rows,
     #  rows_per_id, mode, stream)
     "row_fetch_f32": ([_P] * 3 + [_I] * 4 + [_P], ctypes.c_int),
+    # the verlet row lists' exact prune: (x, cand, validu, rows, numrows,
+    #  nu, cc, rcap, sent16, n16, cutsq, stream)
+    "verlet_prune_f32": ([_P] * 5 + [_I] * 5 + [ctypes.c_float, _P], ctypes.c_int),
+    "verlet_prune_f64": ([_P] * 5 + [_I] * 5 + [ctypes.c_double, _P], ctypes.c_int),
 }
 
 _lib = None  # the loaded library, once per process

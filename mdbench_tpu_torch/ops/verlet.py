@@ -22,6 +22,10 @@ Two list forms:
 of ``ops/lj_cluster.py`` with share 2 (a 16-atom row plays the cluster
 scheme's j16): on a CUDA tensor the K1 kernel, or its bucketed form K1b
 when the lists carry bucket maps; on a CPU tensor their plain twins.
+The exact prune both row-list builds end with (`_exact_prune`) is, on a
+CUDA tensor, one launch of ``csrc/verlet_prune.cu`` (no distance leaves
+the registers), and on a CPU tensor its plain version `exact_prune_ref`:
+the same rows and counts, bit for bit.
 
 Large intermediates are built in chunks of units (or atoms) whose size
 only bounds memory: every sort and selection works within a row, so the
@@ -35,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mdbench_tpu_torch import _build
 from mdbench_tpu_torch.ops.cells import (
     CellGrid,
     CellList,
@@ -56,6 +61,9 @@ FBIG = 1e30  # bbox fill of empty slots (mdbench_tpu's fbig)
 COL_BIG = 1 << 29  # "no column" (mdbench_tpu's big in the unit columns)
 RBIG = 1 << 28  # empty row range (sorts last)
 MAX_ELEMS = 1 << 25  # elements of one chunk's largest intermediate
+# kernel launches made by _exact_prune (a run's proof that the prune went
+# through csrc/verlet_prune.cu); callers may reset it to 0
+PRUNE_LAUNCHES = 0
 
 
 def _chunks(n: int, per_item: int, max_elems: int | None = None):
@@ -207,32 +215,99 @@ def _unit_bounds(p16, validu):
             torch.where(validu, p16, -FBIG).amax(1))
 
 
+def exact_prune_ref(x, cand, nlocal_pad: int, validu, cutsq: float, rcap: int,
+                    sent16: int):
+    """The plain version of `_exact_prune`, in torch ops on any device:
+    per chunk of units a (units, 16, cc x 16) block of squared distances,
+    the padding i-atoms at FBIG, the minimum over it (NaN if any is NaN),
+    then a sort compaction. Returns (rows (nu, rcap) in cand's dtype,
+    numrows (nu,) int64)."""
+    nu, cc = cand.shape
+    planes = [x[:, k].reshape(-1, 16) for k in range(3)]
+    units = [x[:nlocal_pad, k].reshape(nu, 16) for k in range(3)]
+    outs, nrs = [], []
+    for sl in _chunks(nu, 16 * cc * 16 * 2):
+        cu = cand[sl]
+        n = cu.shape[0]
+        rsq = None
+        for pj, pi in zip(planes, units):
+            dk = pi[sl][:, :, None] - pj[cu].reshape(n, 1, cc * 16)
+            rsq = dk * dk if rsq is None else rsq + dk * dk
+        # padding i-atoms: a padding atom and a padding slot of a row
+        # both sit at SENTINEL_COORD, so their raw rsq is 0
+        rsq = torch.where(validu[sl][:, :, None], rsq, FBIG)
+        mind = rsq.amin(1).reshape(n, cc, 16).amin(2)
+        keep = (mind <= cutsq) & (cu != sent16)
+        nrs.append(keep.sum(1))
+        outs.append(_compact(keep, cu, rcap, sent16))
+    return torch.cat(outs), torch.cat(nrs)
+
+
+def _check_prune_args(x, cand, nlocal_pad: int, validu, rcap: int, sent16: int):
+    """The operands the prune kernel takes (raises on any other): x
+    (nrows, 3) float32 or float64, contiguous and 16-byte aligned, nrows a
+    multiple of 16 and at least nlocal_pad; cand (nlocal_pad / 16, cc)
+    int64 and validu (nlocal_pad / 16, 16) bool, contiguous, on x's
+    device; sent16 a 16-row id of x; sizes within int32."""
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"x must be float32 or float64, got {x.dtype}")
+    if cand.dtype != torch.int64:
+        raise TypeError(f"cand must be int64, got {cand.dtype}")
+    if validu.dtype != torch.bool:
+        raise TypeError(f"validu must be bool, got {validu.dtype}")
+    if x.dim() != 2 or x.shape[1] != 3 or x.shape[0] % 16:
+        raise ValueError(f"x must be (nrows, 3) with nrows a multiple of 16, got "
+                         f"{tuple(x.shape)}")
+    nu = nlocal_pad // 16
+    if (nlocal_pad % 16 or nlocal_pad > x.shape[0] or cand.dim() != 2
+            or cand.shape[0] != nu or tuple(validu.shape) != (nu, 16)):
+        raise ValueError(f"cand {tuple(cand.shape)} and validu {tuple(validu.shape)} "
+                         f"must have nlocal_pad / 16 = {nlocal_pad / 16} units of x's "
+                         f"{x.shape[0]} rows")
+    if not (x.is_contiguous() and cand.is_contiguous() and validu.is_contiguous()):
+        raise ValueError("x, cand and validu must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary")
+    if cand.device != x.device or validu.device != x.device:
+        raise ValueError("x, cand and validu must be on one device")
+    if not 0 <= sent16 < x.shape[0] // 16:
+        raise ValueError(f"sent16 {sent16} is not a 16-row id of x")
+    if max(x.shape[0] // 16, cand.shape[1], rcap) >= 2**31 or rcap < 0:
+        raise ValueError("sizes must fit in int32 and rcap be >= 0")
+
+
 def _exact_prune(x, cand, nlocal_pad: int, validu, cutsq: float, rcap: int,
                  sent16: int):
     """Keep a candidate row iff some (unit atom, row atom) pair is within
     cutneigh (the stage mdbench_tpu's two row-list builds share); kept
-    rows in candidate order. Returns (rows (nu, rcap), numrows (nu,)),
-    built inside one "reneighbor.prune" span."""
+    rows in candidate order. Returns (rows (nu, rcap) in cand's dtype,
+    numrows (nu,) int64), built inside one "reneighbor.prune" span: on a
+    CPU tensor by `exact_prune_ref`, on a CUDA tensor by one launch of
+    ``csrc/verlet_prune.cu`` on the current stream (the same bits; built
+    from csrc/ at first use; the operands are checked first and a launch
+    error raises). Any other device raises."""
+    global PRUNE_LAUNCHES
     with region("reneighbor.prune"):
+        if x.device.type == "cpu":
+            return exact_prune_ref(x, cand, nlocal_pad, validu, cutsq, rcap, sent16)
+        if x.device.type != "cuda":
+            raise ValueError(f"no prune kernel for device {x.device}")
+        _check_prune_args(x, cand, nlocal_pad, validu, rcap, sent16)
         nu, cc = cand.shape
-        planes = [x[:, k].reshape(-1, 16) for k in range(3)]
-        units = [x[:nlocal_pad, k].reshape(nu, 16) for k in range(3)]
-        outs, nrs = [], []
-        for sl in _chunks(nu, 16 * cc * 16 * 2):
-            cu = cand[sl]
-            n = cu.shape[0]
-            rsq = None
-            for pj, pi in zip(planes, units):
-                dk = pi[sl][:, :, None] - pj[cu].reshape(n, 1, cc * 16)
-                rsq = dk * dk if rsq is None else rsq + dk * dk
-            # padding i-atoms: a padding atom and a padding slot of a row
-            # both sit at SENTINEL_COORD, so their raw rsq is 0
-            rsq = torch.where(validu[sl][:, :, None], rsq, FBIG)
-            mind = rsq.amin(1).reshape(n, cc, 16).amin(2)
-            keep = (mind <= cutsq) & (cu != sent16)
-            nrs.append(keep.sum(1))
-            outs.append(_compact(keep, cu, rcap, sent16))
-        return torch.cat(outs), torch.cat(nrs)
+        rows = torch.empty((nu, rcap), dtype=cand.dtype, device=x.device)
+        numrows = torch.empty((nu,), dtype=torch.int64, device=x.device)
+        if nu == 0:
+            return rows, numrows
+        lib = _build.load()
+        fn = lib.verlet_prune_f32 if x.dtype == torch.float32 else lib.verlet_prune_f64
+        with torch.cuda.device(x.device):
+            err = fn(x.data_ptr(), cand.data_ptr(), validu.data_ptr(), rows.data_ptr(),
+                     numrows.data_ptr(), nu, cc, rcap, sent16, x.shape[0] // 16,
+                     float(cutsq), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"verlet_prune launch failed: CUDA error {err}")
+        PRUNE_LAUNCHES += 1
+        return rows, numrows
 
 
 def derive_rowlists_from_cells(grid: CellGrid, cl: CellList, x, nlocal: int,

@@ -1,7 +1,8 @@
 """The force kernels (the exact-list LJ kernel csrc/lj_cluster_ilist.cu,
 the two EAM passes of csrc/eam_cluster.cu, the group-window LJ kernel
-csrc/lj_cluster_stream.cu and the verlet EAM passes of
-csrc/eam_verlet.cu, the LJ kernels untyped and typed, the
+csrc/lj_cluster_stream.cu, the verlet EAM passes of
+csrc/eam_verlet.cu and the verlet row lists' exact prune of
+csrc/verlet_prune.cu, the LJ kernels untyped and typed, the
 exact-list kernels flat and over capacity buckets, exact and with the
 approximate reciprocal, on the cluster lists and on the verlet scheme's
 16-atom row lists) and the probes' kernels (the bf16 form of
@@ -24,6 +25,8 @@ port's own engine builds on the card. Tolerances are relative to max |f|:
 1e-5 in float32, 1e-12 in float64 (the kernel sums in list order, the
 plain version in torch's reduction order)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +37,9 @@ from chip_smoke import (
     VERLET_EAM_CUTSQ,
     boundary_group_lists,
     hand_plan,
+    prune_edge_cases,
+    prune_operands,
+    prune_tensors,
     random_group_lists,
     random_tables,
     sweep_edge_calls,
@@ -57,6 +63,7 @@ from mdbench_tpu_torch.ops import eam as tev
 from mdbench_tpu_torch.ops import eam_cluster as tec
 from mdbench_tpu_torch.ops import lj_cluster as tlj
 from mdbench_tpu_torch.ops import row_fetch as trf
+from mdbench_tpu_torch.ops import verlet as tver
 from mdbench_tpu_torch.probes import bf16 as pbf16
 from mdbench_tpu_torch.state import SENTINEL_COORD
 
@@ -803,7 +810,8 @@ def test_cuda_verlet_engine_matches_cpu(cuda, extra):
     """A jittered 8^3 DP verlet box, card against the CPU plain path:
     step-0 forces <= 1e-10 of max |f|, 40-step temperatures <= 1e-9 (the
     half lists' index_add_ sums with atomics on the card); the row lists
-    launch K1 and no other kernel, the planar paths none."""
+    launch K1 and no other force kernel, and prune with the prune kernel;
+    the planar paths launch neither."""
     kw = dict(nx=8, ny=8, nz=8, ntimes=40, reneigh_every=10, precision="dp", **extra)
     x, v, _ = create_fcc_lattice(Params(**kw))
     x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
@@ -815,9 +823,129 @@ def test_cuda_verlet_engine_matches_cpu(cuda, extra):
     assert all(n == 0 for k, n in grew.items() if k != "LAUNCHES" or not rowlist)
     f_cpu = Simulation(Params(**kw), x=x, v=v, device="cpu").first_force()
     assert np.abs(f_gpu - f_cpu).max() <= 1e-10 * np.abs(f_cpu).max()
+    prunes = tver.PRUNE_LAUNCHES
     r_gpu = Simulation(Params(**kw), device=cuda).run(repeats=0)
+    # the row lists' rebuilds prune on the card, the planar paths not at all
+    assert (tver.PRUNE_LAUNCHES > prunes) == rowlist
     r_cpu = Simulation(Params(**kw), device="cpu").run(repeats=0)
     np.testing.assert_allclose(r_gpu.temps, r_cpu.temps, rtol=1e-9)
+
+
+PRUNE_NP = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _prune_equal(args):
+    """The prune kernel (one launch) against exact_prune_ref on the same
+    operands: the same dtypes, rows and counts, bit for bit."""
+    before = tver.PRUNE_LAUNCHES
+    got = tver._exact_prune(*args)
+    torch.cuda.synchronize()
+    assert tver.PRUNE_LAUNCHES == before + 1
+    want = tver.exact_prune_ref(*args)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["random", "overflow", "nan", "boundary", "wide"])
+@pytest.mark.parametrize("tdtype", [torch.float32, torch.float64])
+def test_cuda_prune_matches_plain(cuda, tdtype, name):
+    """The prune kernel on chip_smoke.prune_edge_cases (sentinel ids
+    mid-list, padding and all-padding units, rsq == cutsq and one ulp
+    either side, NaN and inf, more kept rows than rcap, 300 candidates a
+    unit) against exact_prune_ref, bit for bit, one launch a call."""
+    case = prune_edge_cases(PRUNE_NP[tdtype])[name]
+    rows, numrows = _prune_equal(prune_tensors(torch, case, cuda))
+    if name == "overflow":
+        assert bool((numrows > case["rcap"]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["x unaligned", "cand int32", "device"])
+def test_cuda_prune_wrapper_raises(cuda, bad):
+    """What the kernel does not take raises before any launch: x off a
+    16-byte boundary (its rows are read as 16-byte loads), int32
+    candidates, operands on two devices."""
+    x, cand, npad, validu, *rest = prune_tensors(
+        torch, prune_edge_cases(np.float32)["random"], cuda)
+    if bad == "x unaligned":
+        x = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape)
+    elif bad == "cand int32":
+        cand = cand.int()
+    else:
+        validu = validu.cpu()
+    before = tver.PRUNE_LAUNCHES
+    with pytest.raises((TypeError, ValueError)):
+        tver._exact_prune(x, cand, npad, validu, *rest)
+    assert tver.PRUNE_LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_cuda_prune_no_units(cuda):
+    """nu = 0: empty rows and counts of the contract's shapes, no launch."""
+    x, cand, _, validu, cutsq, rcap, sent16 = prune_tensors(
+        torch, prune_edge_cases(np.float32)["random"], cuda)
+    before = tver.PRUNE_LAUNCHES
+    rows, numrows = tver._exact_prune(x, cand[:0], 0, validu[:0], cutsq, rcap, sent16)
+    assert rows.shape == (0, rcap) and numrows.shape == (0,)
+    assert rows.dtype == cand.dtype and numrows.dtype == torch.int64
+    assert tver.PRUNE_LAUNCHES == before
+
+
+@pytest.fixture(scope="module")
+def prune_engine_operands():
+    """The exact prune's operands of a rebuild of the 131k SP box on the
+    card after a 20-step run, from derive_rowlists_from_ranges (the
+    engine's build) and from derive_rowlists_from_cells (the same engine
+    with its cells build switched on)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    sim = Simulation(Params(nx=32, ny=32, nz=32, ntimes=20, precision="sp"),
+                     device=torch.device("cuda"))
+    st = sim.run(repeats=0).state
+    out = {"ranges": prune_operands(sim, st)}
+    sim._rowbuild_ranges = False
+    out["cells"] = prune_operands(sim, st)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("build", ["ranges", "cells"])
+def test_cuda_prune_on_engine_candidates(prune_engine_operands, build, tdtype):
+    x, *rest = prune_engine_operands[build]
+    _, numrows = _prune_equal((x.to(tdtype), *rest))
+    assert int(numrows.min()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_prune_131k_engine_matches_cpu(cuda):
+    """A jittered 131k DP box's t=0 rebuild and step-0 force, card (the
+    prune kernel) against the CPU (exact_prune_ref) after the same
+    capacity grows: the same row lists and counts bit for bit, forces
+    within 1e-10 of max |f| (as the 8^3 engine test)."""
+    p = Params(nx=32, ny=32, nz=32, precision="dp")
+    x, v, _ = create_fcc_lattice(p)
+    x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
+    gpu = Simulation(p, x=x, v=v, device=cuda)
+    before = tver.PRUNE_LAUNCHES
+    f_gpu = gpu.first_force()
+    assert tver.PRUNE_LAUNCHES > before
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    try:
+        cpu = Simulation(p, x=x, v=v, device="cpu")
+        f_cpu = cpu.first_force()
+        nl_cpu = cpu.initial_state().nlist
+    finally:
+        torch.set_num_threads(threads)
+    assert np.abs(f_gpu - f_cpu).max() <= 1e-10 * np.abs(f_cpu).max()
+    nl_gpu = gpu.initial_state().nlist
+    assert gpu.rcap == cpu.rcap
+    assert torch.equal(nl_gpu.rows.cpu(), nl_cpu.rows)
+    assert torch.equal(nl_gpu.numrows.cpu(), nl_cpu.numrows)
 
 
 def _verlet_eam_outputs_match(outs, tdtype):
