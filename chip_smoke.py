@@ -372,12 +372,21 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      the same rows and counts as exact_prune_ref bit for bit; at the
      engines' ranges candidates ms back to back and on the device, the
      plain version's ms, the run's launches, the bound by operations.
+ 51. the verlet ranges build's candidate stage (csrc/verlet_ranges.cu):
+     on ranges_edge_cases (float32 and float64, and ccap at the random
+     case's largest union and one below it) and on the inputs of a
+     rebuild after a 20-step SP run of the 131k and the 1M engine, the
+     outputs of range_candidates_ref (cand and total where no unit has
+     more ranges than kcap), and at 131k derive_rowlists_from_ranges on
+     the card equal to the CPU's; at the engines' inputs the kernel's ms back to
+     back and on the device, the whole stage's and the plain chunk loop's
+     ms, a derive call's launches, the run's launches, the bound by bytes.
 
 Every kernel count is set to 0 just before each main path (phases 4, 8,
 12, both runs of 17, the probes' runs in 25 and 26, both runs of 27, each
 131k run of 30, the card's runs of 31, each stub of 32 (LJ: where it must
 stay 0), each run of 34-36, 37-40, 42-44 and 46-48, both runs of 49, and
-each run of 50: the prune kernel's)
+each run of 50 and 51: the prune and the ranges kernels')
 and read just after it. Each phase prints its wall ("phase N: X s") when the next one
 starts. Then it prints the script's wall time, a JSON line of the
 kernels, nvidia-smi's line, and {"ok": true, "device": {...}} as the
@@ -422,6 +431,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -521,6 +531,12 @@ PRUNE_KERNEL = {
     "route": "cuda",
     "source": "mdbench_tpu_torch/csrc/verlet_prune.cu",
     "replaces": "mdbench_tpu/ops/verlet.py:465",
+}
+RANGES_KERNEL = {
+    "name": "verlet_ranges",
+    "route": "cuda",
+    "source": "mdbench_tpu_torch/csrc/verlet_ranges.cu",
+    "replaces": "mdbench_tpu/ops/verlet.py:533-829 (XLA, not a Pallas kernel)",
 }
 REPEATS, CHAIN = 3, 3  # as python -m mdbench_tpu_torch.bench (phase 4)
 # every other timed 131k run: one timed region of one run, beside the
@@ -1163,6 +1179,92 @@ def prune_edge_cases(np_dtype, seed: int = 0) -> dict:
             "nan": nan,
             "boundary": prune_boundary_case(np_dtype),
             "wide": prune_case(np_dtype, seed + 3, nu=40, cc=300, rcap=304)}
+
+
+RANGES_BOX = (11.0, 12.5, 14.0)  # the ranges cases' box: 3 x 4 x 5 bins of cutneigh 2.8
+
+
+def _np_flat_bins(x, grid, np_dtype):
+    """ops/cells.coord_to_bin in numpy for finite rows: floor(x / binsize)
+    + 1 in np_dtype (as torch divides a tensor by a Python float),
+    clipped into the grid, z fastest."""
+    b = [np.clip(np.floor(x[:, d].astype(np_dtype) / np_dtype(grid.binsize[d])) + 1, 0,
+                 grid.dims[d] - 1).astype(np.int64) for d in range(3)]
+    return (b[0] * grid.dims[1] + b[1]) * grid.dims[2] + b[2]
+
+
+def ranges_case(np_dtype, seed: int = 0, ucol: int = 4, kcap: int = 64, ccap: int = 256,
+                ghosts: bool = True, nan: bool = False) -> dict:
+    """A numpy case for the ranges build's candidate stage
+    (ops/verlet._range_candidates) in RANGES_BOX at cutneigh 2.8: 1,625
+    locals uniform at the LJ box's density, 12 of them moved just past a
+    face (their bins in the margin ring, whose stencils reach past the
+    grid), sorted by bin as the engine sorts them; nlocal_pad 1,664, so
+    unit 101 holds 9 real atoms and units 102-103 none; with `ghosts`,
+    ~3,300 ghosts at the same density in the shell of width cutneigh
+    around the box, sorted by bin, and 37 sentinel rows in their block
+    (gcap a multiple of 16), else gcap 0; then 16 sentinel rows. Units
+    that hold two columns put overlapping and duplicate ranges in the
+    shared stencil columns. `nan` puts a NaN in the y of a real atom of
+    unit 40. Returns x (nrows, 3), nlocal, nlocal_pad, gcap, prd,
+    cutneigh, ucol, kcap and ccap."""
+    from mdbench_tpu_torch.ops.cells import make_cell_grid
+    from mdbench_tpu_torch.state import SENTINEL_COORD
+
+    rng = np.random.default_rng(seed)
+    prd, cut = np.array(RANGES_BOX), 2.8
+    grid = make_cell_grid(prd, cut, 0.8442)
+    nlocal, nlocal_pad = 1625, 1664
+    xl = rng.uniform(0.0, 1.0, (nlocal, 3)) * prd
+    for k, i in enumerate(rng.choice(nlocal, 12, replace=False)):
+        d = k % 3
+        xl[i, d] = -0.05 if k < 6 else prd[d] + 0.05
+    xl = xl.astype(np_dtype)
+    xl = xl[np.argsort(_np_flat_bins(xl, grid, np_dtype), kind="stable")]
+    if ghosts:
+        xg = rng.uniform(0.0, 1.0, (4970, 3)) * (prd + 2 * cut) - cut
+        xg = xg[((xg < 0.0) | (xg >= prd)).any(1)].astype(np_dtype)
+        xg = xg[np.argsort(_np_flat_bins(xg, grid, np_dtype), kind="stable")]
+        gcap = (len(xg) + 37 + 15) // 16 * 16
+    else:
+        xg, gcap = np.zeros((0, 3), np_dtype), 0
+    x = np.full((nlocal_pad + gcap + 16, 3), SENTINEL_COORD, np_dtype)
+    x[:nlocal] = xl
+    x[nlocal_pad : nlocal_pad + len(xg)] = xg
+    if nan:
+        x[40 * 16 + 5, 1] = np.nan
+    return dict(x=x, nlocal=nlocal, nlocal_pad=nlocal_pad, gcap=gcap,
+                prd=tuple(float(v) for v in prd), cutneigh=cut, ucol=ucol, kcap=kcap,
+                ccap=ccap)
+
+
+def ranges_edge_cases(np_dtype) -> dict:
+    """Every edge case of the ranges build's candidate stage by name (each
+    a ranges_case): "random" (the defaults, with room over every unit's
+    columns, ranges and candidates: padding atoms, units without a real
+    atom, margin columns, overlapping and duplicate ranges),
+    "ucol" (ucol 1, which units of two columns pass), "kcap" (kcap 8,
+    which most units' ranges pass), "narrow" (ccap 40, no multiple of 32,
+    which most units' candidates pass), "gcap0" (no ghost block) and "nan"
+    (a NaN coordinate in a real atom)."""
+    return {"random": ranges_case(np_dtype, 0),
+            "ucol": ranges_case(np_dtype, 1, ucol=1),
+            "kcap": ranges_case(np_dtype, 2, kcap=8),
+            "narrow": ranges_case(np_dtype, 3, ccap=40),
+            "gcap0": ranges_case(np_dtype, 4, ghosts=False),
+            "nan": ranges_case(np_dtype, 5, nan=True)}
+
+
+def ranges_tensors(torch, case: dict, device) -> tuple:
+    """A ranges case's operands as _range_candidates takes them: (grid,
+    x, nlocal, nlocal_pad, gcap, cutneigh, ucol, kcap, ccap), x on
+    `device`."""
+    from mdbench_tpu_torch.ops.cells import make_cell_grid
+
+    grid = make_cell_grid(np.array(case["prd"]), case["cutneigh"], 0.8442)
+    return (grid, torch.from_numpy(case["x"]).to(device), case["nlocal"],
+            case["nlocal_pad"], case["gcap"], case["cutneigh"], case["ucol"],
+            case["kcap"], case["ccap"])
 
 
 def prune_operands(sim, state) -> tuple:
@@ -4753,6 +4855,165 @@ def run_prune_phase(torch, dev, smi: str) -> list:
     return rows
 
 
+def ranges_diff(torch, args) -> tuple:
+    """The candidate kernel (_range_candidates on the card, one launch)
+    against range_candidates_ref on the same operands: n_dc, nk and their
+    maxima always; cand, total and the candidate maximum where no unit has
+    more ranges than kcap (past it the ranges kept among equal starts are
+    free); the three overflow flags. Returns (the kernel's outputs, the
+    names of what differs)."""
+    from mdbench_tpu_torch.ops import verlet
+
+    before = verlet.RANGES_LAUNCHES
+    got = verlet._range_candidates(*args)
+    torch.cuda.synchronize()
+    want = verlet.range_candidates_ref(*args)
+    cand, total, n_dc, nk, stats = got
+    ucol, kcap, ccap = args[-3:]
+    kovf = bool((want[3] > kcap).any())
+    checks = {
+        "launches": verlet.RANGES_LAUNCHES == before + 1,
+        "dtypes": all(a.dtype == torch.int64 for a in got),
+        "n_dc": torch.equal(n_dc, want[2]),
+        "nk": torch.equal(nk, want[3]),
+        "stats": stats[1:].tolist() == [int(want[2].max()), int(want[3].max()), 0],
+        "flags": [int(stats[0]) > ccap, int(stats[1]) > ucol, int(stats[2]) > kcap]
+        == [bool((want[1] > ccap).any()), bool((want[2] > ucol).any()), kovf],
+    }
+    if not kovf:
+        checks["cand"] = torch.equal(cand, want[0])
+        checks["total"] = (torch.equal(total, want[1])
+                           and int(stats[0]) == int(want[1].max()))
+    return got, [k for k, ok in checks.items() if not ok]
+
+
+def ranges_same(torch, args, what: str) -> tuple:
+    """ranges_diff, failing on a difference; returns the kernel's outputs."""
+    got, diff = ranges_diff(torch, args)
+    if diff:
+        fail(f"the ranges kernel disagrees with range_candidates_ref on {what}: {diff}")
+    return got
+
+
+def launches_of(torch, fn) -> int:
+    """Device work one call of fn queues (kernel launches, copies, sets:
+    the runtime calls portbench counts), from one torch.profiler pass after
+    a call outside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    queue = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cudaGraphLaunch",
+             "cudaMemcpy", "cudaMemset")
+    return sum(e.name.startswith(queue) for e in prof.events())
+
+
+def run_ranges_phase(torch, dev, smi: str) -> list:
+    """Phase 51: the verlet ranges build's candidate stage
+    (csrc/verlet_ranges.cu). On ranges_edge_cases in both types (with
+    ccap at the random case's largest union and one below it), then on
+    the inputs of a rebuild from the final state of a 20-step SP run of
+    the 131k and the 1M engine, the kernel must give range_candidates_ref's
+    outputs (ranges_same), and at 131k the card's
+    derive_rowlists_from_ranges the CPU's rows, counts, stats and flag on
+    the same x. At the engines' inputs: the kernel alone (on the bins and
+    tables) ms back to back and on the device (CUDA graph), the whole
+    stage (bins, tables, kernel) and the plain chunk loop's ms, the
+    launches of one derive_rowlists_from_ranges call, the kernel's
+    launches in the run, and the bound by bytes (the unit rows of x and
+    their bins, both start tables, the candidates and counts written).
+    Returns the JSON rows."""
+    from mdbench_tpu_torch.config import Params
+    from mdbench_tpu_torch.engine import Simulation
+    from mdbench_tpu_torch.ops import verlet
+    from mdbench_tpu_torch.ops.cells import coord_to_bin
+    from mdbench_tpu_torch.probes import graph_ms
+
+    phase(51)
+    names = []
+    for np_dtype in (np.float32, np.float64):
+        cases = ranges_edge_cases(np_dtype)
+        args = ranges_tensors(torch, cases["random"], dev)
+        top = int(verlet.range_candidates_ref(*args)[1].max())
+        cases.update({"total ccap": dict(cases["random"], ccap=top),
+                      "total ccap + 1": dict(cases["random"], ccap=top - 1)})
+        for name, case in cases.items():
+            names.append(f"{name} ({np_dtype.__name__})")
+            ranges_same(torch, ranges_tensors(torch, case, dev), names[-1])
+    print(f"ranges kernel on the edge cases {names}: range_candidates_ref's bits "
+          f"(cand and total where no unit passes kcap)", flush=True)
+    rows = []
+    for nx, tag in ((32, "131k"), (64, "1M")):
+        verlet.RANGES_LAUNCHES = 0
+        sim = Simulation(Params(nx=nx, ny=nx, nz=nx, ntimes=20, precision="sp"),
+                         device=dev)
+        st = sim.run(repeats=0).state
+        launches = verlet.RANGES_LAUNCHES
+        x = prune_operands(sim, st)[0]
+        c, cut = sim.caps, sim.params.cutneigh
+        args = (sim.grid, x, sim.nlocal, c.nlocal_pad, c.ghost, cut, sim.ucl, sim.ukr,
+                sim.ccap)
+        cand = ranges_same(torch, args, f"the {tag} engine's rebuild")[0]
+        derive = (sim.grid, x, sim.nlocal, c.nlocal_pad, c.ghost, sim.rcap, cut)
+        caps = dict(ucol=sim.ucl, kcap=sim.ukr, ccap=sim.ccap)
+        if nx == 32:  # the CPU's exact prune at 1M would take minutes
+            card = verlet.derive_rowlists_from_ranges(*derive, **caps)
+            threads = torch.get_num_threads()
+            torch.set_num_threads(os.cpu_count() or 1)
+            try:
+                cpu = verlet.derive_rowlists_from_ranges(sim.grid, x.cpu(), *derive[2:],
+                                                         **caps)
+            finally:
+                torch.set_num_threads(threads)
+            if not (all(torch.equal(a.cpu(), b) for a, b in zip(card[:3], cpu[:3]))
+                    and bool(card[3]) == bool(cpu[3]) is False):
+                fail("derive_rowlists_from_ranges on the card differs from the CPU")
+        bins = coord_to_bin(sim.grid, x[: c.nlocal_pad + c.ghost])
+        q = torch.arange(sim.grid.nbins + 1, device=dev)
+        tabs = (torch.searchsorted(bins[: sim.nlocal], q),
+                torch.searchsorted(bins[c.nlocal_pad :], q))
+        bins = bins[: c.nlocal_pad]
+
+        def kern():
+            return verlet._ranges_kernel(sim.grid, x, bins, *tabs, sim.nlocal, c.nlocal_pad,
+                                         cut, sim.ucl, sim.ukr, sim.ccap)
+
+        def stage():
+            return verlet._range_candidates(*args)
+
+        def plain():
+            return verlet.range_candidates_ref(*args)
+
+        out = kern()
+        ms = median_ms(torch, kern, 20)
+        dev_ms = graph_ms(kern, 20)
+        stage_ms = median_ms(torch, stage, 20)
+        plain_ms = median_ms(torch, plain, 1, batches=3, warm=1)
+        n_derive = launches_of(torch, lambda: verlet.derive_rowlists_from_ranges(
+            *derive, **caps))
+        bound = bound_of(0, nbytes_of(x[: c.nlocal_pad], bins, *tabs, *out[:2]),
+                         torch.float32)
+        print(f"ranges kernel at {tag} ({cand.shape[0]} units, ccap {sim.ccap}, ucol "
+              f"{sim.ucl}, kcap {sim.ukr}; {int(out[1][0].sum())} candidates, maxima "
+              f"{out[2].tolist()}): range_candidates_ref's bits; median {ms:.4f} ms "
+              f"back to back, {dev_ms:.4f} ms on the device (CUDA graph); the stage "
+              f"with its bins and tables {stage_ms:.4f} "
+              f"ms; plain {plain_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}, "
+              f"{bound[0] / dev_ms:.1%} of it on the device); {n_derive} launches a "
+              f"derive_rowlists_from_ranges call; {launches} kernel launches in the "
+              f"20-step run; on {smi}", flush=True)
+        rows.append(kernel_row({**RANGES_KERNEL, "name": f"verlet_ranges ({tag})"},
+                               launches, 0.0, ms, plain_ms, bound, device_ms=dev_ms))
+        del sim, st, x, cand, out, bins, tabs
+        torch.cuda.empty_cache()
+    for line in kernel_ptxas_lines("verlet_ranges_kernel"):
+        print("  " + line)
+    return rows
+
+
 def verlet_row_rows(torch, lj, p, x, nl, nlocal_pad: int, rbuckets, counts: dict,
                     tag: str, smi: str) -> list:
     """exact_list_rows on 16-atom row lists (share 2; planes
@@ -4993,6 +5254,9 @@ def main() -> int:
 
     # 50. the verlet row lists' exact prune: edge cases, 131k and 1M
     prune_rows = run_prune_phase(torch, dev, smi)
+
+    # 51. the ranges build's candidate stage: edge cases, 131k and 1M
+    ranges_rows = run_ranges_phase(torch, dev, smi)
     phase(None)
 
     wall = time.perf_counter() - t_start
@@ -5003,7 +5267,7 @@ def main() -> int:
         *eam_rows, stream_row,
         *typed_rows, *bucket_rows, bf16_row, *fetch_rows, *verlet_rows, *verlet_eam_rows,
         *domain_rows, *cluster_domain_rows, *mesh_rows, *scale_rows, *derive_rows,
-        *prune_rows,
+        *prune_rows, *ranges_rows,
     ]}))
     print(f"chip_smoke wall {wall:.1f} s", file=sys.stderr)
     print(smi)

@@ -98,6 +98,13 @@ _SIGNATURES = {
     #  nu, cc, rcap, sent16, n16, cutsq, stream)
     "verlet_prune_f32": ([_P] * 5 + [_I] * 5 + [ctypes.c_float, _P], ctypes.c_int),
     "verlet_prune_f64": ([_P] * 5 + [_I] * 5 + [ctypes.c_double, _P], ctypes.c_int),
+    # the verlet ranges build's candidate stage: (x, bins, starts_l,
+    #  starts_g, cand, counts, stats, nu, nlocal, ucol, kcap, ccap, d0, d1,
+    #  d2, sent16, bs0, bs1, cutsq, stream)
+    "verlet_ranges_f32": (
+        [_P] * 7 + [_I] * 9 + [ctypes.c_float] * 3 + [_P], ctypes.c_int),
+    "verlet_ranges_f64": (
+        [_P] * 7 + [_I] * 9 + [ctypes.c_double] * 3 + [_P], ctypes.c_int),
 }
 
 _lib = None  # the loaded library, once per process

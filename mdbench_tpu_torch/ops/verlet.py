@@ -25,7 +25,10 @@ when the lists carry bucket maps; on a CPU tensor their plain twins.
 The exact prune both row-list builds end with (`_exact_prune`) is, on a
 CUDA tensor, one launch of ``csrc/verlet_prune.cu`` (no distance leaves
 the registers), and on a CPU tensor its plain version `exact_prune_ref`:
-the same rows and counts, bit for bit.
+the same rows and counts, bit for bit. The ranges build's candidate
+stage before it (`_range_candidates`) is, on a CUDA tensor, one launch
+of ``csrc/verlet_ranges.cu`` after the bins and start tables, and on a
+CPU tensor its plain version `range_candidates_ref`.
 
 Large intermediates are built in chunks of units (or atoms) whose size
 only bounds memory: every sort and selection works within a row, so the
@@ -64,6 +67,9 @@ MAX_ELEMS = 1 << 25  # elements of one chunk's largest intermediate
 # kernel launches made by _exact_prune (a run's proof that the prune went
 # through csrc/verlet_prune.cu); callers may reset it to 0
 PRUNE_LAUNCHES = 0
+# kernel launches made by _range_candidates (the proof that a ranges build
+# went through csrc/verlet_ranges.cu); callers may reset it to 0
+RANGES_LAUNCHES = 0
 
 
 def _chunks(n: int, per_item: int, max_elems: int | None = None):
@@ -408,26 +414,21 @@ def derive_rowlists_from_cells(grid: CellGrid, cl: CellList, x, nlocal: int,
             overflow)
 
 
-def derive_rowlists_from_ranges(grid: CellGrid, x, nlocal: int, nlocal_pad: int,
-                                gcap: int, rcap: int, cutneigh: float, ucol: int = 4,
-                                kcap: int = 40, ccap: int = 128):
-    """Row lists from contiguous row ranges (mdbench_tpu's
-    derive_rowlists_from_ranges, the sort-free rebuild): with bin-sorted
-    locals and cell-sorted ghosts, each stencil column's candidates for a
-    unit are one contiguous range of 16-row ids per block (locals, ghosts
-    at rows [nlocal_pad, nlocal_pad + gcap)). Per unit: its distinct
-    columns' 3x3 stencils, an xy gap test of the unit bbox against each
-    stencil column, the z range of its cells, at most kcap non-empty
-    ranges sorted by their start and trimmed to disjoint intervals, their
-    rows enumerated in order (at most ccap), then the exact prune. The
-    same rows as derive_rowlists_from_cells. Returns (rows, numrows, stats
-    [candidates, distinct columns, non-empty ranges, 0], overflow)."""
-    nrows = x.shape[0]
-    if nrows % 16 or nlocal_pad % 16 or rcap % 8:
-        raise ValueError("nrows and nlocal_pad must be multiples of 16, rcap of 8")
+def range_candidates_ref(grid: CellGrid, x, nlocal: int, nlocal_pad: int, gcap: int,
+                         cutneigh: float, ucol: int, kcap: int, ccap: int):
+    """The plain version of `_range_candidates`, in torch ops on any device:
+    the candidate stage of derive_rowlists_from_ranges. Per unit: its
+    distinct columns' 3x3 stencils, an xy gap test of the unit bbox
+    against each stencil column, the z range of its cells as one
+    contiguous range of 16-row ids per block (locals, ghosts at rows
+    [nlocal_pad, nlocal_pad + gcap)), at most kcap non-empty ranges sorted
+    by their start and trimmed to disjoint intervals, their rows
+    enumerated in order (at most ccap), in chunks of units. Returns (cand
+    (nu, ccap) int64, total, n_dc, nk (nu,) int64: the union's length,
+    the distinct columns, the non-empty ranges)."""
     dev, dtype = x.device, x.dtype
     nu = nlocal_pad // 16
-    sent16 = nrows // 16 - 1
+    sent16 = x.shape[0] // 16 - 1
     d0, d1, d2 = grid.dims
     ncols = d0 * d1
     cutsq = cutneigh * cutneigh
@@ -445,7 +446,6 @@ def derive_rowlists_from_ranges(grid: CellGrid, x, nlocal: int, nlocal_pad: int,
 
     dcol, dzlo, dzhi, n_dc, _, validu = _unit_columns(grid, x, nlocal, nlocal_pad,
                                                       ucol)
-    sovf = (n_dc > ucol).any()
     (uxlo, uxhi), (uylo, uyhi) = (
         _unit_bounds(x[:nlocal_pad, k].reshape(nu, 16), validu) for k in range(2))
     coloff = column_offsets(grid, dev)
@@ -505,15 +505,131 @@ def derive_rowlists_from_ranges(grid: CellGrid, x, nlocal: int, nlocal_pad: int,
         cand = torch.gather(lo2, 1, k) + (lpos[None, :] - start)
         cands.append(torch.where(lpos[None, :] < total[:, None], cand, sent16))
         totals.append(total)
-    cand = torch.cat(cands)
-    total = torch.cat(totals)
-    nk = torch.cat(nks)
-    covf = (total > ccap).any()
-    kovf = (nk > kcap).any()
+    return torch.cat(cands), torch.cat(totals), n_dc, torch.cat(nks)
 
-    rows, numrows = _exact_prune(x, cand, nlocal_pad, validu, cutsq, rcap, sent16)
-    overflow = sovf | covf | kovf | (numrows > rcap).any()
-    stats = torch.stack([total.max(), n_dc.max(), nk.max(), torch.zeros_like(nk.max())])
+
+def _check_ranges_args(x, bins, starts_l, starts_g, nlocal: int, nlocal_pad: int,
+                       dims, ucol: int, kcap: int, ccap: int):
+    """The operands the candidate kernel takes (raises on any other): x
+    (nrows, 3) float32 or float64, contiguous, nrows a multiple of 16 with
+    nrows / 16 < RBIG; 0 <= nlocal <= nlocal_pad <= nrows, nlocal_pad a
+    multiple of 16; bins (nlocal_pad,) and starts_l, starts_g (nbins + 1,)
+    int64, contiguous, on x's device; ucol and kcap >= 1, ccap >= 0;
+    sizes within int32."""
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"x must be float32 or float64, got {x.dtype}")
+    named = {"bins": bins, "starts_l": starts_l, "starts_g": starts_g}
+    for name, t in named.items():
+        if t.dtype != torch.int64:
+            raise TypeError(f"{name} must be int64, got {t.dtype}")
+    if x.dim() != 2 or x.shape[1] != 3 or x.shape[0] % 16:
+        raise ValueError(f"x must be (nrows, 3) with nrows a multiple of 16, got "
+                         f"{tuple(x.shape)}")
+    if nlocal_pad % 16 or not 0 <= nlocal <= nlocal_pad <= x.shape[0]:
+        raise ValueError(f"need 0 <= nlocal {nlocal} <= nlocal_pad {nlocal_pad} (a "
+                         f"multiple of 16) <= x's {x.shape[0]} rows")
+    nbins = dims[0] * dims[1] * dims[2]
+    if tuple(bins.shape) != (nlocal_pad,):
+        raise ValueError(f"bins must be ({nlocal_pad},), got {tuple(bins.shape)}")
+    for name in ("starts_l", "starts_g"):
+        if tuple(named[name].shape) != (nbins + 1,):
+            raise ValueError(f"{name} must be ({nbins + 1},), got "
+                             f"{tuple(named[name].shape)}")
+    if not all(t.is_contiguous() for t in (x, *named.values())):
+        raise ValueError("x, bins, starts_l and starts_g must be contiguous")
+    if any(t.device != x.device for t in named.values()):
+        raise ValueError("x, bins, starts_l and starts_g must be on one device")
+    if x.shape[0] // 16 >= RBIG or nbins + 1 >= 2**31 or max(ucol, kcap, ccap) >= 2**31:
+        raise ValueError("sizes must fit in int32, and the 16-row ids below RBIG")
+    if ucol < 1 or kcap < 1 or ccap < 0:
+        raise ValueError(f"need ucol {ucol} and kcap {kcap} >= 1, ccap {ccap} >= 0")
+
+
+def _ranges_kernel(grid: CellGrid, x, bins, starts_l, starts_g, nlocal: int,
+                   nlocal_pad: int, cutneigh: float, ucol: int, kcap: int, ccap: int):
+    """One launch of ``csrc/verlet_ranges.cu`` on the current stream, on x,
+    the unit rows' bins and the two start tables (_check_ranges_args says
+    what it takes; they are checked first, and a launch error raises).
+    Returns (cand (nu, ccap) int64, counts (3, nu) int64 [total, n_dc,
+    nk], stats (4,) int64 [max total, max n_dc, max nk, 0])."""
+    global RANGES_LAUNCHES
+    _check_ranges_args(x, bins, starts_l, starts_g, nlocal, nlocal_pad, grid.dims, ucol,
+                       kcap, ccap)
+    dev = x.device
+    nu = nlocal_pad // 16
+    cand = torch.empty((nu, ccap), dtype=torch.int64, device=dev)
+    counts = torch.empty((3, nu), dtype=torch.int64, device=dev)
+    stats = torch.zeros((4,), dtype=torch.int64, device=dev)
+    if nu == 0:
+        return cand, counts, stats
+    lib = _build.load()
+    fn = lib.verlet_ranges_f32 if x.dtype == torch.float32 else lib.verlet_ranges_f64
+    bs0, bs1 = (float(b) for b in np.asarray(grid.binsize[:2], np_dtype(x.dtype)))
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), bins.data_ptr(), starts_l.data_ptr(), starts_g.data_ptr(),
+                 cand.data_ptr(), counts.data_ptr(), stats.data_ptr(), nu, nlocal, ucol,
+                 kcap, ccap, *grid.dims, x.shape[0] // 16 - 1, bs0, bs1,
+                 float(cutneigh * cutneigh), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"verlet_ranges launch failed: CUDA error {err}")
+    RANGES_LAUNCHES += 1
+    return cand, counts, stats
+
+
+def _range_candidates(grid: CellGrid, x, nlocal: int, nlocal_pad: int, gcap: int,
+                      cutneigh: float, ucol: int, kcap: int, ccap: int):
+    """The candidate stage of derive_rowlists_from_ranges (mdbench_tpu's,
+    before the prune): per unit the first ccap ids of the union of its
+    stencil columns' row ranges (range_candidates_ref says how). Returns
+    (cand (nu, ccap) int64, total, n_dc, nk (nu,) int64, stats (4,) int64
+    [max total, max n_dc, max nk, 0]). On a CPU tensor by
+    `range_candidates_ref`; on a CUDA tensor the bins of rows [0,
+    nlocal_pad + gcap) (coord_to_bin) and the two start tables in torch
+    ops, then one launch of ``csrc/verlet_ranges.cu`` (`_ranges_kernel`;
+    built from csrc/ at first use): the same bits, but that where nk >
+    kcap (an overflow) the ranges kept among equal starts may differ, and
+    with them cand and total, and that a real atom whose first coordinate
+    is at or past +-SENTINEL_COORD / 2 (a trajectory that has blown up)
+    counts in the trap bin here, in a margin bin in the plain version.
+    Any other device raises."""
+    if x.device.type == "cpu":
+        cand, total, n_dc, nk = range_candidates_ref(grid, x, nlocal, nlocal_pad, gcap,
+                                                     cutneigh, ucol, kcap, ccap)
+        stats = torch.stack([total.max(), n_dc.max(), nk.max(),
+                             torch.zeros_like(nk.max())])
+        return cand, total, n_dc, nk, stats
+    if x.device.type != "cuda":
+        raise ValueError(f"no ranges kernel for device {x.device}")
+    bins = coord_to_bin(grid, x[: nlocal_pad + gcap])
+    q = torch.arange(grid.nbins + 1, device=x.device)
+    starts_l = torch.searchsorted(bins[:nlocal], q)
+    starts_g = torch.searchsorted(bins[nlocal_pad:], q)
+    cand, counts, stats = _ranges_kernel(grid, x, bins[:nlocal_pad], starts_l, starts_g,
+                                         nlocal, nlocal_pad, cutneigh, ucol, kcap, ccap)
+    return cand, *counts, stats
+
+
+def derive_rowlists_from_ranges(grid: CellGrid, x, nlocal: int, nlocal_pad: int,
+                                gcap: int, rcap: int, cutneigh: float, ucol: int = 4,
+                                kcap: int = 40, ccap: int = 128):
+    """Row lists from contiguous row ranges (mdbench_tpu's
+    derive_rowlists_from_ranges, the sort-free rebuild): with bin-sorted
+    locals and cell-sorted ghosts, each stencil column's candidates for a
+    unit are one contiguous range of 16-row ids per block; the candidate
+    stage (`_range_candidates`: on a CUDA tensor one kernel launch), then
+    the exact prune (`_exact_prune`). The same rows as
+    derive_rowlists_from_cells. Returns (rows, numrows, stats
+    [candidates, distinct columns, non-empty ranges, 0], overflow)."""
+    nrows = x.shape[0]
+    if nrows % 16 or nlocal_pad % 16 or rcap % 8:
+        raise ValueError("nrows and nlocal_pad must be multiples of 16, rcap of 8")
+    cand, _, _, _, stats = _range_candidates(grid, x, nlocal, nlocal_pad, gcap, cutneigh,
+                                             ucol, kcap, ccap)
+    validu = (torch.arange(nlocal_pad, device=x.device) < nlocal).reshape(-1, 16)
+    cutsq = cutneigh * cutneigh
+    rows, numrows = _exact_prune(x, cand, nlocal_pad, validu, cutsq, rcap, nrows // 16 - 1)
+    overflow = ((stats[0] > ccap) | (stats[1] > ucol) | (stats[2] > kcap)
+                | (numrows > rcap).any())
     return (rows.to(torch.int32).contiguous(), numrows.to(torch.int32), stats,
             overflow)
 

@@ -1,8 +1,9 @@
 """The force kernels (the exact-list LJ kernel csrc/lj_cluster_ilist.cu,
 the two EAM passes of csrc/eam_cluster.cu, the group-window LJ kernel
 csrc/lj_cluster_stream.cu, the verlet EAM passes of
-csrc/eam_verlet.cu and the verlet row lists' exact prune of
-csrc/verlet_prune.cu, the LJ kernels untyped and typed, the
+csrc/eam_verlet.cu, the verlet row lists' exact prune of
+csrc/verlet_prune.cu and the ranges build's candidate stage of
+csrc/verlet_ranges.cu, the LJ kernels untyped and typed, the
 exact-list kernels flat and over capacity buckets, exact and with the
 approximate reciprocal, on the cluster lists and on the verlet scheme's
 16-atom row lists) and the probes' kernels (the bf16 form of
@@ -37,9 +38,13 @@ from chip_smoke import (
     VERLET_EAM_CUTSQ,
     boundary_group_lists,
     hand_plan,
+    launches_of,
     prune_edge_cases,
     prune_operands,
     prune_tensors,
+    ranges_diff,
+    ranges_edge_cases,
+    ranges_tensors,
     random_group_lists,
     random_tables,
     sweep_edge_calls,
@@ -811,7 +816,8 @@ def test_cuda_verlet_engine_matches_cpu(cuda, extra):
     step-0 forces <= 1e-10 of max |f|, 40-step temperatures <= 1e-9 (the
     half lists' index_add_ sums with atomics on the card); the row lists
     launch K1 and no other force kernel, and prune with the prune kernel;
-    the planar paths launch neither."""
+    the planar paths launch neither; the row lists' rebuilds take their
+    candidates from the ranges kernel."""
     kw = dict(nx=8, ny=8, nz=8, ntimes=40, reneigh_every=10, precision="dp", **extra)
     x, v, _ = create_fcc_lattice(Params(**kw))
     x = x + np.random.default_rng(3).normal(0.0, 0.05, x.shape)
@@ -823,10 +829,13 @@ def test_cuda_verlet_engine_matches_cpu(cuda, extra):
     assert all(n == 0 for k, n in grew.items() if k != "LAUNCHES" or not rowlist)
     f_cpu = Simulation(Params(**kw), x=x, v=v, device="cpu").first_force()
     assert np.abs(f_gpu - f_cpu).max() <= 1e-10 * np.abs(f_cpu).max()
-    prunes = tver.PRUNE_LAUNCHES
+    prunes, ranges = tver.PRUNE_LAUNCHES, tver.RANGES_LAUNCHES
     r_gpu = Simulation(Params(**kw), device=cuda).run(repeats=0)
-    # the row lists' rebuilds prune on the card, the planar paths not at all
+    # the row lists' rebuilds (the ranges build: sorted atoms) take their
+    # candidates from the ranges kernel and prune on the card, the planar
+    # paths launch neither
     assert (tver.PRUNE_LAUNCHES > prunes) == rowlist
+    assert (tver.RANGES_LAUNCHES > ranges) == rowlist
     r_cpu = Simulation(Params(**kw), device="cpu").run(repeats=0)
     np.testing.assert_allclose(r_gpu.temps, r_cpu.temps, rtol=1e-9)
 
@@ -946,6 +955,141 @@ def test_cuda_prune_131k_engine_matches_cpu(cuda):
     assert gpu.rcap == cpu.rcap
     assert torch.equal(nl_gpu.rows.cpu(), nl_cpu.rows)
     assert torch.equal(nl_gpu.numrows.cpu(), nl_cpu.numrows)
+
+
+RANGES_CASES = ("random", "ucol", "kcap", "narrow", "gcap0", "nan")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", RANGES_CASES)
+@pytest.mark.parametrize("tdtype", [torch.float32, torch.float64])
+def test_cuda_ranges_matches_plain(cuda, tdtype, name):
+    """The candidate kernel on chip_smoke.ranges_edge_cases (padding atoms,
+    units without a real atom, margin columns, overlapping and duplicate
+    ranges, more columns than ucol, more ranges than kcap, ccap 40, no
+    ghost block, a NaN coordinate) against range_candidates_ref on the
+    same card tensors, one launch a call (chip_smoke.ranges_diff: cand
+    and total bit for bit where no unit passes kcap; n_dc, nk, the maxima
+    and the flags always); the overflow cases raise their flags."""
+    case = ranges_edge_cases(PRUNE_NP[tdtype])[name]
+    (_, _, _, _, stats), diff = ranges_diff(torch, ranges_tensors(torch, case, cuda))
+    assert diff == []
+    flags = [int(stats[0]) > case["ccap"], int(stats[1]) > case["ucol"],
+             int(stats[2]) > case["kcap"]]
+    assert flags == [name == "narrow", name == "ucol", name == "kcap"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("past", [0, 1])
+@pytest.mark.parametrize("tdtype", [torch.float32, torch.float64])
+def test_cuda_ranges_total_at_ccap(cuda, tdtype, past):
+    """ccap exactly the random case's largest union, and one below it:
+    the kernel's candidates and totals are range_candidates_ref's, the
+    largest total ccap or ccap + 1, the flag up only past it."""
+    case = ranges_edge_cases(PRUNE_NP[tdtype])["random"]
+    args = ranges_tensors(torch, case, cuda)
+    top = int(tver.range_candidates_ref(*args)[1].max())
+    (cand, total, _, _, stats), diff = ranges_diff(torch, (*args[:-1], top - past))
+    assert diff == []
+    assert int(total.max()) == int(stats[0]) == top and cand.shape[1] == top - past
+    assert (cand[int(total.argmax())] != case["x"].shape[0] // 16 - 1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["x float16", "x strided", "kcap 0", "ccap negative"])
+def test_cuda_ranges_wrapper_raises(cuda, bad):
+    """What the kernel does not take raises before any launch."""
+    args = list(ranges_tensors(torch, ranges_edge_cases(np.float32)["random"], cuda))
+    if bad == "x float16":
+        args[1] = args[1].half()
+    elif bad == "x strided":
+        args[1] = torch.cat([args[1], args[1]], 1)[:, ::2]
+    elif bad == "kcap 0":
+        args[7] = 0
+    else:
+        args[8] = -8
+    before = tver.RANGES_LAUNCHES
+    with pytest.raises((TypeError, ValueError)):
+        tver._range_candidates(*args)
+    assert tver.RANGES_LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_cuda_ranges_no_units(cuda):
+    """nu = 0: empty candidates and counts of the contract's shapes, zero
+    maxima, no launch."""
+    grid, x, _, _, gcap, cut, ucol, kcap, ccap = ranges_tensors(
+        torch, ranges_edge_cases(np.float32)["random"], cuda)
+    before = tver.RANGES_LAUNCHES
+    cand, total, n_dc, nk, stats = tver._range_candidates(grid, x, 0, 0, gcap, cut, ucol,
+                                                          kcap, ccap)
+    assert cand.shape == (0, ccap) and total.shape == n_dc.shape == nk.shape == (0,)
+    assert stats.tolist() == [0, 0, 0, 0]
+    assert tver.RANGES_LAUNCHES == before
+
+
+@pytest.fixture(scope="module")
+def ranges_engine_inputs():
+    """The ranges build's inputs in a rebuild of the 8^3 and the 131k SP
+    boxes on the card after a 20-step run: (grid, x, nlocal, nlocal_pad,
+    gcap, rcap, cutneigh) and the engine's (ucol, kcap, ccap)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    out = {}
+    for nx in (8, 32):
+        sim = Simulation(Params(nx=nx, ny=nx, nz=nx, ntimes=20, precision="sp"),
+                         device=torch.device("cuda"))
+        x = prune_operands(sim, sim.run(repeats=0).state)[0]
+        c = sim.caps
+        out[nx] = ((sim.grid, x, sim.nlocal, c.nlocal_pad, c.ghost, sim.rcap,
+                    sim.params.cutneigh), dict(ucol=sim.ucl, kcap=sim.ukr, ccap=sim.ccap))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nx", [8, 32])
+def test_cuda_derive_ranges_matches_cpu(ranges_engine_inputs, nx, tdtype):
+    """derive_rowlists_from_ranges on the card (the ranges kernel, then the
+    prune kernel: one launch each) against the CPU (range_candidates_ref,
+    exact_prune_ref) on the same x of an engine's rebuild at 8^3 and 131k:
+    the same rows, counts, stats and flag; the kernel's candidates
+    range_candidates_ref's on the card."""
+    (grid, x, *rest), caps = ranges_engine_inputs[nx]
+    x = x.to(tdtype)
+    before = (tver.RANGES_LAUNCHES, tver.PRUNE_LAUNCHES)
+    card = tver.derive_rowlists_from_ranges(grid, x, *rest, **caps)
+    torch.cuda.synchronize()
+    assert (tver.RANGES_LAUNCHES, tver.PRUNE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    try:
+        cpu = tver.derive_rowlists_from_ranges(grid, x.cpu(), *rest, **caps)
+    finally:
+        torch.set_num_threads(threads)
+    for a, b in zip(card[:3], cpu[:3]):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    assert bool(card[3]) == bool(cpu[3]) is False
+    nlocal, npad, gcap, _, cut = rest
+    args = (grid, x, nlocal, npad, gcap, cut, caps["ucol"], caps["kcap"], caps["ccap"])
+    assert ranges_diff(torch, args)[1] == []
+
+
+@pytest.mark.cuda
+def test_cuda_derive_ranges_launches(ranges_engine_inputs):
+    """One derive_rowlists_from_ranges call on the card at 131k queues at
+    most 45 launches, copies or sets (no chunk loop: within 2 of an 8^3
+    call's, whatever nu; torch's larger reductions may add a set), among
+    them one ranges and one prune kernel."""
+    counts = {}
+    for nx in (8, 32):
+        (grid, x, *rest), caps = ranges_engine_inputs[nx]
+        before = (tver.RANGES_LAUNCHES, tver.PRUNE_LAUNCHES)
+        counts[nx] = launches_of(torch, lambda: tver.derive_rowlists_from_ranges(
+            grid, x, *rest, **caps))
+        assert (tver.RANGES_LAUNCHES, tver.PRUNE_LAUNCHES) == (before[0] + 2,
+                                                               before[1] + 2)
+    assert max(counts.values()) <= 45 and abs(counts[32] - counts[8]) <= 2
 
 
 def _verlet_eam_outputs_match(outs, tdtype):
